@@ -12,16 +12,30 @@ script exits non-zero:
      NoRoutSteps=24, chunk 512, lakes, reservoirs, split routing, the
      evaporation chain): float32 within 1e-5 and float64 within 1e-12 of
      each output's max, and float32 once more with single routing and no
-     evaporation chain; two kernel runs bitwise equal; and the whole float64
-     step on the card against the same step on the CPU (within 1e-10);
+     evaporation chain; the same with the optional sideflow terms (water
+     use, inflow ramp, transmission loss) from with_options, in float32 and
+     float64, and in float32 with the evaporation chain outside the kernel
+     (operand `eva`); two kernel runs bitwise equal; and the whole float64
+     step, default and all-options, on the card against the same step on the
+     CPU (within 1e-10);
   3. the main path: the continental synthetic model (1200x1000,
      NoRoutSteps=24, chunk 512, float32) through build_multi_step with
-     ChanQAvg output, one warm-up step and five timed steps; the kernel's
-     launch count must equal the steps run and every state entry must be
-     finite;
+     ChanQAvg output, one warm-up step and two timed batches of five steps
+     (the first still holds the start-up transient of a fresh process, the
+     second is the steady state); the kernel's launch count must equal the
+     steps run and every state entry must be finite; then one step under
+     torch.profiler for the device's busy share;
   4. at the main-path shape: the kernel's time (CUDA events over repeated
      launches) and its bound; the plain version's time (one run, ~100 s)
-     and the kernel held to it (float32, within 1e-5 of each output's max).
+     and the kernel held to it (float32, within 1e-5 of each output's max);
+  5. the all-options path: the continental model with every option of
+     with_options on (water use, rice, inflow, transmission loss, polders,
+     water levels, pF, mass-balance reports) through build_multi_step, timed
+     and profiled as in phase 3; launches equal steps, every state entry
+     finite, TransCum non-negative and not all zero; the kernel's time with
+     the sideflow terms on, and its bound.
+Run as `python3 chip_smoke.py --pow-ops` it only counts the arithmetic
+instructions of pow and powf (the figures of POW_FLOPS below).
 The line before the last is a JSON object of per-kernel figures; the last is
 {"ok": true, "device": {...}}. Needs no network; stops what it starts.
 """
@@ -35,15 +49,33 @@ import time
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # floating-point operations per lane of the sub-step kernel, counted from
-# csrc/kinwave_substep.cu (float32, beta = 3/5, split routing): per
-# sub-step the sideflow (2), its split (10), lateral inflows (2), the two
-# cc sums (6), two polynomial Newton solves (2 x 76: bit-hack guesses 7,
-# five iterations of 13, v^3 and v^5 4), the state updates (10) and sumdis
-# (1); per evaporation hop 7; per lane 12 of set-up. Upstream-inflow adds
-# are counted from the tables (one per valid source, lane-row and sub-step).
+# csrc/kinwave_substep.cu. Polynomial path (float32, beta = 3/5, split
+# routing): per sub-step the sideflow (2), its split (10), lateral inflows
+# (2), the two cc sums (6), two polynomial Newton solves (2 x 76: bit-hack
+# guesses 7, five iterations of 13, v^3 and v^5 4), the state updates (10)
+# and sumdis (1); per evaporation hop 7; per lane 12 of set-up.
+# Upstream-inflow adds are counted from the tables (one per valid source,
+# lane-row and sub-step).
 FLOPS_PER_SUBSTEP = 2 + 10 + 2 + 6 + 2 * 76 + 10 + 1
 FLOPS_PER_HOP = 7
 FLOPS_PER_LANE = 12
+# q-space path (float64, or beta != 3/5), per routed lane-row and sub-step:
+# the cc sum (3 and 1 pow), newton_q (8 and 3 pow of set-up; each of its 4
+# (float32) or 6 (float64) unrolled iterations 9 and 1 pow; the loop has no
+# early exit), the storage and discharge round trip (5 and 2 pow); shared by
+# the rows: sideflow (2), and with split routing its split (10), lateral
+# inflows (2), chanq and sumdis (4), against 1 for single routing.
+QSPACE_ROW = lambda iters: (3 + 8 + 9 * iters + 5, 1 + 3 + iters + 2)     # (plain, pow)
+QSPACE_ITERS = {"float32": 4, "float64": 6}
+# one pow, by the arithmetic instructions (add, multiply; a fused
+# multiply-add counts 2) in the SASS that nvcc 12 emits for pow / powf on
+# sm_90a, every branch included: counted by `python3 chip_smoke.py --pow-ops`
+POW_FLOPS = {"float32": 63, "float64": 122}
+# the optional sideflow terms: eva and wuse 1 per lane each; per sub-step
+# the inflow ramp 3; the transmission loss 4, and on lanes with uptrans set
+# 1 and 2 pow more
+FLOPS_RAMP = 3
+FLOPS_TRANS = (4, 1, 2)
 
 
 def smi_line():
@@ -84,14 +116,30 @@ def bound(xs, ys, spec):
     written once over the HBM rate, against the operations this run's
     inputs need over the non-tensor peak for their type."""
     import torch
+    from lisflood_tpu_torch.ops.kinwave_substep import _poly
     nbytes = sum(v.numel() * v.element_size() for v in list(xs.values()) + list(ys.values()))
     p_pad = spec.n_chunks * spec.chunk
     L = 2 if spec.split else 1
     n_ups = int((xs["ups"] >= 0).sum())
     n_ev = int((xs["ev_ups"] >= 0).sum()) if spec.E else 0
-    flops = (p_pad * (spec.T * FLOPS_PER_SUBSTEP + spec.E * FLOPS_PER_HOP + FLOPS_PER_LANE)
-             + n_ups * spec.T * L + n_ev * max(spec.E - 1, 0))
     dtype = str(xs["dx"].dtype).replace("torch.", "")
+    pow_flops = POW_FLOPS[dtype]
+    if _poly(spec, xs["dx"].dtype):
+        assert spec.split, "the polynomial path's count is split routing's"
+        per_substep = FLOPS_PER_SUBSTEP
+    else:
+        plain, pows = QSPACE_ROW(QSPACE_ITERS[dtype])
+        per_substep = L * (plain + pows * pow_flops) + 2 + (10 + 2 + 4 if spec.split else 1)
+    per_lane = FLOPS_PER_LANE + ("eva" in xs) + ("wuse" in xs)
+    flops = 0
+    if "qin_old" in xs:
+        per_substep += FLOPS_RAMP
+    if "uptrans" in xs:
+        every, masked, pows = FLOPS_TRANS
+        per_substep += every
+        flops += int((xs["uptrans"] != 0).sum()) * spec.T * (masked + pows * pow_flops)
+    flops += (p_pad * (spec.T * per_substep + spec.E * FLOPS_PER_HOP + per_lane)
+              + n_ups * spec.T * L + n_ev * max(spec.E - 1, 0))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     print(f"  bound: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms; "
@@ -109,26 +157,40 @@ def kernel_inputs(model, device, dtype, seed=0):
     cfg, params, state, aux = model
     step, p = build_step(cfg, params, aux, dtype=dtype, device=device)
     s = step.prepare_state(state)
-    f = to_device(synthetic_forcing(cfg.num_pixels, seed=seed), device, dtype)
+    f = to_device({**synthetic_forcing(cfg.num_pixels, seed=seed),
+                   **aux.get("forcing_options", {})}, device, dtype)
     spec, xs = kernel_operands(cfg, p, s, step.land_phase(s, f), step.routers)
     return step, s, f, spec, xs
 
 
 def phase_mid(torch, ks):
     """Phase 2: kernel vs plain version at 240x200 in float32 and float64
-    with every main-path phase, and in float32 with single routing and no
-    evaporation chain (the kernel's one-lane sub-step); then the whole
-    float64 step on the card vs on the CPU."""
-    from lisflood_tpu_torch.models.synthetic import build_synthetic_model
+    with every main-path phase, in float32 with single routing and no
+    evaporation chain (the kernel's one-lane sub-step), and with the optional
+    sideflow terms; then the whole float64 step, default and all-options, on
+    the card vs on the CPU. Returns the figures of the float32 sideflow case
+    and of the float64 default case."""
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, with_options
     model = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512)
     single = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512,
                                    split_routing=False, open_water=False)
-    cases = ((model, torch.float32, 1e-5, "all phases"),
-             (model, torch.float64, 1e-12, "all phases"),
-             (single, torch.float32, 1e-5, "single routing, no evaporation chain"))
-    for m, dtype, tol, what in cases:
+    options = with_options(model)
+    eva_outside = with_options(model, eva_outside_window=True)
+    side = {"wuse", "qin_old", "uptrans"}
+    # (model, dtype, tolerance, label, optional operands expected)
+    cases = ((model, torch.float32, 1e-5, "all phases", set()),
+             (model, torch.float64, 1e-12, "all phases", set()),
+             (single, torch.float32, 1e-5, "single routing, no evaporation chain", set()),
+             (options, torch.float32, 1e-5, "all phases, sideflow terms", side),
+             (options, torch.float64, 1e-12, "all phases, sideflow terms", side),
+             (eva_outside, torch.float32, 1e-5, "sideflow terms, evaporation outside",
+              side | {"eva"}))
+    figures = {}
+    for m, dtype, tol, what, terms in cases:
         step, s, f, spec, xs = kernel_inputs(m, "cuda", dtype)
-        assert (spec.split and spec.E > 0) == (m is model), spec
+        assert spec.split == (m is not single), spec
+        assert (spec.E > 0) == (m is model or m is options), spec
+        assert {k for k in ("eva", "wuse", "qin_old", "uptrans") if k in xs} == terms, sorted(xs)
         assert "lk_pos" in xs and "rs_pos" in xs, spec
         ys = ks.kinwave_substep(spec, xs)
         ys2 = ks.kinwave_substep(spec, xs)
@@ -139,6 +201,8 @@ def phase_mid(torch, ks):
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         rel, absd = max_rel_err(ys, ref)
+        if "trans" in ys:
+            assert bool(torch.isfinite(ys["trans"]).all()) and float(ys["trans"].max()) > 0
         name = str(dtype).replace("torch.", "")
         kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 3)
         print(f"  240x200 {name} ({what}): kernel vs plain max rel err {rel:.3e} "
@@ -147,17 +211,111 @@ def phase_mid(torch, ks):
               f"for {spec.n_chunks} chunks", flush=True)
         assert rel <= tol, f"{name}: kernel disagrees with the plain version: {rel}"
         assert bitwise, "two kernel runs differ"
+        if (m is options and dtype == torch.float32) or (m is model and dtype == torch.float64):
+            bound_ms, bound_by = bound(xs, ys, spec)
+            figures[name] = {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd,
+                             "bound_ms": bound_ms, "bound_by": bound_by}
     # the whole float64 step, card (kernel) vs CPU (plain version)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        step, s, f, _, _ = kernel_inputs(model, dev, torch.float64)
-        s2, _ = step(s, f)
-        outs[dev] = step.natural_state(s2)
-    worst = max((float((outs["cuda"][k].cpu() - v).abs().max()
-                       / max(float(v.abs().max()), 1e-300)), k) for k, v in outs["cpu"].items())
-    print(f"  240x200 float64 step, card vs CPU: max rel err {worst[0]:.3e} ({worst[1]})",
-          flush=True)
-    assert worst[0] <= 1e-10, worst
+    for m, what in ((model, "default"), (options, "all-options")):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            step, s, f, _, _ = kernel_inputs(m, dev, torch.float64)
+            s2, d = step(s, f)
+            outs[dev] = step.natural_state(s2)
+            if m is options:
+                outs[dev].update({k: d[k] for k in ("ChanQAvg", "MBError", "MBErrorSplitRoutingM3")})
+        # the two mass-balance residuals are differences of catchment totals
+        # (summed with atomics on the card): held on the scale of those totals
+        scale = {k: float(outs["cpu"][total].abs().max()) for k, total in
+                 (("MBError", "WaterInit"), ("MBErrorSplitRoutingM3", "StorageStepINIT"))
+                 if k in outs["cpu"]}
+        worst = max((float((outs["cuda"][k].cpu() - v).abs().max()
+                           / scale.get(k, max(float(v.abs().max()), 1e-300))), k)
+                    for k, v in outs["cpu"].items())
+        print(f"  240x200 float64 {what} step, card vs CPU: max rel err {worst[0]:.3e} "
+              f"({worst[1]})", flush=True)
+        assert worst[0] <= 1e-10, worst
+    return figures
+
+
+STEPS_RUN = 11      # one warm-up step and two timed batches of five
+
+
+def timed_steps(torch, ks, multi, s, forcing, card):
+    """One warm-up step, then two batches of five timed steps over the six
+    forcings, with the kernel's launch count set to 0 just before and read
+    just after. The first batch still pays for a fresh process (the caching
+    allocator grows, the soil columns relax from their initial state); the
+    second is the steady state. Returns (state, the second batch's outputs,
+    its milliseconds per step, launches)."""
+    stack = lambda fs: {k: torch.stack([f[k] for f in fs]) for k in fs[0]}
+    ks.kinwave_substep.launches = 0
+    s, _ = multi(s, stack(forcing[:1]))
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        s, outs = multi(s, stack(forcing[1:]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / 5 * 1e3)
+    launches = ks.kinwave_substep.launches
+    cells = next(iter(outs.values())).shape[1]
+    print(f"  first 5 steps after the warm-up {ms[0]:.1f} ms/step, next 5 steps {ms[1]:.1f} "
+          f"ms/step = {cells / ms[1] * 1e3:.4g} cells*steps/s on {card}", flush=True)
+    print(f"  kinwave_substep launches {launches} for {STEPS_RUN} steps", flush=True)
+    assert launches == STEPS_RUN, (launches, STEPS_RUN)
+    return s, outs, ms[1], launches
+
+
+def profile_step(torch, step, s, f, step_ms):
+    """One step under torch.profiler: the device's busy time by kernel rows,
+    against the unprofiled steady step time `step_ms`. A profiler that
+    records no device time is reported and is no failure."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(s, f)
+        torch.cuda.synchronize()
+    device_us = lambda e: (getattr(e, "self_device_time_total", 0)
+                           or getattr(e, "self_cuda_time_total", 0))
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(device_us(e) for e in rows) / 1e3
+    if busy_ms == 0:
+        print("  torch.profiler recorded no device time", flush=True)
+        return
+    rows.sort(key=device_us, reverse=True)
+    top = "; ".join(f"{e.key[:40]} {device_us(e) / 1e3:.1f} ms x{e.count}" for e in rows[:4])
+    print(f"  one step under torch.profiler: device busy {busy_ms:.1f} ms in "
+          f"{sum(e.count for e in rows)} kernels, {max(1 - busy_ms / step_ms, 0) * 100:.0f}% idle "
+          f"of the {step_ms:.1f} ms step; largest: {top}", flush=True)
+
+
+def count_pow_ops():
+    """Counts the arithmetic instructions in the SASS of pow and powf for
+    sm_90a (an FMA as 2): the figures of POW_FLOPS."""
+    import os
+    import re
+    import tempfile
+    src = ('extern "C" __global__ void pow64(double* a, const double* b) '
+           '{ a[threadIdx.x] = pow(a[threadIdx.x], b[threadIdx.x]); }\n'
+           'extern "C" __global__ void pow32(float* a, const float* b) '
+           '{ a[threadIdx.x] = powf(a[threadIdx.x], b[threadIdx.x]); }\n')
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
+        with open(cu, "w") as fh:
+            fh.write(src)
+        subprocess.run([os.path.join(cuda, "bin", "nvcc"), "-arch=sm_90a", "-O3", "-fmad=false",
+                        "-cubin", "-o", cubin, cu], check=True, timeout=300)
+        sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+    for fn, prefix in (("pow64", "D"), ("pow32", "F")):
+        body = sass[sass.index("Function : " + fn):]
+        body = body[:body.index("Function : ", 20)] if "Function : " in body[20:] else body
+        ops = re.findall(r"\b(%s(?:ADD|MUL|FMA))\b" % prefix, body)
+        flops = sum(2 if op.endswith("FMA") else 1 for op in ops)
+        print(f"{fn}: {len(ops)} arithmetic instructions, {flops} operations", flush=True)
+    return 0
 
 
 def main():
@@ -165,9 +323,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--pow-ops"]:
+        return count_pow_ops()
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
-    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+    from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
+                                                     with_options)
     from lisflood_tpu_torch.ops import _build
     from lisflood_tpu_torch.ops import kinwave_substep as ks
     from lisflood_tpu_torch.ops.routing_ops import kernel_operands
@@ -186,11 +347,12 @@ def main():
                 print(f"  {name} ptxas: {line.strip()}", flush=True)
 
     print("phase 2: kernel vs plain version, 240x200, T=24, C=512", flush=True)
-    phase_mid(torch, ks)
+    mid = phase_mid(torch, ks)
 
     print("phase 3: main path, continental 1200x1000, T=24, C=512, float32", flush=True)
     t0 = time.perf_counter()
-    cfg, params, state, aux = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
+    model = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
+    cfg, params, state, aux = model
     print(f"  model built on the host in {time.perf_counter() - t0:.1f} s: "
           f"P={cfg.num_pixels}, lakes={cfg.num_lakes}, reservoirs={cfg.num_reservoirs}",
           flush=True)
@@ -204,26 +366,14 @@ def main():
           f"window {multi.routers['kin'].ps.window}", flush=True)
     forcing = [to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
                for i in range(6)]
-    stack = lambda fs: {k: torch.stack([f[k] for f in fs]) for k in fs[0]}
-    ks.kinwave_substep.launches = 0
-    s, _ = multi(s, stack(forcing[:1]))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s, outs = multi(s, stack(forcing[1:]))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = ks.kinwave_substep.launches
-    steps_run = 6
-    print(f"  5 steps in {dt:.3f} s: {dt / 5 * 1e3:.1f} ms/step, "
-          f"{cfg.num_pixels * 5 / dt:.4g} cells*steps/s on {card}", flush=True)
-    print(f"  kinwave_substep launches {launches} for {steps_run} steps", flush=True)
-    assert launches == steps_run, (launches, steps_run)
+    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     q = outs["ChanQAvg"]
     assert q.shape == (5, cfg.num_pixels) and bool(torch.isfinite(q).all()) and bool((q >= 0).all())
     print(f"  every state entry finite ({len(s)} entries); ChanQAvg {tuple(q.shape)}, "
           f"mean {float(q.mean()):.4g} m3/s", flush=True)
+    profile_step(torch, multi.step, s, forcing[0], step_ms)
 
     print("phase 4: kernel timing at the main-path shape", flush=True)
     d = multi.step.land_phase(s, forcing[0])
@@ -232,9 +382,9 @@ def main():
     n_rep = 5
     kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), n_rep)
     land_ms = cuda_ms(torch, lambda: multi.step.land_phase(s, forcing[0]), n_rep)
-    print(f"  step breakdown: land phase + surface routing {land_ms:.1f} ms, routing "
-          f"kernel {kernel_ms:.1f} ms, operand build and post-routing "
-          f"{dt / 5 * 1e3 - land_ms - kernel_ms:.1f} ms (rest of the phase 3 step)", flush=True)
+    print(f"  parts of the {step_ms:.1f} ms step, each timed alone (they overlap in the step: "
+          f"the host enqueues the next land phase while the routing kernel runs): land phase "
+          f"+ surface routing {land_ms:.1f} ms, routing kernel {kernel_ms:.1f} ms", flush=True)
     bound_ms, bound_by = bound(xs, ys, spec)
     # the plain version at the main-path shape: the comparison that holds the
     # kernel to it, and its time from this one run
@@ -248,15 +398,65 @@ def main():
           f"rel err {rel:.3e} (tol 1e-05), max abs err {absd:.3e}, at the main-path shape "
           f"({spec.n_chunks} chunks); card {card}", flush=True)
     assert rel <= 1e-5, f"kernel disagrees with the plain version: {rel}"
+    f64 = mid["float64"]
+    print(f"  the float64 q-space kernel at 240x200: {f64['ms']:.3f} ms, bound "
+          f"{f64['bound_ms']:.4f} ms ({f64['bound_by']}), plain version {f64['plain_ms']:.0f} ms",
+          flush=True)
 
-    figures = {"kernels": [{
-        "name": "kinwave_substep", "route": "cuda",
-        "source": "lisflood_tpu_torch/csrc/kinwave_substep.cu",
-        "replaces": "lisflood_tpu/ops/kinwave_pallas.py:654",
-        "launches": launches, "max_abs_err": absd, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-    }]}
+    print("phase 5: all-options path, continental 1200x1000, T=24, C=512, float32", flush=True)
+    t0 = time.perf_counter()
+    cfg5, params5, state5, aux5 = with_options(model)
+    multi5, p5 = build_multi_step(cfg5, params5, aux5, output_keys=("ChanQAvg", "MBErrorMM"),
+                                  dtype=torch.float32, device="cuda")
+    s5 = multi5.prepare_state(state5)
+    torch.cuda.synchronize()
+    print(f"  options added, step built and moved to the card in {time.perf_counter() - t0:.1f} s; "
+          f"evaporation chain in the kernel: {multi5.step.eva_in_kernel}; "
+          f"{int(params5['UpTrans'].sum())} transmission-loss pixels, "
+          f"{int((params5['InflowPoints'] > 0).sum())} inflow points", flush=True)
+    forcing5 = [to_device({**synthetic_forcing(cfg5.num_pixels, seed=i), **aux5["forcing_options"]},
+                          "cuda", torch.float32) for i in range(6)]
+    s5, outs5, step5_ms, launches5 = timed_steps(torch, ks, multi5, s5, forcing5, card)
+    bad = [k for k, v in s5.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    trans_cum = s5["pk$TransCum"]
+    assert bool((trans_cum >= 0).all()) and float(trans_cum.max()) > 0, "TransCum"
+    q5 = outs5["ChanQAvg"]
+    assert q5.shape == (5, cfg5.num_pixels) and bool(torch.isfinite(q5).all()) and bool((q5 >= 0).all())
+    print(f"  every state entry finite ({len(s5)} entries); TransCum max {float(trans_cum.max()):.4g} "
+          f"m3, sum {float(trans_cum.double().sum()):.4g} m3; ChanQAvg mean {float(q5.mean()):.4g} "
+          f"m3/s; max |MBErrorMM| {float(outs5['MBErrorMM'].abs().max()):.3g} mm", flush=True)
+    profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
+    d5 = multi5.step.land_phase(s5, forcing5[0])
+    spec5, xs5 = kernel_operands(cfg5, p5, s5, d5, multi5.routers)
+    assert all(k in xs5 for k in ("wuse", "qin_old", "qdelta", "uptrans", "tp1", "tp2", "tsub"))
+    ys5 = ks.kinwave_substep(spec5, xs5)
+    kernel5_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec5, xs5), n_rep)
+    land5_ms = cuda_ms(torch, lambda: multi5.step.land_phase(s5, forcing5[0]), n_rep)
+    bound5_ms, bound5_by = bound(xs5, ys5, spec5)
+    print(f"  parts of the {step5_ms:.1f} ms step, each timed alone: land phase incl. water "
+          f"abstraction + surface routing {land5_ms:.1f} ms, routing kernel {kernel5_ms:.1f} ms; "
+          f"operand build, post-routing and the mass balance's catchment totals are the rest",
+          flush=True)
+    side = mid["float32"]
+    print(f"  kernel with the sideflow terms {kernel5_ms:.3f} ms/launch (mean of {n_rep}); bound "
+          f"{bound5_ms:.4f} ms ({bound5_by}); held to the plain version at 240x200 (phase 2: "
+          f"kernel {side['ms']:.3f} ms, plain {side['plain_ms']:.0f} ms, max abs err "
+          f"{side['max_abs_err']:.3e}); card {card}", flush=True)
+
+    source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
+    replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
+    figures = {"kernels": [
+        {"name": "kinwave_substep", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches, "max_abs_err": absd, "ms": kernel_ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+        # the same kernel on the all-options path: times at the continental
+        # shape, the plain version's time and the error at 240x200
+        {"name": "kinwave_substep_sideflow", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches5, "max_abs_err": side["max_abs_err"],
+         "ms": kernel5_ms, "plain_ms": side["plain_ms"], "bound_ms": bound5_ms,
+         "bound_by": bound5_by, "library_ms": None},
+    ]}
     print(json.dumps(figures))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,7 +9,9 @@
 //   K3  the lake Modified-Puls and reservoir rule-curve chains, with the
 //       feeder staging that fills their inflow buffers;
 //   K4a the generic q-space Newton sub-step, used for double and for any
-//       beta other than 3/5.
+//       beta other than 3/5;
+//   K4b the optional sideflow terms: evaporation computed outside the kernel,
+//       water use, the inflow-hydrograph ramp and the transmission loss.
 // The plain PyTorch version of the same function is
 // lisflood_tpu_torch/ops/kinwave_substep.py:substep_reference.
 //
@@ -40,6 +42,23 @@
 // Newton chain and of the L2 round trips of the ring, chunk after chunk.
 // Parallelism across independent chunks is later work.
 //
+// Sideflow. Per lane and sub-step t the lateral inflow is assembled in this
+// order, every term but the first optional (a null operand pointer means the
+// term is absent; the kernel is instantiated without any of K4b's code when
+// all of them are):
+//   ToChan - eva - eva_dt - wuse                 (once per lane)
+//   + (qin_old + float(t+1) * qdelta) / T        (inflow ramp)
+//   - loss, loss = (chanq - trans_out) * dt_routing, where uptrans != 0:
+//       trans_out = (chanq**tp2 - tsub)**tp1, else trans_out = chanq
+//   + side[t]                                    (lake / reservoir outflow)
+// then the ischan mask and NaN -> 0. `eva` is the evaporation chain's result
+// when it ran outside the kernel (never together with E > 0), `eva_dt` the
+// in-kernel chain's. The transmission loss reads the PREVIOUS sub-step's
+// chanq (chanq_0 at t = 0) and is summed into the output `trans`; where
+// chanq**tp2 < tsub with a non-integer tp1 the loss is NaN: the sideflow then
+// becomes 0 but `trans` keeps the NaN, as in the TPU kernel. Padded lanes stay
+// inert with tp1 = tp2 = 1, uptrans = 0 and 0 for every other K4b operand.
+//
 // Arithmetic. The build uses -fmad=false so that every operation rounds
 // as the plain PyTorch version's separate elementwise operations do.
 
@@ -62,6 +81,10 @@ struct SubstepArgs {
   const void *tochan, *dx, *adx1, *alpha1, *ischan, *q1_0, *m31_0, *chanq_0;
   const void *adx2, *alpha2, *qlimit, *m3limit, *c2m3s, *c2qs, *q2_0, *m32_0;
   const void *ev_up0;
+  // K4b, each group optional (null = absent): precomputed evaporation, water
+  // use, inflow ramp (qin_old with qdelta), transmission loss (uptrans as a
+  // 0/1 mask in the float type, with tp1, tp2, tsub)
+  const void *eva, *wuse, *qin_old, *qdelta, *uptrans, *tp1, *tp2, *tsub;
   // (K, n_chunks*chunk) / (KE, ...) upstream source positions, -1 = none
   const int *ups, *ev_ups;
   // lakes: position, feeder positions (NL, 8) and weights, parameters
@@ -75,7 +98,7 @@ struct SubstepArgs {
       *rs_normout, *rs_minout, *rs_do, *rs_dln, *rs_dnfl;
   void *rs_st, *rs_fill, *rs_sumin, *rs_sumout, *rs_buf;
   // (n_chunks*chunk) outputs
-  void *q1, *m31, *chanq, *sumdis, *q2, *m32, *cross2, *side1, *ev_add;
+  void *q1, *m31, *chanq, *sumdis, *q2, *m32, *cross2, *side1, *ev_add, *trans;
   // scratch: discharge ring ((W+1), T, L, C), eva ring ((W+1), E-1, C),
   // this chunk's chanq rows (T, C), structure sideflow rows (T, C) (zeroed)
   void *qring, *ev_ring, *chanq_rows, *side;
@@ -291,7 +314,8 @@ __device__ __forceinline__ bool feeds(const int* fee, int n, int c, int C) {
   return hit;
 }
 
-template <typename T, bool POLY>
+// SIDE: whether any of K4b's operands is present
+template <typename T, bool POLY, bool SIDE>
 __global__ void __launch_bounds__(kMaxThreads) substep_kernel(const SubstepArgs a) {
   const int C = a.chunk, T_ = a.T, E = a.E;
   const int L = a.split ? 2 : 1;
@@ -376,7 +400,24 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(const SubstepArgs 
     const T adx1 = adx1_p[pos], alpha1 = alpha1_p[pos];
     const bool ischan = ischan_p[pos] != T(0);
     T sf_base = tochan[pos];
+    if (SIDE && a.eva != nullptr) sf_base = sf_base - static_cast<const T*>(a.eva)[pos];
     if (E > 0) sf_base = sf_base - eva_dt;
+    if (SIDE && a.wuse != nullptr) sf_base = sf_base - static_cast<const T*>(a.wuse)[pos];
+    // K4b per-sub-step terms: inflow ramp and transmission loss
+    const bool ramp = SIDE && a.qin_old != nullptr;
+    const bool transloss = SIDE && a.uptrans != nullptr;
+    T qin_old = 0, qdelta = 0, tp1 = 1, tp2 = 1, tsub = 0, trans_acc = 0;
+    bool uptrans = false;
+    if (ramp) {
+      qin_old = static_cast<const T*>(a.qin_old)[pos];
+      qdelta = static_cast<const T*>(a.qdelta)[pos];
+    }
+    if (transloss) {
+      uptrans = static_cast<const T*>(a.uptrans)[pos] != T(0);
+      tp1 = static_cast<const T*>(a.tp1)[pos];
+      tp2 = static_cast<const T*>(a.tp2)[pos];
+      tsub = static_cast<const T*>(a.tsub)[pos];
+    }
     T q1 = q1_0[pos], m31 = m31_0[pos], chanq = chanq_0[pos];
     T qb1 = vpow(q1, beta);
     T adx2 = 0, alpha2 = 0, qlimit = 0, m3limit = 0, c2m3s = 0, c2q_dx = 0;
@@ -401,6 +442,14 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(const SubstepArgs 
 
     for (int t = 0; t < T_; ++t) {
       T sideflow_m3 = sf_base;
+      if (ramp) sideflow_m3 = sideflow_m3 + (qin_old + T(t + 1) * qdelta) / T(T_);
+      if (transloss) {
+        // chanq still holds the previous sub-step's discharge here
+        const T trans_out = uptrans ? vpow(vpow(chanq, tp2) - tsub, tp1) : chanq;
+        const T loss = (chanq - trans_out) * dt_r;
+        sideflow_m3 = sideflow_m3 - loss;
+        trans_acc = trans_acc + loss;
+      }
       if (own) sideflow_m3 = sideflow_m3 + side[t * C + l];
       T sideflow = ischan ? sideflow_m3 * inv_dx / dt_r : T(0);
       if (sideflow != sideflow) sideflow = T(0);
@@ -491,6 +540,7 @@ __global__ void __launch_bounds__(kMaxThreads) substep_kernel(const SubstepArgs 
       static_cast<T*>(a.cross2)[pos] = (m32 - c2m3s) * inv_dx;
       static_cast<T*>(a.side1)[pos] = side1;
     }
+    if (transloss) static_cast<T*>(a.trans)[pos] = trans_acc;
     __syncthreads();
 
     // ---- K3: clear this chunk's structure sideflow rows; stage feeders
@@ -526,13 +576,23 @@ int kinwave_substep_launch(const SubstepArgs* args, int is_double, int poly, voi
   const SubstepArgs a = *args;
   if (a.chunk < 1 || a.chunk > kMaxThreads || a.K > kMaxUps || a.KE > kMaxUps)
     return static_cast<int>(cudaErrorInvalidValue);
+  // operands that come in groups: half a group is refused
+  if ((a.qin_old == nullptr) != (a.qdelta == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool trans = a.uptrans != nullptr;
+  if ((a.tp1 != nullptr) != trans || (a.tp2 != nullptr) != trans || (a.tsub != nullptr) != trans ||
+      (a.trans != nullptr) != trans || (a.eva != nullptr && a.E > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool side = a.eva != nullptr || a.wuse != nullptr || a.qin_old != nullptr || trans;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    substep_kernel<double, false><<<1, a.chunk, 0, st>>>(a);
+    if (side) substep_kernel<double, false, true><<<1, a.chunk, 0, st>>>(a);
+    else substep_kernel<double, false, false><<<1, a.chunk, 0, st>>>(a);
   } else if (poly) {
-    substep_kernel<float, true><<<1, a.chunk, 0, st>>>(a);
+    if (side) substep_kernel<float, true, true><<<1, a.chunk, 0, st>>>(a);
+    else substep_kernel<float, true, false><<<1, a.chunk, 0, st>>>(a);
   } else {
-    substep_kernel<float, false><<<1, a.chunk, 0, st>>>(a);
+    if (side) substep_kernel<float, false, true><<<1, a.chunk, 0, st>>>(a);
+    else substep_kernel<float, false, false><<<1, a.chunk, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

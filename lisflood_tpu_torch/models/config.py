@@ -4,9 +4,8 @@ lisflood_tpu/models/config.py.
 Every boolean here selects a physics path inside the step function, mirroring
 the reference's option-gated module dispatch (Lisflood_dynamic.py:38-268).
 The port has a single sub-step pipeline (the chunk-major routing kernel and
-its plain PyTorch version), so the JAX package's `routing_pipeline` field has
-no counterpart here; nor have the sub-options of options the port does not
-run yet (water use, the sharded router), which come with those options.
+its plain PyTorch version) and one device, so the JAX package's
+`routing_pipeline` and `num_shards` fields have no counterpart here.
 """
 from __future__ import annotations
 
@@ -28,8 +27,12 @@ class ModelConfig:
     var_fraction_water: bool = False
     rice_irrigation: bool = False
     water_use: bool = False
+    water_use_region: bool = False
+    transient_water_demand: bool = False
     transient_landuse: bool = False
+    water_demand_ave_year: bool = False
     drained_irrigation: bool = False
+    groundwater_smooth: bool = False
     trans_loss: bool = False
     inflow: bool = False
     indicator: bool = False
@@ -39,6 +42,7 @@ class ModelConfig:
     rep_mbts: bool = False
     rep_average_dis: bool = False
     rep_total_water_storage: bool = False
+    rep_water_use: bool = False
     # kinematic-wave implementation; the port has 'packed' only
     routing_kernel: str = "packed"
     # open-water evaporation formulation outside the routing kernel: the
@@ -51,6 +55,7 @@ class ModelConfig:
     num_lakes: int = 0
     num_reservoirs: int = 0
     num_catchments: int = 0
+    num_wregions: int = 0
     num_pixels: int = 0
     grid_rows: int = 0
     grid_cols: int = 0

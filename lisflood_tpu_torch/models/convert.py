@@ -19,9 +19,21 @@ from .config import ModelConfig
 from .step import build_routers, device_params, prepare_state
 
 
+# JAX-config fields that choose among XLA schedules and device meshes; the
+# port has one sub-step pipeline on one device and ignores them
+_SCHEDULE_FIELDS = ("routing_pipeline", "num_shards")
+
+
 def config_from_reference(cfg):
-    """The port's ModelConfig with every field the JAX config shares."""
+    """The port's ModelConfig with every field the JAX config shares. A field
+    the port lacks raises ValueError when it is set to anything but its
+    default, so that no option is dropped silently."""
     names = {f.name for f in dataclasses.fields(ModelConfig)}
+    lost = [f.name for f in dataclasses.fields(cfg)
+            if f.name not in names and f.name not in _SCHEDULE_FIELDS
+            and getattr(cfg, f.name) != f.default]
+    if lost:
+        raise ValueError(f"configuration fields without a counterpart in the port: {lost}")
     return ModelConfig(**{f.name: getattr(cfg, f.name)
                           for f in dataclasses.fields(cfg) if f.name in names})
 

@@ -3,16 +3,18 @@ lisflood_tpu/models/step.py.
 
 `build_step(cfg, params, aux)` moves the parameters to the device and returns
 a `Step`, a callable `step(state, forcing) -> (state, diag)` that runs the
-reference's per-timestep order (Lisflood_dynamic.py:38-268) for the options
-of the slice the port covers:
+reference's per-timestep order (Lisflood_dynamic.py:38-268):
 
-  meteo -> open-water fraction -> snow -> frost -> canopy -> soil columns ->
-  open/sealed -> per-pixel aggregation -> groundwater -> surface routing ->
-  sub-stepped channel routing (with the open-water evaporation chain, lakes
-  and reservoirs inside the routing kernel)
+  meteo -> LAI -> [inflow] -> open-water fraction -> snow -> frost -> canopy
+  -> soil columns -> [pF] -> open/sealed -> [rice] -> [water abstraction] ->
+  per-pixel aggregation -> groundwater -> [open-water evaporation, when its
+  graph leaves the kernel's window] -> surface routing -> sub-stepped
+  channel routing (lakes, reservoirs, the evaporation chain and the sideflow
+  terms inside the routing kernel) -> [water level] -> [polder level] ->
+  [water balance]
 
 The channel-routing state lives in schedule-packed position space across
-steps ('pk$' state keys). Options outside the slice raise
+steps ('pk$' state keys). Options the port does not run (_NOT_PORTED) raise
 NotImplementedError when the step is built.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..ops import physics as ph
+from ..ops.indicators import groundwater_smooth
 from ..ops.kinwave_packed import PackedRouter
 from ..ops.routing_ops import channel_routing_kernel, resolve_pipeline, surface_routing_step
 
@@ -42,17 +45,8 @@ STATE_KEYS_BASE = [
 _NOT_PORTED = {
     "init_lisflood": "InitLisflood",
     "init_lisflood_without_split": "InitLisfloodwithoutSplit",
-    "water_use": "water use",
-    "rice_irrigation": "rice irrigation",
-    "inflow": "inflow hydrographs",
-    "trans_loss": "transmission loss",
-    "simulate_polders": "polders",
-    "simulate_water_levels": "water levels",
-    "simulate_pf": "pF",
     "indicator": "indicators",
     "transient_landuse": "transient land use",
-    "rep_mbts": "mass-balance reports",
-    "rep_total_water_storage": "total water storage reports",
 }
 
 
@@ -68,6 +62,8 @@ def packed_routing_keys(cfg):
             "DischargeM3Out", "sumDis"]
     if cfg.split_routing:
         keys += ["Chan2QKin", "Chan2M3Kin", "CrossSection2Area", "Sideflow1Chan"]
+    if cfg.trans_loss:
+        keys += ["TransCum"]
     if cfg.open_water_evapo:
         keys += ["EvaCumM3"]
     return keys
@@ -82,6 +78,17 @@ def state_keys(cfg):
                  "LakeStorageM3BalanceCC", "LakeLevelCC", "LakeStorageM3", "EWLakeCUMM3"]
     if cfg.simulate_reservoirs:
         keys += ["ReservoirStorageM3CC", "ReservoirFillCC", "ReservoirStorageM3"]
+    if cfg.water_use:
+        keys += ["ActualAccumulatedReUsedWaterM3", "IrriLossCUM", "wateruseCum",
+                 "cumulated_CH_withdrawal"]
+    if cfg.trans_loss:
+        keys += ["TransCum"]
+    if cfg.inflow:
+        keys += ["QInM3Old"]
+    if cfg.simulate_polders:
+        keys += ["PolderStorageM3"]
+    if cfg.rep_mbts:
+        keys += ["WaterInit", "DischargeM3StructuresIni", "StorageStepINIT"]
     if uses_packed_state(cfg):
         pk = set(packed_routing_keys(cfg))
         keys = ["pk$" + k if k in pk else k for k in keys]
@@ -143,6 +150,11 @@ def packed_routing_params(cfg, params_np, ps):
         pk("M3Limit", np.inf)      # padded lanes never count as over-limit
         pk("Chan2M3Start", 0.0)
         pk("Chan2QStart", 0.0)
+    if cfg.trans_loss:
+        out["kinp$UpTrans"] = ps.pack_np(np.asarray(params_np["UpTrans"], bool), False)
+        pk("TransPower1", 1.0)
+        pk("TransPower2", 1.0)
+        pk("TransSub", 0.0)
 
     P = ps.num_pixels
     p_pad = ps.p_pad
@@ -269,6 +281,9 @@ class Step:
         self.routers = routers
         self.device = torch.device(device)
         self.pipeline = resolve_pipeline(cfg, routers, self.device)
+        # the evaporation chain runs inside the routing kernel when its graph
+        # fits the schedule window, else before the routing (evapowater_step)
+        self.eva_in_kernel = cfg.open_water_evapo and routers["kin"].eva_window_ok
 
     def prepare_state(self, state, dtype=None):
         """NumPy state -> the step's packed state on the device."""
@@ -296,6 +311,13 @@ class Step:
         # LAI selection (leafarea.py:76-90)
         d["LAI"] = p["LAIX"][f["LAIInterval"]]
 
+        # inflow hydrographs (inflow.py:98-127)
+        if cfg.inflow:
+            d["QInM3OldLoop"] = s["QInM3Old"]   # last step's inflow, ramped from in the sub-steps
+            d["QInM3Old"] = f["QInM3"]          # becomes old for the next step
+            d["QDelta"] = (f["QInM3"] - s["QInM3Old"]) / cfg.no_rout_steps
+            d["TotalQInM3"] = s["TotalQInM3"] + f["QInM3"]
+
         d.update(ph.evapowater_init_step(cfg, p, s, d))
         d.update(ph.snow_step(cfg, p, s, d))
         d.update(ph.frost_step(cfg, p, s, d))
@@ -303,23 +325,64 @@ class Step:
         soil_in = dict(s)
         soil_in["W1a"], soil_in["W1b"] = d["W1a"], d["W1b"]
         d.update(ph.soil_columns_step(cfg, p, soil_in, d))
+        if cfg.simulate_pf:
+            d.update(ph.pf_step(cfg, p, d))
         d.update(ph.opensealed_step(cfg, p, s, d))
-        d["PaddyRiceWaterAbstractionFromSurfaceWaterM3"] = torch.zeros_like(d["Rain"])
+        if cfg.rice_irrigation:
+            d.update(ph.rice_irrigation_step(cfg, p, s, d))
+        else:
+            d["PaddyRiceWaterAbstractionFromSurfaceWaterM3"] = torch.zeros_like(d["Rain"])
+        if cfg.water_use:
+            # natural-space views of the packed channel state
+            wa_state = dict(s)
+            wa_state["ChanM3Kin"] = d["ChanM3Kin"] = routers["kin"].unpack(s["pk$ChanM3Kin"])
+            d["ChanQ"] = routers["kin"].unpack(s["pk$ChanQ"])
+            d.update(ph.water_abstraction_step(cfg, p, wa_state, d))
+            if cfg.groundwater_smooth:
+                d["LZ"] = groundwater_smooth(cfg, p, d["LZ"], p["LandRows"], p["LandCols"],
+                                             cfg.grid_rows, cfg.grid_cols)
         d.update(ph.soil_perpixel_step(cfg, p, s, d))
         d.update(ph.groundwater_step(cfg, p, s, d))
 
-        # open-water evaporation: the chain runs inside the routing kernel,
-        # which takes the own-pixel potential evaporation
         if cfg.open_water_evapo:
-            d["EvaUpstream0"] = d["EWRef"] * p["MMtoM3"] * d["WaterFraction"]
+            if self.eva_in_kernel:
+                # the kernel takes the own-pixel potential evaporation and
+                # returns the chain's result
+                d["EvaUpstream0"] = d["EWRef"] * p["MMtoM3"] * d["WaterFraction"]
+            else:
+                kin = routers["kin"]
+                eva_d = dict(d)
+                eva_d["ChanM3Kin"] = kin.unpack(s["pk$ChanM3Kin"])
+                s_eva = dict(s)
+                s_eva["EvaCumM3"] = kin.unpack(s["pk$EvaCumM3"])
+                out_eva = ph.evapowater_step(cfg, p, s_eva, eva_d)
+                out_eva["pk$EvaCumM3"] = s["pk$EvaCumM3"] + kin.pack(out_eva["EvaAddM3"])
+                d.update(out_eva)
 
         d.update(surface_routing_step(cfg, p, s, d, routers))
         return d
 
     def __call__(self, s, f):
+        cfg, p = self.cfg, self.params
         d = self.land_phase(s, f)
-        d.update(channel_routing_kernel(self.cfg, self.params, s, d, self.routers))
-        return _collect_state(self.cfg, s, d), d
+        # the routing starts from the lake and reservoir storages that the
+        # water abstraction left
+        route_state = dict(s)
+        for k in ("LakeStorageM3CC", "ReservoirStorageM3CC", "LakeStorageM3", "ReservoirStorageM3"):
+            if k in d:
+                route_state[k] = d[k]
+        d.update(channel_routing_kernel(cfg, p, route_state, d, self.routers))
+
+        if cfg.simulate_water_levels:
+            d.update(ph.waterlevel_step(cfg, p, s, d))
+        # polder level diagnostic: the reference's dynamic polder parts are a
+        # no-op skeleton (polder.py:72-177), so the storage passes through
+        if cfg.simulate_polders:
+            d["PolderLevel"] = torch.where(
+                p["IsPolder"], s["PolderStorageM3"] / torch.clamp_min(p["PolderArea"], 1e-30), 0.0)
+        if cfg.rep_total_water_storage or cfg.rep_mbts:
+            d.update(_waterbalance(cfg, p, s, d))
+        return _collect_state(cfg, s, d), d
 
 
 def build_step(cfg, params_np, aux, dtype=torch.float64, device=None):
@@ -361,3 +424,76 @@ def _collect_state(cfg, s, d):
     new_state = {k: d.get(k, s[k]) for k in state_keys(cfg)}
     new_state["TimeSinceStart"] = d["TimeSinceStart"]
     return new_state
+
+
+def _storage_channel(cfg, p, s, d):
+    """waterbalance.py:114-122."""
+    stored = d["ChanM3"]
+    if cfg.simulate_lakes:
+        stored = stored + d["LakeStorageM3Balance"]
+    if cfg.simulate_reservoirs:
+        stored = stored + d["ReservoirStorageM3"]
+    if cfg.simulate_polders:
+        stored = stored + d.get("PolderStorageM3", s["PolderStorageM3"])
+    return stored
+
+
+def _storage_hillslope(cfg, p, s, d):
+    """waterbalance.py:124-128."""
+    hill1 = d["LZ"] + (p["SoilFraction"] * (d["CumInterception"] + d["W1a"] + d["W1b"]
+                                            + d["W2"] + d["UZ"])).sum(0)
+    hillslope_mm = (d["WaterDepth"] + d["SnowCover"] + hill1
+                    + d["DirectRunoffFraction"] * d["CumInterSealed"])
+    return hillslope_mm * p["MMtoM3"]
+
+
+def _waterbalance(cfg, p, s, d):
+    """Total water storage and the catchment mass balance
+    (waterbalance.py:114-288), without transient land use."""
+    catchtotal = lambda x: ph.segment_spread(x, p["Catchments"], cfg.num_catchments)
+    out = {}
+    channel_stored = _storage_channel(cfg, p, s, d)
+    hillslope_stored = _storage_hillslope(cfg, p, s, d)
+    if cfg.rep_total_water_storage:
+        out["TotalWaterStorageMM"] = (channel_stored + hillslope_stored) * p["M3toMM"]
+    if cfg.rep_mbts:
+        sum_in = torch.where(torch.isnan(s["sumInWB"]), 0.0, s["sumInWB"])
+        water_in = catchtotal(sum_in) + catchtotal(d["TotalPrecipitationWB"] * p["MMtoM3"])
+        water_stored = catchtotal(channel_stored) + catchtotal(hillslope_stored)
+        hillslope_out = (d["TaWB"] + d["TaInterceptionWB"] + d["ESActWB"] + d["GwLossWB"]) * p["MMtoM3"]
+        sum1 = torch.where(p["AtLastPointC"], d["ChanQAvg"], 0.0)
+        water_out = catchtotal(sum1 * cfg.dt_sec) + catchtotal(hillslope_out)
+        if cfg.simulate_lakes:
+            # EWLakeWBM3 is never updated in the reference
+            water_out = water_out + catchtotal(s["EWLakeCUMM3"] * 0.0)
+        if cfg.open_water_evapo:
+            water_out = water_out + catchtotal(d["EvaWBM3"])
+        if cfg.trans_loss:
+            water_out = water_out + catchtotal(d["TransCum"])
+        if cfg.water_use:
+            water_out = water_out + catchtotal(d["IrriLossCUM"]) + catchtotal(d["wateruseCum"])
+        dis_stru = torch.where(p["IsUpsOfStructureKinematicC"], d["ChanQ"] * cfg.dt_routing, 0.0)
+        dis_structures = catchtotal(dis_stru)
+        if cfg.simulate_lakes:
+            dis_lake = torch.zeros_like(d["Rain"]).index_copy_(
+                0, p["LakeIndex"], 0.5 * d["LakeInflowCC"] * cfg.dt_routing)
+            dis_structures = dis_structures + catchtotal(dis_lake)
+        dis_structures = dis_structures - s["DischargeM3StructuresIni"]
+        mb_error = s["WaterInit"] + water_in - water_stored - water_out - dis_structures
+        out["MB_WaterInit"] = s["WaterInit"]
+        out["MB_WaterIn"] = water_in
+        out["MB_WaterStored"] = water_stored
+        out["MB_WaterOut"] = water_out
+        out["MB_DisStructures"] = dis_structures
+        out["MB_ChannelStored"] = catchtotal(channel_stored)
+        out["MB_HillslopeStored"] = catchtotal(hillslope_stored)
+        out["MBError"] = mb_error
+        out["MBErrorMM"] = 1000.0 * mb_error / p["CatchArea"]
+        out["WaterInit"] = water_stored + dis_structures
+        # mass-balance analysis diagnostics (waterbalance.py:276-289)
+        sum_fracs = (p["ForestFraction"] + p["DirectRunoffFraction"] + p["WaterFraction"]
+                     + p["IrrigationFraction"] + p["OtherFraction"])
+        npix = catchtotal(torch.ones_like(sum_fracs))
+        out["AverageFractions"] = catchtotal(sum_fracs) / npix
+        out["MBErrorStorage"] = mb_error / out["WaterInit"]
+    return out

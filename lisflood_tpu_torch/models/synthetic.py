@@ -8,6 +8,8 @@ ranges.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ..graph.ldd import FlowGraph, build_schedule, direction_codes
@@ -334,6 +336,160 @@ def build_synthetic_model(nrows=16, ncols=16, seed=0, no_rout_steps=4,
         "graph_tochan": graph_tochan,
     }
     return config, params, state, aux
+
+
+def _catchtotal(values, catchments, n):
+    return np.bincount(catchments, weights=values, minlength=n)[catchments]
+
+
+def with_options(model, seed=0, eva_outside_window=False):
+    """The synthetic model `(cfg, params, state, aux)` of build_synthetic_model
+    (split routing, structures and open water on) with every further option
+    of the step switched on, and the inputs those options read, drawn from
+    `seed`: water use with groundwater smoothing and the per-sector reports,
+    rice irrigation, inflow hydrographs, transmission loss, polders, water
+    levels, pF, the mass-balance and total-storage reports, and the average
+    discharge.
+
+    Returns new `(cfg, params, state, aux)`; the arrays are NumPy and the
+    config's field values are shared with the JAX package's ModelConfig, so
+    both packages take the same inputs. `aux["forcing_options"]` holds the
+    forcing entries the options add to synthetic_forcing's (the inflow
+    `QInM3` and the four sectors' demands).
+
+    Transmission loss acts on a tenth of the fifth of the pixels with the
+    largest upstream area (no lake or reservoir among them). Each takes a
+    fraction of a percent of the discharge passing through: `TransSub` is a
+    few thousandths of q**TransPower2 for the lower of the initial discharge
+    and the discharge that 1 mm/day of runoff from the upstream area sustains,
+    which keeps ChanQ**TransPower2 above TransSub, so `TransCum` holds no NaN.
+
+    With `eva_outside_window` one headwater pixel's evaporation is handed
+    straight to the pixel with the largest upstream area: that edge leaves
+    any schedule window, so the evaporation chain runs outside the routing
+    kernel, which then takes its result as the operand `eva`.
+    """
+    cfg, params, state, aux = model
+    if not (cfg.split_routing and cfg.simulate_lakes and cfg.simulate_reservoirs
+            and cfg.open_water_evapo):
+        raise ValueError("with_options extends the model with split routing, "
+                         "structures and open water")
+    rng = np.random.default_rng([seed, 7])
+    params, state, aux = dict(params), dict(state), dict(aux)
+    P, nrows, ncols = cfg.num_pixels, cfg.grid_rows, cfg.grid_cols
+    u = lambda lo, hi, shape=P: rng.uniform(lo, hi, shape)
+    rows, cols = np.divmod(np.arange(P, dtype=np.int64), ncols)
+    catchments = params["Catchments"]
+    forcing = {}
+
+    # rice irrigation: a tenth of the rainfed fraction on a third of the
+    # pixels; planting days around the forcing's calendar day (150), so that
+    # every phase of the calendar occurs somewhere
+    rice = np.where(rng.random(P) < 0.3, 0.1 * params["OtherFraction"], 0.0)
+    params["RiceFraction"] = rice
+    params["OtherFraction"] = params["OtherFraction"] - rice
+    params["RicePlantingDay1"] = rng.integers(100, 175, P).astype(np.float64)
+    params["RiceHarvestDay1"] = params["RicePlantingDay1"] + 120.0
+    params["RiceFlooding"] = u(5, 15)
+    params["RicePercolation"] = u(1, 5)
+
+    # water use: four regions (quadrants of the grid)
+    wreg = (rows >= nrows // 2) * 2 + (cols >= ncols // 2)
+    params["WUseRegionC"] = wreg.astype(np.int32)
+    gw_bodies = (rng.random(P) < 0.6).astype(np.float64)
+    params["GroundwaterBodies"] = gw_bodies
+    frac_nc = u(0, 0.1)
+    frac_gw = np.where(gw_bodies > 0, u(0, 0.3), 0.0)
+    params["FractionNonConventionalWaterUsed"] = frac_nc
+    params["FractionGroundwaterUsed"] = frac_gw
+    params["GWfed_fraction_irrigation"] = frac_gw.copy()
+    params["FractionSurfaceWaterUseDomLivInd"] = np.clip(1 - frac_gw - frac_nc, 0, 1)
+    params["FractionLakeReservoirWaterUsed"] = u(0, 0.3)
+    params["EFlowThreshold"] = u(0, 2)
+    params["IrrigationMult"] = u(1.0, 1.2)
+    params["IrrigationEfficiency"] = u(0.6, 0.9)
+    params["ConveyanceEfficiency"] = u(0.7, 0.95)
+    params["efficiency_irrigation"] = params["IrrigationEfficiency"] * params["ConveyanceEfficiency"]
+    params["PotentialIrrigationWaterReUseM3Annual"] = u(0, 1e4)
+    params["PotentialIrrigationWaterReUseM3Daily"] = params["PotentialIrrigationWaterReUseM3Annual"] / 150.0
+    params["LivestockConsumptiveUseFraction"] = u(0.5, 1.0)
+    params["DomesticConsumptiveUseFraction"] = u(0.1, 0.3)
+    params["IndustryConsumptiveUseFraction"] = u(0.1, 0.3)
+    params["EnergyConsumptiveUseFraction"] = u(0.01, 0.05)
+    params["DomesticWaterSavingConstant"] = u(0.8, 1.0)
+    params["leak_demand_fraction"] = u(0, 0.3)
+    for key, hi in (("DomesticDemandMM", 0.3), ("IndustrialDemandMM", 0.2),
+                    ("LivestockDemandMM", 0.05), ("EnergyDemandMM", 0.2)):
+        forcing[key] = u(0, hi)
+    params["LZSmoothRangeCells"] = 5
+    params["LandRows"], params["LandCols"] = rows, cols
+    params["GroundwaterCatch"] = ((gw_bodies > 0) * catchments).astype(np.int32)
+    for key in ("ActualAccumulatedReUsedWaterM3", "IrriLossCUM", "wateruseCum",
+                "cumulated_CH_withdrawal"):
+        state[key] = np.zeros(P)
+
+    # transmission loss on the larger channels
+    params["UpTrans"] = ((params["UpArea"] >= np.quantile(params["UpArea"], 0.8))
+                         & ~params["IsStructureKinematic"] & (rng.random(P) < 0.1))
+    params["TransPower1"] = u(1.6, 2.4)
+    params["TransPower2"] = 1.0 / params["TransPower1"]
+    q_low = np.minimum(state["ChanQ"], params["UpArea"] * 1e-3 / cfg.dt_sec)
+    params["TransSub"] = u(0.002, 0.005) * q_low ** params["TransPower2"]
+    state["TransCum"] = np.zeros(P)
+
+    # inflow hydrographs at a few points; the forcing differs from the last
+    # step's inflow, so the sub-steps ramp
+    points = np.zeros(P, bool)
+    points[rng.choice(P, max(2, P // 20000), replace=False)] = True
+    params["InflowPoints"] = points.astype(np.float64)
+    state["QInM3Old"] = np.where(points, state["ChanQ"] * cfg.dt_sec, 0.0)
+    forcing["QInM3"] = state["QInM3Old"] * u(0.5, 1.5)
+
+    # polders, water levels, pF
+    polder = np.zeros(P, bool)
+    polder[rng.choice(P, max(2, P // 20000), replace=False)] = True
+    params["IsPolder"] = polder
+    params["PolderArea"] = np.where(polder, u(1e5, 1e6), 0.0)
+    state["PolderStorageM3"] = 0.5 * params["PolderArea"]
+    params["FloodPlainWidth"] = u(100, 1000)
+    params["HeadMax"] = 1.0e7
+
+    if eva_outside_window:
+        down_eva = params["downEva"].copy()
+        down_eva[np.argmin(params["UpArea"])] = np.argmax(params["UpArea"])
+        params["downEva"] = down_eva
+        # the 2-D stencil form knows neighbour cells only
+        params.pop("evaDir2D", None)
+        params.pop("landIdx", None)
+
+    cfg = dataclasses.replace(
+        cfg, water_use=True, groundwater_smooth=True, rep_water_use=True,
+        rice_irrigation=True, inflow=True, trans_loss=True, simulate_polders=True,
+        simulate_water_levels=True, simulate_pf=True, rep_mbts=True,
+        rep_total_water_storage=True, rep_average_dis=True, num_wregions=4)
+
+    # the mass balance's initial storages (waterbalance.py:43-109,
+    # routing.py:405-431), by the step's own accounting: channel, structure
+    # and polder storage plus the hillslope's. The last sub-step's discharge
+    # into a structure, and half a lake's last inflow, are in transit: the
+    # step counts them relative to DischargeM3StructuresIni
+    n = cfg.num_catchments
+    dt_routing = cfg.dt_routing
+    chan_m3 = state["ChanM3Kin"] + state["Chan2M3Kin"] - params["Chan2M3Start"]
+    routing_init = chan_m3 + state["LakeStorageM3"] + state["ReservoirStorageM3"]
+    hill1 = state["LZ"] + (params["SoilFraction"] * (
+        state["CumInterception"] + state["W1a"] + state["W1b"] + state["W2"] + state["UZ"])).sum(0)
+    overland = state["OFM3Other"] + state["OFM3Forest"] + state["OFM3Direct"]
+    hillslope_init = (state["SnowCoverS"].sum(0) / 3 + hill1
+                      + params["DirectRunoffFraction"] * state["CumInterSealed"]) * params["MMtoM3"] + overland
+    dis_structure = np.where(params["IsUpsOfStructureKinematicC"], state["ChanQ"] * dt_routing, 0.0)
+    dis_structure[params["LakeIndex"]] += 0.5 * state["LakeInflowOldCC"] * dt_routing
+    state["DischargeM3StructuresIni"] = _catchtotal(dis_structure, catchments, n)
+    state["StorageStepINIT"] = _catchtotal(routing_init, catchments, n)
+    state["WaterInit"] = (_catchtotal(routing_init + state["PolderStorageM3"], catchments, n)
+                          + _catchtotal(hillslope_init, catchments, n))
+    aux["forcing_options"] = forcing
+    return cfg, params, state, aux
 
 
 def synthetic_forcing(P, seed=0, dtype=np.float64):

@@ -5,13 +5,21 @@ Port of lisflood_tpu/ops/kinwave_pallas.py:build_substep_pallas. The whole
 NoRoutSteps x chunks loop of one model step runs in one kernel launch
 (csrc/kinwave_substep.cu): split routing with the polynomial Newton solve,
 the hand-over of each lane's discharge to its downstream neighbour, the
-open-water evaporation chain, and the lake and reservoir chains.
+open-water evaporation chain, the lake and reservoir chains, and the optional
+sideflow terms (evaporation computed outside, water use, inflow ramp,
+transmission loss).
 
 Operands (`xs`), all on one device, in schedule-packed position space
 (position = chunk * C + lane, p_pad = n_chunks * C):
   (n_chunks, C) float rows: ToChan dx adx1 alpha1 ischan q1_0 m31_0 chanq_0;
       with split routing also adx2 alpha2 qlimit m3limit chan2m3start
       chan2qstart q2_0 m32_0; with the evaporation chain ev_up0;
+  optional (n_chunks, C) float rows, each group present or absent as a whole:
+      eva (the evaporation chain's result when it ran outside; not together
+      with E > 0); wuse (withdrawal minus return flow per sub-step);
+      qin_old and qdelta (inflow hydrograph: last step's inflow and its
+      change per sub-step); uptrans (0/1 mask), tp1, tp2, tsub (transmission
+      loss);
   ups (K, p_pad) int32: the upstream source positions of every position in
       ascending order, -1 = none (K <= 8); with the evaporation chain ev_ups
       (KE, p_pad) likewise over the evaporation graph;
@@ -21,9 +29,23 @@ Operands (`xs`), all on one device, in schedule-packed position space
   reservoirs (optional): rs_pos rs_fee rs_fee_w as for lakes, rs_tot
       rs_cons rs_norm rs_flood rs_nfl rs_nondam rs_normout rs_minout rs_do
       rs_dln rs_dnfl rs_st0 rs_fill0 rs_buf0 (NR,).
-Outputs: (n_chunks, C) q1 m31 chanq sumdis [q2 m32 cross2 side1] [ev_add],
-and per structure lk_st lk_inold lk_in lk_out lk_bal lk_level lk_sumin
-lk_sumout, rs_st rs_fill rs_sumin rs_sumout.
+Outputs: (n_chunks, C) q1 m31 chanq sumdis [q2 m32 cross2 side1] [ev_add]
+[trans], and per structure lk_st lk_inold lk_in lk_out lk_bal lk_level
+lk_sumin lk_sumout, rs_st rs_fill rs_sumin rs_sumout.
+
+Sideflow of a lane at sub-step t, in this order of operations:
+  ToChan - eva - eva_dt - wuse  (eva_dt = ev_add / T of the in-kernel chain)
+  + (qin_old + float(t + 1) * qdelta) / T
+  - loss,  loss = (chanq - trans_out) * dt_routing with
+           trans_out = (chanq**tp2 - tsub)**tp1 where uptrans, else chanq
+  + the outflow of a lake or reservoir on this lane,
+then zero outside channels (ischan) and zero where NaN. `chanq` in the loss
+is the PREVIOUS sub-step's (chanq_0 at t = 0); `trans` is the sum of the
+losses over the sub-steps. Where chanq**tp2 < tsub and tp1 is no integer the
+loss is NaN: the sideflow becomes 0 and `trans` keeps the NaN.
+
+Padded lanes stay inert with dx = alpha = tp1 = tp2 = 1, m3limit = inf,
+uptrans = ischan = 0 and 0 everywhere else.
 
 Contract the caller guarantees (models/step.py checks it when it builds a
 step): every downstream and evaporation target lies 1..W chunks later;
@@ -47,9 +69,9 @@ LAKE_PARAMS = ["lk_fee_w", "lk_factor", "lk_factorsqr", "lk_area",
 RES_PARAMS = ["rs_fee_w", "rs_tot", "rs_cons", "rs_norm", "rs_flood", "rs_nfl",
               "rs_nondam", "rs_normout", "rs_minout", "rs_do", "rs_dln",
               "rs_dnfl", "rs_st0", "rs_fill0", "rs_buf0"]
-# the JAX kernel's optional sideflow terms (precomputed evaporation, water
-# use, inflow ramp, transmission loss) are not ported yet
-UNPORTED_TERMS = ("eva", "wuse", "qin_old", "qdelta", "uptrans", "tp1", "tp2", "tsub")
+# optional sideflow terms; the operands of a group come together
+SIDEFLOW_GROUPS = (("eva",), ("wuse",), ("qin_old", "qdelta"),
+                   ("uptrans", "tp1", "tp2", "tsub"))
 FEEDERS = 8
 MAX_UPS = 8
 MAX_CHUNK = 512
@@ -76,6 +98,12 @@ def _structures(xs):
     return "lk_pos" in xs, "rs_pos" in xs
 
 
+def _row_names(spec, xs):
+    """The (n_chunks, C) float operands this call has."""
+    return (ROW_NAMES + (SPLIT_ROW_NAMES if spec.split else []) + (["ev_up0"] if spec.E else [])
+            + [k for group in SIDEFLOW_GROUPS for k in group if k in xs])
+
+
 def _init_outputs(spec, xs):
     """Output tensors, structure state seeded from its inputs, and the (T, N)
     structure inflow buffers with row 0 = the previous step's inflow."""
@@ -86,6 +114,8 @@ def _init_outputs(spec, xs):
         names += ["q2", "m32", "cross2", "side1"]
     if spec.E:
         names.append("ev_add")
+    if "uptrans" in xs:
+        names.append("trans")
     ys = {k: dx.new_empty(shape) for k in names}
     bufs = {}
     lakes, reservoirs = _structures(xs)
@@ -108,16 +138,19 @@ def _init_outputs(spec, xs):
 
 def _check(spec, xs):
     """Device, dtype, shape and contiguity of every operand."""
-    bad = [k for k in UNPORTED_TERMS if k in xs]
-    if bad:
-        raise NotImplementedError(f"sub-step sideflow terms not ported yet: {bad}")
+    for group in SIDEFLOW_GROUPS:
+        present = [k for k in group if k in xs]
+        if present and len(present) != len(group):
+            raise ValueError(f"sideflow operands {group} come together, got only {present}")
+    if "eva" in xs and spec.E:
+        raise ValueError("evaporation is either precomputed (eva) or chained in "
+                         f"the kernel (E = {spec.E}), not both")
     dx = xs["dx"]
     dev, dtype = dx.device, dx.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sub-step kernel takes float32 or float64, not {dtype}")
     p_pad = spec.n_chunks * spec.chunk
-    rows = ROW_NAMES + (SPLIT_ROW_NAMES if spec.split else []) + (["ev_up0"] if spec.E else [])
-    want = {k: ((spec.n_chunks, spec.chunk), dtype) for k in rows}
+    want = {k: ((spec.n_chunks, spec.chunk), dtype) for k in _row_names(spec, xs)}
     want["ups"] = (None, torch.int32)
     if spec.E:
         want["ev_ups"] = (None, torch.int32)
@@ -272,12 +305,13 @@ def substep_reference(spec, xs):
     ups = xs["ups"].long()
     ev_ups = xs["ev_ups"].long() if E else None
     own, feed = _chunk_plan(xs, C)
+    row_names = _row_names(spec, xs)
+    ramp, transloss = "qin_old" in xs, "uptrans" in xs
 
     for c in range(n):
         sl = slice(c * C, (c + 1) * C)
         slot = c % S
-        x = {k: xs[k][c] for k in ROW_NAMES + (SPLIT_ROW_NAMES if spec.split else [])
-             + (["ev_up0"] if E else [])}
+        x = {k: xs[k][c] for k in row_names}
         dx = x["dx"]
         inv_dx = 1.0 / dx
 
@@ -307,8 +341,12 @@ def substep_reference(spec, xs):
 
         ups_in = _upstream_sum(ring, ups[:, sl], C, S)     # (C, T, L)
         sf_base = x["ToChan"]
+        if "eva" in x:
+            sf_base = sf_base - x["eva"]
         if E:
             sf_base = sf_base - eva_dt
+        if "wuse" in x:
+            sf_base = sf_base - x["wuse"]
         q1, m31, chanq = x["q1_0"], x["m31_0"], x["chanq_0"]
         qb1 = q1 ** beta
         if spec.split:
@@ -320,9 +358,19 @@ def substep_reference(spec, xs):
             q2_floor = qb2_floor ** inv_beta
             side1 = torch.zeros_like(dx)
         sumdis = torch.zeros_like(dx)
+        trans_acc = torch.zeros_like(dx)
         chanq_rows = []
         for t in range(T):
             sideflow_m3 = sf_base
+            if ramp:
+                sideflow_m3 = sideflow_m3 + (x["qin_old"] + float(t + 1) * x["qdelta"]) / T
+            if transloss:
+                # chanq is still the previous sub-step's discharge here
+                trans_out = torch.where(x["uptrans"] != 0,
+                                        (chanq ** x["tp2"] - x["tsub"]) ** x["tp1"], chanq)
+                loss = (chanq - trans_out) * dt_r
+                sideflow_m3 = sideflow_m3 - loss
+                trans_acc = trans_acc + loss
             if owned:
                 sideflow_m3 = sideflow_m3 + side[t]
             sideflow = torch.where(x["ischan"] != 0, sideflow_m3 * inv_dx / dt_r, 0.0)
@@ -386,6 +434,8 @@ def substep_reference(spec, xs):
         if spec.split:
             ys["q2"][c], ys["m32"][c], ys["side1"][c] = q2, m32, side1
             ys["cross2"][c] = (m32 - x["chan2m3start"]) * inv_dx
+        if transloss:
+            ys["trans"][c] = trans_acc
         if owned:
             side.zero_()
         # feeder staging: sub-step t's discharge is the structure's inflow
@@ -406,14 +456,15 @@ def substep_reference(spec, xs):
 _PTR_FIELDS = (
     ["tochan", "dx", "adx1", "alpha1", "ischan", "q1_0", "m31_0", "chanq_0",
      "adx2", "alpha2", "qlimit", "m3limit", "c2m3s", "c2qs", "q2_0", "m32_0",
-     "ev_up0", "ups", "ev_ups",
+     "ev_up0", "eva", "wuse", "qin_old", "qdelta", "uptrans", "tp1", "tp2", "tsub",
+     "ups", "ev_ups",
      "lk_pos", "lk_fee", "lk_fee_w", "lk_factor", "lk_factorsqr", "lk_area",
      "lk_st", "lk_inold", "lk_in", "lk_out", "lk_bal", "lk_level", "lk_sumin",
      "lk_sumout", "lk_buf",
      "rs_pos", "rs_fee", "rs_fee_w", "rs_tot", "rs_cons", "rs_norm", "rs_flood",
      "rs_nfl", "rs_nondam", "rs_normout", "rs_minout", "rs_do", "rs_dln",
      "rs_dnfl", "rs_st", "rs_fill", "rs_sumin", "rs_sumout", "rs_buf",
-     "q1", "m31", "chanq", "sumdis", "q2", "m32", "cross2", "side1", "ev_add",
+     "q1", "m31", "chanq", "sumdis", "q2", "m32", "cross2", "side1", "ev_add", "trans",
      "qring", "ev_ring", "chanq_rows", "side"])
 # kernel argument name -> operand name, where they differ
 _OPERAND_OF = {"tochan": "ToChan", "c2m3s": "chan2m3start", "c2qs": "chan2qstart"}

@@ -1,5 +1,5 @@
-"""Hydrological process functions on tensors — the port of the main-path part
-of lisflood_tpu/ops/physics.py.
+"""Hydrological process functions on tensors — the port of
+lisflood_tpu/ops/physics.py.
 
 Each function reproduces one reference module's dynamic() semantics and
 returns a dict of updated entries. Shapes: (P,) per pixel, (3, P) per
@@ -167,7 +167,7 @@ def canopy_step(cfg, p, s, d):
     w1a = w1a - ta1a
     w1b = w1b - ta1b
 
-    return {
+    out = {
         "CumInterception": cum3,
         "Interception": interception,
         "TaInterception": ta_int,
@@ -179,6 +179,12 @@ def canopy_step(cfg, p, s, d):
         "W1b": w1b,
         "LAITerm": lai_term,
     }
+    # irrigation-layer fill levels needed by water abstraction
+    # (soilloop.py:582-588, irrigated land use only)
+    if cfg.water_use:
+        out["WFilla"] = torch.minimum(wcrit1a[2], p["WPF3a"][2])
+        out["WFillb"] = torch.minimum(wcrit1b[2], p["WPF3b"][2])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +357,307 @@ def opensealed_step(cfg, p, s, d):
 
 
 # ---------------------------------------------------------------------------
+# rice irrigation (riceirrigation.py:78-179)
+
+
+def _with_row(x, i, row):
+    """Copy of the (3, P) tensor `x` with row `i` replaced."""
+    x = x.clone()
+    x[i] = row
+    return x
+
+
+def _safe_div(num, den):
+    """num / den where den > 0, else 0."""
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
+
+
+def rice_irrigation_step(cfg, p, s, d):
+    day = d["CalendarDay"]
+    ilanduse = 0  # Rainfed
+    ws1 = p["WS1"][ilanduse]
+    w1 = d["W1a"][ilanduse] + d["W1b"][ilanduse]
+    mmto_m3 = p["MMtoM3"]
+    dt_day = cfg.dt_day
+    rice_frac = p["RiceFraction"]
+
+    sat_demand = (ws1 - w1) * rice_frac * mmto_m3 * dt_day
+    pl1, ha1 = p["RicePlantingDay1"], p["RiceHarvestDay1"]
+    before = lambda day0, n: torch.where(day0 - n < 0, 365 + day0 - n, day0 - n)
+    pl_20, pl_10 = before(pl1, 20), before(pl1, 10)
+    ha_20, ha_10 = before(ha1, 20), before(ha1, 10)
+
+    saturation = torch.where((day >= pl_20) & (day < pl_10), 0.1 * sat_demand, 0.0)
+    rice_eva = torch.clamp_min(d["EWRef"] - (d["ESAct"][ilanduse] + d["Ta"][ilanduse]), 0)
+    eva_demand = rice_eva * rice_frac * mmto_m3
+    flooding_demand = p["RiceFlooding"] * rice_frac * mmto_m3 * dt_day
+    flooding = torch.where((day >= pl_10) & (day < pl1), flooding_demand + eva_demand, 0.0)
+    evaporation = torch.where((day >= pl1) & (day < ha_20), eva_demand, 0.0)
+    perc_demand = p["RicePercolation"] * rice_frac * mmto_m3 * dt_day
+    percolation = torch.where((day >= pl1) & (day < ha_20), perc_demand, 0.0)
+    abstraction = saturation + flooding + evaporation + percolation
+
+    drain_demand = (ws1 - p["WFC1"][ilanduse]) * rice_frac * mmto_m3 * dt_day
+    drainage = torch.where((day >= ha_10) & (day < ha1), 0.1 * drain_demand, 0.0)
+
+    soil_frac0 = p["SoilFraction"][ilanduse]
+    uz = d["UZ"]
+    uz0 = uz[ilanduse] + _safe_div((drainage + percolation) * p["M3toMM"], soil_frac0)
+    return {"PaddyRiceWaterAbstractionFromSurfaceWaterM3": abstraction,
+            "UZ": _with_row(uz, ilanduse, uz0)}
+
+
+# ---------------------------------------------------------------------------
+# water abstraction (waterabstraction.py:250-665)
+
+
+def water_abstraction_step(cfg, p, s, d):
+    nreg = cfg.num_wregions
+    wreg = p["WUseRegionC"]
+    mmto_m3 = p["MMtoM3"]
+    m3to_mm = p["M3toMM"]
+    regional = lambda x: segment_spread(x, wreg, nreg)
+    zero = torch.zeros_like(d["Rain"])
+    paddy = d["PaddyRiceWaterAbstractionFromSurfaceWaterM3"]
+
+    dom_mm = d["DomesticDemandMM"]
+    ind_mm = d["IndustrialDemandMM"]
+    liv_mm = d["LivestockDemandMM"]
+    ene_mm = d["EnergyDemandMM"]
+    fgw = p["FractionGroundwaterUsed"]
+    fnc = p["FractionNonConventionalWaterUsed"]
+    fsw = p["FractionSurfaceWaterUseDomLivInd"]
+
+    # livestock (waterabstraction.py:279-290)
+    cons_req_liv = liv_mm * p["LivestockConsumptiveUseFraction"]
+    cons_gw_liv = cons_req_liv * fgw
+    cons_sw_liv = cons_req_liv * fsw
+    abst_req_liv = liv_mm * mmto_m3
+    abst_gw_liv = fgw * abst_req_liv
+    abst_nc_liv = fnc * abst_req_liv
+    abst_sw_liv = abst_req_liv - abst_gw_liv - abst_nc_liv
+
+    # domestic (waterabstraction.py:292-305)
+    dem_red_dom = dom_mm * p["DomesticWaterSavingConstant"]
+    leak_dom = p["leak_demand_fraction"] * dem_red_dom
+    abst_req_dom_mm = dem_red_dom + leak_dom
+    abst_req_dom = abst_req_dom_mm * mmto_m3
+    cons_req_dom = dem_red_dom * p["DomesticConsumptiveUseFraction"]
+    cons_gw_dom = cons_req_dom * fgw
+    cons_sw_dom = cons_req_dom * fsw
+    abst_gw_dom = fgw * abst_req_dom
+    abst_nc_dom = fnc * abst_req_dom
+    abst_sw_dom = abst_req_dom - abst_gw_dom - abst_nc_dom
+
+    # industry (waterabstraction.py:307-321)
+    abst_req_ind = ind_mm * mmto_m3
+    cons_req_ind = ind_mm * p["IndustryConsumptiveUseFraction"]
+    cons_gw_ind = cons_req_ind * fgw
+    cons_sw_ind = cons_req_ind * fsw
+    abst_gw_ind = fgw * abst_req_ind
+    abst_nc_ind = fnc * abst_req_ind
+    abst_sw_ind = abst_req_ind - abst_gw_ind - abst_nc_ind
+
+    # energy (waterabstraction.py:323-329)
+    cons_req_ene = ene_mm * p["EnergyConsumptiveUseFraction"]
+    abst_sw_ene = ene_mm * mmto_m3
+
+    # irrigation (waterabstraction.py:331-354): recompute Ta on irrigated
+    iveg = 2
+    w1_irr = d["W1a"][iveg] + d["W1b"][iveg]
+    ta_irr = torch.clamp_min(d["RWS"][iveg] * d["potential_transpiration"][iveg], 0.0)
+    ta_irr = torch.clamp_min(torch.minimum(ta_irr, w1_irr - p["WWP1"][iveg]), 0.0)
+    demand_irr_mm = (d["potential_transpiration"][iveg] - ta_irr) * p["SoilFraction"][iveg]
+    demand_irr_mm = torch.where(d["isFrozenSoil"], 0.0, demand_irr_mm)
+    cons_req_irr_mm = demand_irr_mm * p["IrrigationMult"]
+    eff = p["IrrigationEfficiency"] * p["ConveyanceEfficiency"]
+    abst_req_irr_mm = _safe_div(cons_req_irr_mm, eff)
+    abst_req_irr = torch.clamp_min(abst_req_irr_mm * mmto_m3, 0.0)
+
+    # treated waste-water reuse (waterabstraction.py:355-366)
+    accum_reuse = torch.where(d["CalendarDay"] == 1, 0.0, s["ActualAccumulatedReUsedWaterM3"])
+    avail_reuse = torch.minimum(
+        torch.clamp_min(p["PotentialIrrigationWaterReUseM3Annual"] - accum_reuse, 0),
+        p["PotentialIrrigationWaterReUseM3Daily"])
+    abst_reuse_irr = torch.minimum(avail_reuse, abst_req_irr)
+    accum_reuse = accum_reuse + abst_reuse_irr
+    frac_swgw = 1.0 - _safe_div(abst_reuse_irr, abst_req_irr)
+    abst_swgw_req_irr = frac_swgw * abst_req_irr
+    cons_swgw_req_irr_mm = frac_swgw * cons_req_irr_mm
+
+    gw_fed = p["GWfed_fraction_irrigation"]
+    abst_gw_req_irr = gw_fed * abst_swgw_req_irr
+    abst_sw_req_irr = torch.clamp_min(abst_swgw_req_irr - abst_gw_req_irr, 0)
+    cons_gw_req_irr_mm = gw_fed * cons_req_irr_mm
+    cons_sw_req_irr_mm = torch.clamp_min(cons_swgw_req_irr_mm - cons_gw_req_irr_mm, 0)
+    abst_gw_act_irr = abst_gw_req_irr
+    cons_gw_act_irr_mm = cons_gw_req_irr_mm
+
+    # aggregation (waterabstraction.py:384-399)
+    abst_all_req = abst_req_dom + abst_req_liv + abst_req_ind + abst_sw_ene + paddy + abst_req_irr
+    abst_gw_noreturn = abst_gw_dom + abst_gw_liv + abst_gw_ind
+    abst_sw_req = abst_sw_dom + abst_sw_liv + abst_sw_ind + abst_sw_ene + abst_sw_req_irr + paddy
+    abst_swgw_req = abst_sw_req + abst_gw_req_irr + abst_gw_noreturn
+    cons_gw_noreturn = (cons_gw_dom + cons_gw_liv + cons_gw_ind) * mmto_m3
+    cons_sw_req_noreturn = (cons_sw_dom + cons_sw_liv + cons_sw_ind + cons_req_ene) * mmto_m3
+    cons_swgw_req = ((cons_gw_req_irr_mm + cons_sw_req_irr_mm) * mmto_m3 + paddy
+                     + cons_gw_noreturn + cons_sw_req_noreturn)
+    withdrawal_sw_req = cons_sw_req_noreturn + abst_sw_req_irr + paddy
+    areatotal_withdrawal_sw_req = regional(withdrawal_sw_req)
+    is_sw_required = areatotal_withdrawal_sw_req > 0
+
+    # groundwater abstraction (waterabstraction.py:401-411)
+    abst_gw_actual = abst_gw_noreturn + abst_gw_act_irr
+    lz = s["LZ"] - abst_gw_actual * m3to_mm
+    irri_loss_cum = s["IrriLossCUM"] + abst_gw_actual
+    returnflow_gw2chan_routstep = (abst_gw_noreturn - cons_gw_noreturn) / cfg.no_rout_steps
+
+    # lakes and reservoirs abstraction (waterabstraction.py:418-467)
+    dt_day = cfg.dt_day
+    if cfg.simulate_reservoirs:
+        pot_res = torch.minimum(0.02 * s["ReservoirStorageM3"],
+                                0.01 * p["TotalReservoirStorageM3C"]) * dt_day
+        pot_res = torch.where(torch.isnan(pot_res), 0.0, pot_res)
+    else:
+        pot_res = zero
+    if cfg.simulate_lakes:
+        pot_lake = 0.10 * s["LakeStorageM3"] * dt_day
+        pot_lake = torch.where(torch.isnan(pot_lake), 0.0, pot_lake)
+    else:
+        pot_lake = zero
+    pot_lakres = pot_lake + pot_res
+    areatotal_pot_lakres = regional(pot_lakres)
+    areatotal_lakres_req = p["FractionLakeReservoirWaterUsed"] * areatotal_withdrawal_sw_req
+    areatotal_lakres_act = torch.minimum(areatotal_lakres_req, areatotal_pot_lakres)
+    frac_by_lakres = torch.where(
+        is_sw_required,
+        areatotal_lakres_act / torch.where(is_sw_required, areatotal_withdrawal_sw_req, 1.0), 0.0)
+    frac_emptying = _safe_div(areatotal_lakres_act, areatotal_pot_lakres)
+    lake_abstraction = pot_lake * frac_emptying
+    res_abstraction = pot_res * frac_emptying
+    out = {}
+    if cfg.simulate_lakes:
+        out["LakeStorageM3"] = s["LakeStorageM3"] - lake_abstraction
+        out["LakeStorageM3CC"] = s["LakeStorageM3CC"] - lake_abstraction[p["LakeIndex"]]
+    if cfg.simulate_reservoirs:
+        out["ReservoirStorageM3"] = s["ReservoirStorageM3"] - res_abstraction
+        out["ReservoirStorageM3CC"] = s["ReservoirStorageM3CC"] - res_abstraction[p["ReservoirIndex"]]
+
+    # channel withdrawal (waterabstraction.py:470-498)
+    areatotal_ch_req = torch.clamp_min(areatotal_withdrawal_sw_req - areatotal_lakres_act, 0.0)
+    pixel_avail_ch = torch.clamp_min(d["ChanM3Kin"] - p["EFlowThreshold"] * cfg.dt_sec, 0.0)
+    areatotal_avail_ch = torch.clamp_min(regional(pixel_avail_ch), 0.0)
+    areatotal_ch_act = torch.minimum(areatotal_avail_ch, areatotal_ch_req)
+    frac_from_ch = torch.where(
+        areatotal_avail_ch > 0,
+        torch.clamp_max(areatotal_ch_act / torch.where(areatotal_avail_ch > 0, areatotal_avail_ch, 1.0), 1.0),
+        0.0)
+    withdrawal_ch_act = frac_from_ch * pixel_avail_ch
+    withdrawal_ch_act_routstep = withdrawal_ch_act / cfg.no_rout_steps
+    wateruse_cum = s["wateruseCum"] + withdrawal_ch_act
+    areatotal_shortage_sw = torch.clamp_min(areatotal_ch_req - areatotal_ch_act, 0.0)
+    withdrawal_sw_act = withdrawal_ch_act + lake_abstraction + res_abstraction
+
+    # scarcity allocation (waterabstraction.py:508-547)
+    abst_ch_req_irr = abst_sw_req_irr * (1 - frac_by_lakres)
+    areatotal_abst_ch_req_irr = regional(abst_ch_req_irr)
+    irrabs_minus_short = areatotal_abst_ch_req_irr - areatotal_shortage_sw
+    areatotal_abst_ch_act_irr = torch.clamp_min(irrabs_minus_short, 0.0)
+    frac_met_ch_irr = torch.clamp_max(
+        _safe_div(areatotal_abst_ch_act_irr, areatotal_abst_ch_req_irr), 1.0)
+    abst_ch_act_irr = abst_ch_req_irr * frac_met_ch_irr
+    withdrawal_ch_req_noreturn = cons_sw_req_noreturn * (1 - frac_by_lakres)
+    areatotal_wd_ch_req_noreturn = regional(withdrawal_ch_req_noreturn)
+    areatotal_short_beyond_irr = torch.clamp_min(-irrabs_minus_short, 0.0)
+    areatotal_wd_ch_act_noreturn = torch.clamp_min(
+        areatotal_wd_ch_req_noreturn - areatotal_short_beyond_irr, 0.0)
+    frac_met_ch_noreturn = torch.clamp_max(
+        _safe_div(areatotal_wd_ch_act_noreturn, areatotal_wd_ch_req_noreturn), 1.0)
+    cum_ch_withdrawal = s["cumulated_CH_withdrawal"] + withdrawal_ch_act
+
+    # actual surface-water abstractions (waterabstraction.py:535-547)
+    abst_sw_act_irr = abst_sw_req_irr * frac_by_lakres + abst_ch_act_irr
+    frac_met_sw_irr = torch.clamp_max(frac_by_lakres + frac_met_ch_irr * (1 - frac_by_lakres), 1.0)
+    frac_met_sw_noreturn = torch.clamp_max(
+        frac_by_lakres + frac_met_ch_noreturn * (1 - frac_by_lakres), 1.0)
+
+    # actual consumptions (waterabstraction.py:549-559)
+    cons_act_irr_mm = cons_gw_act_irr_mm + cons_sw_req_irr_mm * frac_met_sw_irr
+    cons_act_ene = cons_req_ene * frac_met_sw_noreturn
+    cons_act_dom = cons_gw_dom + cons_sw_dom * frac_met_sw_noreturn
+    cons_act_liv = cons_gw_liv + cons_sw_liv * frac_met_sw_noreturn
+    cons_act_ind = cons_gw_ind + cons_sw_ind * frac_met_sw_noreturn
+    cons_swgw_act = ((cons_act_irr_mm + cons_act_ene + cons_act_dom + cons_act_liv + cons_act_ind)
+                     * mmto_m3 + paddy)
+
+    # irrigation application to soil (waterabstraction.py:561-597)
+    abst_swgw_act_irr = abst_sw_act_irr + abst_gw_act_irr
+    irrigation_for_prescribed = torch.clamp_min(abst_swgw_act_irr, 0)
+    soil_frac_irr = p["SoilFraction"][iveg]
+    iwd = _safe_div(irrigation_for_prescribed * m3to_mm, soil_frac_irr)
+    w1a_irr = d["W1a"][iveg]
+    w1b_irr = d["W1b"][iveg]
+    w_old = w1a_irr + w1b_irr
+    wfilla = d["WFilla"]
+    wfillb = d["WFillb"]
+    iwd_b = torch.clamp_min(iwd - (wfilla - w1a_irr), 0)
+    w1a_new = torch.where(w1a_irr >= wfilla, w1a_irr, torch.minimum(wfilla, w1a_irr + iwd))
+    w1b_new = torch.where(w1b_irr >= wfillb, w1b_irr, torch.minimum(wfillb, w1b_irr + iwd_b))
+    w_diff = (w1a_new + w1b_new) - w_old
+    ta = _with_row(d["Ta"], iveg, ta_irr + iwd - w_diff)
+    irri_loss_cum = (irri_loss_cum + irrigation_for_prescribed * p["efficiency_irrigation"]
+                     - w_diff * mmto_m3 * soil_frac_irr)
+
+    eflow_indicator = (d["ChanQ"] < p["EFlowThreshold"]).to(d["ChanQ"].dtype)
+
+    out.update({
+        "LZ": lz,
+        "W1a": _with_row(d["W1a"], iveg, w1a_new),
+        "W1b": _with_row(d["W1b"], iveg, w1b_new),
+        "Ta": ta,
+        # irrigated thetas (waterabstraction.py:655-664)
+        "Theta1a": _with_row(d["Theta1a"], iveg, w1a_new / p["SoilDepth1a"][iveg]),
+        "Theta1b": _with_row(d["Theta1b"], iveg, w1b_new / p["SoilDepth1b"][iveg]),
+        "ActualAccumulatedReUsedWaterM3": accum_reuse,
+        "IrriLossCUM": irri_loss_cum,
+        "wateruseCum": wateruse_cum,
+        "cumulated_CH_withdrawal": cum_ch_withdrawal,
+        "withdrawal_CH_actual_M3": withdrawal_ch_act,
+        "withdrawal_CH_actual_M3_routStep": withdrawal_ch_act_routstep,
+        "returnflow_GwAbs2Channel_M3_routStep": returnflow_gw2chan_routstep,
+        "abstraction_GW_actual_M3": abst_gw_actual,
+        "abstraction_allSources_required_M3": abst_all_req,
+        "abstraction_SW_required_M3": abst_sw_req,
+        "abstraction_SwGw_required_M3": abst_swgw_req,
+        "consumption_SwGw_required_M3": cons_swgw_req,
+        "consumption_SwGw_actual_M3": cons_swgw_act,
+        "areatotal_shortage_SW_M3": areatotal_shortage_sw,
+        "areatotal_withdrawal_LakRes_actual_M3": areatotal_lakres_act,
+        "areatotal_withdrawal_SW_actual_M3": regional(withdrawal_sw_act),
+        "LakeAbstractionM3": lake_abstraction,
+        "ReservoirAbstractionM3": res_abstraction,
+        "EFlowIndicator": eflow_indicator,
+        "abstraction_SwGw_actual_irrigation_M3": abst_swgw_act_irr,
+        "abstraction_Reuse_irrigation_M3": abst_reuse_irr,
+    })
+    if cfg.rep_water_use:
+        # per-sector per-step terms of the monthly accounting
+        # (waterabstraction.py:631-646)
+        out.update({
+            "consumption_required_domestic_MM": cons_sw_dom + cons_gw_dom,
+            "consumption_required_energy_MM": cons_req_ene,
+            "consumption_required_industry_MM": cons_sw_ind + cons_gw_ind,
+            "consumption_required_livestock_MM": cons_sw_liv + cons_gw_liv,
+            "consumption_SwGw_required_irrigation_MM": cons_gw_req_irr_mm + cons_sw_req_irr_mm,
+            "consumption_actual_irrigation_MM": cons_act_irr_mm,
+            "abstraction_required_irrigation_M3": abst_req_irr,
+            "abstraction_SwGw_required_irrigation_M3": abst_swgw_req_irr,
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
 # per-pixel aggregation (soil.py:471-514)
 
 
@@ -425,7 +732,8 @@ def groundwater_step(cfg, p, s, d):
 
 def evapowater_init_step(cfg, p, s, d):
     """Variable water fraction (evapowater.py:96-121). The evaporation chain
-    itself runs inside the channel-routing kernel (ops/kinwave_substep.py)."""
+    itself runs inside the channel-routing kernel (ops/kinwave_substep.py)
+    when its graph fits the schedule window, else in evapowater_step."""
     if not (cfg.open_water_evapo and cfg.var_fraction_water):
         return {
             "WaterFraction": p["WaterFraction"],
@@ -452,4 +760,98 @@ def evapowater_init_step(cfg, p, s, d):
         "IrrigationFraction_dyn": irrig,
         "DirectRunoffFraction": direct,
         "PermeableFraction": 1 - direct - water,
+    }
+
+
+# LDD keypad code -> (row shift, col shift), as in graph/ldd.py
+_LDD_OFFSETS = {1: (1, -1), 2: (1, 0), 3: (1, 1), 4: (0, -1),
+                6: (0, 1), 7: (-1, -1), 8: (-1, 0), 9: (-1, 1)}
+
+
+def _shift2d(m, dr, dc):
+    """m shifted so that out[r + dr, c + dc] = m[r, c] (zeros flow in)."""
+    R, C = m.shape
+    padded = torch.nn.functional.pad(m, (max(dc, 0), max(-dc, 0), max(dr, 0), max(-dr, 0)))
+    return padded[max(-dr, 0):max(-dr, 0) + R, max(-dc, 0):max(-dc, 0) + C]
+
+
+def scatter_down_stencil(x, codes2d, land_idx, nrows, ncols):
+    """scatter_to_downstream as a 2-D LDD stencil: decompress, 8 masked
+    shifted adds, compress. Equal to the scatter up to the order of the
+    additions at cells with several upstream neighbours; unlike the atomic
+    scatter its order is fixed, so two runs on the card agree bitwise."""
+    g = x.new_zeros(nrows * ncols).index_copy_(0, land_idx, x).reshape(nrows, ncols)
+    cd = codes2d.reshape(nrows, ncols)
+    out = torch.zeros_like(g)
+    for code, (dr, dc) in _LDD_OFFSETS.items():
+        out = out + _shift2d(g * (cd == code), dr, dc)
+    return out.reshape(-1)[land_idx]
+
+
+def evapowater_step(cfg, p, s, d):
+    """Open-water evaporation moved downstream (evapowater.py:123-159), outside
+    the routing kernel: the path of schedules whose evaporation edges leave
+    the kernel's window."""
+    P = cfg.num_pixels
+    upstream_eva = d["EWRef"] * p["MMtoM3"] * d["WaterFraction"]
+    if (cfg.use_eva_stencil(upstream_eva.device) and "evaDir2D" in p
+            and cfg.grid_rows and cfg.grid_cols):
+        move_down = lambda x: scatter_down_stencil(
+            x, p["evaDir2D"], p["landIdx"], cfg.grid_rows, cfg.grid_cols)
+    else:
+        move_down = lambda x: scatter_to_downstream(x, p["downEva"], P)
+    chan_m_iter = d["ChanM3Kin"]
+    chan_left = chan_m_iter * 0.1
+    eva_add = torch.zeros_like(upstream_eva)
+    for _ in range(cfg.max_no_eva):
+        chan_help = torch.maximum(chan_m_iter - upstream_eva, chan_left)
+        eva_iter = torch.clamp_min(upstream_eva - (chan_m_iter - chan_help), 0)
+        chan_m_iter = chan_help
+        eva_add = eva_add + upstream_eva - eva_iter
+        upstream_eva = move_down(eva_iter)
+    return {
+        "EvaAddM3": eva_add,
+        "EvaAddM3Dt": eva_add / cfg.no_rout_steps,
+        "EvaCumM3": s["EvaCumM3"] + eva_add,
+        "EvaWBM3": eva_add,
+    }
+
+
+# ---------------------------------------------------------------------------
+# water level (waterlevel.py:49-77)
+
+
+def waterlevel_step(cfg, p, s, d):
+    chan_csa = torch.where(
+        p["IsChannelKinematic"],
+        torch.minimum(d["TotalCrossSectionArea"], p["TotalCrossSectionAreaBankFull"]), 0.0)
+    floodplain_csa = d["TotalCrossSectionArea"] - chan_csa
+    chan_depth = 2 * chan_csa / (p["ChanUpperWidth"] + p["ChanBottomWidth"])
+    floodplain_depth = floodplain_csa / p["FloodPlainWidth"]
+    level = chan_depth + floodplain_depth
+    return {"WaterLevel": torch.where(p["IsChannelKinematic"], level, 0.0)}
+
+
+# ---------------------------------------------------------------------------
+# pF soil-suction diagnostics (soilloop.py:673-704)
+
+
+def pf_step(cfg, p, d):
+    """Capillary pressure head per soil layer from the van Genuchten
+    inversion; pF = log10(head[cm]), -1 where the head is zero. The (3, P)
+    soil parameters broadcast against the (3, P) moisture states."""
+
+    def pf(w, psnz, wres, ws, inv_alpha, inv_m, inv_n):
+        sat = torch.where(psnz, torch.clamp((w - wres) / (ws - wres), 0.0, 1.0), 0.0)
+        head_raw = inv_alpha * ((1.0 / torch.clamp_min(sat, 1e-30)) ** inv_m - 1.0) ** inv_n
+        head = torch.where(sat == 0, p["HeadMax"], torch.clamp_max(head_raw, p["HeadMax"]))
+        return torch.where(head > 0, torch.log10(torch.clamp_min(head, 1e-30)), -1.0)
+
+    return {
+        "pF0": pf(d["W1a"], p["PoreSpaceNotZero1a"], p["WRes1a"], p["WS1a"],
+                  p["GenuInvAlpha1a"], p["GenuInvM1a"], p["GenuInvN1a"]),
+        "pF1": pf(d["W1b"], p["PoreSpaceNotZero1b"], p["WRes1b"], p["WS1b"],
+                  p["GenuInvAlpha1b"], p["GenuInvM1b"], p["GenuInvN1b"]),
+        "pF2": pf(d["W2"], p["PoreSpaceNotZero2"], p["WRes2"], p["WS2"],
+                  p["GenuInvAlpha2"], p["GenuInvM2"], p["GenuInvN2"]),
     }

@@ -1,7 +1,7 @@
-"""Surface and channel routing of one model step — the port of the main-path
-part of lisflood_tpu/ops/routing_ops.py (surface_routing.py:115-213,
+"""Surface and channel routing of one model step — the port of
+lisflood_tpu/ops/routing_ops.py (surface_routing.py:115-213,
 routing.py:435-706, lakes.py:199-298, reservoir.py:173-323,
-Lisflood_dynamic.py:176-230).
+transmission.py:67-89, Lisflood_dynamic.py:176-230).
 
 The port has one sub-step pipeline: the chunk-major loop of
 ops/kinwave_substep.py, as the CUDA kernel on a CUDA device and as its plain
@@ -15,6 +15,7 @@ import torch
 
 from .kinwave_packed import PackedRouter
 from .kinwave_substep import SubstepSpec, kinwave_substep
+from .physics import segment_spread
 
 
 def surface_routing_step(cfg, p, s, d, routers):
@@ -74,10 +75,6 @@ def resolve_pipeline(cfg, routers, device):
         raise NotImplementedError(
             "a lake or reservoir is not chunked after all of its feeders; the "
             "sequential sub-step loop that serves such schedules is not ported")
-    if cfg.open_water_evapo and not kin.eva_window_ok:
-        raise NotImplementedError(
-            "the evaporation graph's edges leave the schedule window; the "
-            "evaporation chain outside the routing kernel is not ported yet")
     kind = torch.device(device).type
     if kind == "cuda":
         return "cuda"
@@ -121,12 +118,26 @@ def kernel_operands(cfg, p, s, d, routers):
             "m32_0": c2(spk("Chan2M3Kin")),
         })
     E = 0
-    if cfg.open_water_evapo:
+    if "EvaUpstream0" in d:
         # the whole evaporation chain runs in the kernel, its transfers over
         # the evaporation graph's upstream table
         E = int(cfg.max_no_eva)
         xs["ev_up0"] = c2(kin.pack(d["EvaUpstream0"]))
         xs["ev_ups"] = pk("EvaUpsTable")
+    elif cfg.open_water_evapo:
+        # the chain ran outside (physics.evapowater_step)
+        xs["eva"] = c2(kin.pack(d["EvaAddM3Dt"]))
+    if cfg.water_use:
+        xs["wuse"] = c2(kin.pack(d["withdrawal_CH_actual_M3_routStep"])
+                        - kin.pack(d["returnflow_GwAbs2Channel_M3_routStep"]))
+    if cfg.inflow:
+        xs["qin_old"] = c2(kin.pack(d["QInM3OldLoop"]))
+        xs["qdelta"] = c2(kin.pack(d["QDelta"]))
+    if cfg.trans_loss:
+        xs["uptrans"] = c2(pk("UpTrans").to(dtype))
+        xs["tp1"] = c2(pk("TransPower1"))
+        xs["tp2"] = c2(pk("TransPower2"))
+        xs["tsub"] = c2(pk("TransSub"))
     # structure inflow at the start of the step: the previous sub-step's
     # discharge of its <=8 feeders (pre-cut graph)
     buf0 = lambda name: (spk("ChanQ")[pk(name + "UpsIdx")] * pk(name + "UpsW")).sum(1)
@@ -161,10 +172,11 @@ def kernel_operands(cfg, p, s, d, routers):
 
 
 def channel_routing_kernel(cfg, p, s, d, routers):
-    """The NoRoutSteps sub-step loop with lakes, reservoirs and the
-    open-water evaporation chain, on the sub-step kernel (counterpart of the
-    JAX package's channel_routing_pallas); returns end-of-step state and
-    diagnostics. The routing state stays schedule-packed across steps."""
+    """The NoRoutSteps sub-step loop with lakes, reservoirs, the open-water
+    evaporation chain and the optional sideflow terms, on the sub-step kernel
+    (counterpart of the JAX package's channel_routing_pallas); returns
+    end-of-step state and diagnostics. The routing state stays
+    schedule-packed across steps."""
     kin = routers["kin"]
     T = cfg.no_rout_steps
     spec, xs = kernel_operands(cfg, p, s, d, routers)
@@ -176,6 +188,25 @@ def channel_routing_kernel(cfg, p, s, d, routers):
     if spec.split:
         carry.update({"Chan2QKin": flat("q2"), "Chan2M3Kin": flat("m32"),
                       "CrossSection2Area": flat("cross2"), "Sideflow1Chan": flat("side1")})
+    if cfg.trans_loss:
+        carry["TransCum"] = s["pk$TransCum"] + flat("trans")
+    natural = {}     # carry entries that are in natural pixel space already
+    if cfg.inflow:
+        # closed form of the per-sub-step ramp sum (inflow.py:145-147)
+        natural["QinADDEDM3"] = d["QInM3OldLoop"] + d["QDelta"] * (T + 1) / 2.0
+    if cfg.rep_mbts:
+        # AddedTRUN is linear in the per-sub-step terms: one catchment total
+        ct = lambda v: segment_spread(v, p["Catchments"], cfg.num_catchments)
+        added = T * ct(d["ToChanM3RunoffDt"])
+        if cfg.inflow:
+            added = added + ct(natural["QinADDEDM3"])
+        if cfg.open_water_evapo:
+            eva_dt = kin.unpack(flat("ev_add")) / T if spec.E else d["EvaAddM3Dt"]
+            added = added - T * ct(eva_dt)
+        if cfg.water_use:
+            added = added - T * ct(d["withdrawal_CH_actual_M3_routStep"]
+                                   - d["returnflow_GwAbs2Channel_M3_routStep"])
+        natural["AddedTRUN"] = added
     if "lk_pos" in xs:
         carry.update({
             "LakeStorageM3CC": ys["lk_st"], "LakeInflowOldCC": ys["lk_inold"],
@@ -186,7 +217,7 @@ def channel_routing_kernel(cfg, p, s, d, routers):
         carry.update({
             "ReservoirStorageM3CC": ys["rs_st"], "ReservoirFillCC": ys["rs_fill"],
             "sumResInCC": ys["rs_sumin"], "sumResOutCC": ys["rs_sumout"]})
-    out = _post_routing_packed(cfg, p, s, d, carry, routers)
+    out = _post_routing_packed(cfg, p, s, d, carry, routers, natural)
     if spec.E:
         eva_p = flat("ev_add")
         eva_nat = kin.unpack(eva_p)
@@ -200,12 +231,16 @@ def channel_routing_kernel(cfg, p, s, d, routers):
 
 def _post_routing(cfg, p, s, d, carry, dtype):
     """Post-sub-step-loop state and diagnostics in natural pixel space
-    (Lisflood_dynamic.py:194-230, routing.py:695-706)."""
+    (Lisflood_dynamic.py:194-230, routing.py:645-706)."""
     P = cfg.num_pixels
     dx = p["ChanLength"]
     inv_dx = 1.0 / dx
+    catchtotal = lambda x: segment_spread(x, p["Catchments"], cfg.num_catchments)
 
     out = dict(carry)
+    if cfg.inflow:
+        # for the mass-balance module (Lisflood_dynamic.py:185-189)
+        out["sumInWB"] = carry["QinADDEDM3"]
     if not cfg.split_routing:
         chan_m3 = carry["ChanM3Kin"]
     else:
@@ -247,13 +282,39 @@ def _post_routing(cfg, p, s, d, carry, dtype):
         out["ReservoirFill"] = expand(ri, carry["ReservoirFillCC"])
         out["ReservoirInflowM3S"] = expand(ri, carry["sumResInCC"] / cfg.dt_sec)
         out["ReservoirOutflowM3S"] = expand(ri, carry["sumResOutCC"] / cfg.dt_sec)
+
+    # split-routing mass balance (routing.py:645-691)
+    if cfg.rep_mbts and cfg.split_routing:
+        sum1 = torch.where(p["AtLastPointC"], carry["sumDisDay"] / cfg.no_rout_steps, 0.0)
+        out_step = catchtotal(sum1 * cfg.dt_sec)
+        storage_step = carry["ChanM3Kin"] + carry["Chan2M3Kin"] - p["Chan2M3Start"]
+        dis_structures = torch.zeros(P, dtype=dtype, device=dx.device)
+        if cfg.simulate_reservoirs:
+            storage_step = storage_step + out["ReservoirStorageM3"]
+        if cfg.simulate_lakes:
+            storage_step = storage_step + out["LakeStorageM3Balance"]
+        if cfg.simulate_reservoirs or cfg.simulate_lakes:
+            # water on its way into a structure at the end of the step
+            dis_structures = catchtotal(torch.where(
+                p["IsUpsOfStructureKinematicC"], carry["ChanQ"] * cfg.dt_routing, 0.0))
+            if cfg.simulate_lakes:
+                dis_lake = expand(p["LakeIndex"], 0.5 * carry["LakeInflowCC"] * cfg.dt_routing)
+                dis_structures = dis_structures + catchtotal(dis_lake)
+            dis_structures = dis_structures - s["DischargeM3StructuresIni"]
+        storage_step1 = catchtotal(storage_step)
+        mb_error = (-storage_step1 + s["StorageStepINIT"] - out_step - dis_structures
+                    + carry["AddedTRUN"])
+        out["MBErrorSplitRoutingM3"] = mb_error
+        qout_corr = torch.where(p["AtLastPointC"], mb_error / cfg.dt_routing, 0.0)
+        out["OutletDischargeErrorSplitRouting"] = catchtotal(qout_corr)
+        out["StorageStepINIT"] = storage_step1 + dis_structures
     return out
 
 
-def _post_routing_packed(cfg, p, s, d, carry_p, routers):
+def _post_routing_packed(cfg, p, s, d, carry_p, routers, carry_natural):
     """Packed-state epilogue: advances the pk$ routing state in position
     space and computes the natural-space diagnostics through _post_routing
-    on unpacked views."""
+    on unpacked views of `carry_p` and on `carry_natural` as it is."""
     kin = routers["kin"]
     p_pad = kin.ps.p_pad
     unpack = kin.unpack
@@ -262,8 +323,9 @@ def _post_routing_packed(cfg, p, s, d, carry_p, routers):
         return unpack(v) if v.dim() >= 1 and v.shape[-1] == p_pad else v
 
     carry_n = {k: view(v) for k, v in carry_p.items()}
+    carry_n.update(carry_natural)
     s_n = dict(s)
-    for key in ("sumDis", "CumQ", "avgdis", "DischargeM3Out"):
+    for key in ("sumDis", "CumQ", "avgdis", "DischargeM3Out", "TransCum"):
         if "pk$" + key in s:
             s_n[key] = unpack(s["pk$" + key])
     out = _post_routing(cfg, p, s_n, d, carry_n, carry_n["ChanQKin"].dtype)
@@ -271,7 +333,7 @@ def _post_routing_packed(cfg, p, s, d, carry_p, routers):
     # the advancing state, in packed space (the same elementwise updates as
     # _post_routing's, in the permuted layout)
     for key in ("ChanQKin", "ChanM3Kin", "ChanQ", "Chan2QKin", "Chan2M3Kin",
-                "CrossSection2Area", "Sideflow1Chan"):
+                "CrossSection2Area", "Sideflow1Chan", "TransCum"):
         if key in carry_p:
             out["pk$" + key] = carry_p[key]
     out["pk$sumDis"] = s["pk$sumDis"] + carry_p["sumDisDay"]

@@ -168,7 +168,8 @@ def test_multi_step_matches_step_loop():
 
 def test_unported_options_refused():
     cfg, params, state, aux = port_synthetic.build_synthetic_model(**SIZE)
-    for field in ("water_use", "trans_loss", "rep_mbts", "inflow"):
+    for field in ("init_lisflood", "init_lisflood_without_split", "indicator",
+                  "transient_landuse"):
         with pytest.raises(NotImplementedError):
             build_step(dataclasses.replace(cfg, **{field: True}), params, aux, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -198,4 +199,4 @@ print(len([m for m in sys.modules if m.startswith("lisflood_tpu_torch")]))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=str(__import__("pathlib").Path(__file__).resolve().parent.parent))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 13

@@ -5,7 +5,10 @@ and against a float64 NumPy transcription.
 The scenario is random and self-contained: 16 chunks of 128 lanes, a
 2-chunk window, 3 sub-steps, split routing, the open-water evaporation chain,
 and two lakes and two reservoirs whose feeders lie in earlier chunks
-(some beyond the window)."""
+(some beyond the window). The optional sideflow terms (evaporation computed
+outside, water use, inflow ramp, transmission loss) come in cases of their
+own; the transmission-loss data holds lanes where chanq**tp2 < tsub, whose
+`trans` is NaN in both packages."""
 import dataclasses
 
 import numpy as np
@@ -22,6 +25,19 @@ NL = NR = 2
 BETA = 0.6
 DT_R = 86400.0 / T
 ROWS = ks.ROW_NAMES + ks.SPLIT_ROW_NAMES + ["ev_up0"]
+# the optional sideflow terms by group, and the cases that exercise them:
+# (groups, split routing, in-kernel evaporation chain, structures)
+GROUPS = {"eva": ("eva",), "wuse": ("wuse",), "ramp": ("qin_old", "qdelta"),
+          "trans": ("uptrans", "tp1", "tp2", "tsub")}
+SIDEFLOW_CASES = {
+    "eva": (("eva",), True, False, False),
+    "wuse": (("wuse",), True, True, False),
+    "ramp": (("ramp",), True, True, False),
+    "trans": (("trans",), True, True, False),
+    "all-split": (("wuse", "ramp", "trans"), True, True, True),
+    "all-split-eva-outside": (("eva", "wuse", "ramp", "trans"), True, False, True),
+    "all-single": (("eva", "wuse", "ramp", "trans"), False, False, True),
+}
 
 
 def _window_offsets(rng, frac):
@@ -66,6 +82,16 @@ def scenario():
     x["m32_0"] = x["chan2m3start"] + u(0, 2e4)
     x["q2_0"] = (x["m32_0"] / x["dx"] / x["alpha2"]) ** (1 / BETA)
     x["ev_up0"] = u(0, 3e3)
+    # optional sideflow terms; tsub up to 0.3 against chanq_0**tp2 of ~2
+    # leaves some lanes with chanq**tp2 < tsub (NaN loss: tp1 is no integer)
+    x["eva"] = u(0, 50)
+    x["wuse"] = u(-20, 100)
+    x["qin_old"] = np.where(rng.random((NC, C)) < 0.1, u(0, 5e4), 0.0)
+    x["qdelta"] = x["qin_old"] * u(-0.1, 0.1)
+    x["uptrans"] = (rng.random((NC, C)) < 0.6).astype(np.float64)
+    x["tp1"] = u(1.5, 2.5)
+    x["tp2"] = 1.0 / x["tp1"]
+    x["tsub"] = u(0, 0.3)
     dl = _window_offsets(rng, 0.7)
     ev_dl = _window_offsets(rng, 0.5)
 
@@ -103,32 +129,39 @@ def scenario():
     return dict(x=x, dl=dl, ev_dl=ev_dl, pos=pos, fee=fee, s=s)
 
 
-def port_operands(sc, dtype):
+def _rows(groups, split, chain):
+    return (ks.ROW_NAMES + (ks.SPLIT_ROW_NAMES if split else []) + (["ev_up0"] if chain else [])
+            + [k for g in groups for k in GROUPS[g]])
+
+
+def port_operands(sc, dtype, groups=(), split=True, chain=True, structures=True):
     t = lambda v, dt=dtype: torch.as_tensor(np.ascontiguousarray(v), dtype=dt)
-    xs = {k: t(sc["x"][k]) for k in ROWS}
+    xs = {k: t(sc["x"][k]) for k in _rows(groups, split, chain)}
     p_pad = NC * C
-    for name, dl in (("ups", sc["dl"]), ("ev_ups", sc["ev_dl"])):
+    for name, dl in (("ups", sc["dl"]),) + ((("ev_ups", sc["ev_dl"]),) if chain else ()):
         dp = _down_pos(dl)
         xs[name] = t(upstream_table(np.flatnonzero(dp >= 0), dp[dp >= 0], p_pad), torch.int32)
-    for prefix, sl in (("lk", slice(0, NL)), ("rs", slice(NL, NL + NR))):
-        xs[prefix + "_pos"] = t(sc["pos"][sl], torch.int32)
-        xs[prefix + "_fee"] = t(sc["fee"][sl], torch.int32)
-        xs[prefix + "_fee_w"] = t((sc["fee"][sl] >= 0).astype(np.float64))
-    for k, v in sc["s"].items():
-        xs[k] = t(v)
+    if structures:
+        for prefix, sl in (("lk", slice(0, NL)), ("rs", slice(NL, NL + NR))):
+            xs[prefix + "_pos"] = t(sc["pos"][sl], torch.int32)
+            xs[prefix + "_fee"] = t(sc["fee"][sl], torch.int32)
+            xs[prefix + "_fee_w"] = t((sc["fee"][sl] >= 0).astype(np.float64))
+        for k, v in sc["s"].items():
+            xs[k] = t(v)
     spec = ks.SubstepSpec(n_chunks=NC, chunk=C, window=W, T=T, dt_routing=DT_R,
-                          beta=BETA, split=True, E=E)
+                          beta=BETA, split=split, E=E if chain else 0)
     return spec, xs
 
 
-def jax_operands(sc):
+def jax_operands(sc, groups=(), split=True, chain=True, structures=True):
     """The Pallas kernel's operands: padded structure rows, per-chunk masks
     (routing_ops.pallas_operands layout)."""
     f32 = np.float32
-    xs = {k: sc["x"][k].astype(f32) for k in ROWS}
+    xs = {k: sc["x"][k].astype(f32) for k in _rows(groups, split, chain)}
     xs["dl"], xs["ev_dl"] = sc["dl"], sc["ev_dl"]
     cids = np.arange(NC)
-    for prefix, sl, n in (("lk", slice(0, NL), NL), ("rs", slice(NL, NL + NR), NR)):
+    families = (("lk", slice(0, NL), NL), ("rs", slice(NL, NL + NR), NR)) if structures else ()
+    for prefix, sl, n in families:
         Np = 128
         pos, fee = sc["pos"][sl], sc["fee"][sl]
         w = (fee >= 0).astype(f32)
@@ -154,8 +187,8 @@ def jax_operands(sc):
     return xs
 
 
-@pytest.fixture(scope="module")
-def jax_out(scenario):
+def run_pallas(sc, groups=(), split=True, chain=True, structures=True):
+    """The Pallas kernel in interpret mode on the scenario's operands."""
     import jax.numpy as jnp
     cfg = ModelConfig(no_rout_steps=T, dt_sec=86400.0, num_pixels=NC * C,
                       num_lakes=NL, num_reservoirs=NR, max_no_eva=E)
@@ -166,12 +199,28 @@ def jax_out(scenario):
         n_chunks: int = NC
         window: int = W
 
-    run = build_substep_pallas(cfg, PS(), BETA, {"split": True, "eva_chain": True,
-                                                "lakes": True, "reservoirs": True},
-                               interpret=True)
-    ys = run({k: jnp.asarray(v) for k, v in jax_operands(scenario).items()})
+    has = {"split": split, "eva_chain": chain, "lakes": structures, "reservoirs": structures}
+    # the kernel takes an operand only when `has` names it
+    has.update({k: True for g in groups for k in GROUPS[g]})
+    run = build_substep_pallas(cfg, PS(), BETA, has, interpret=True)
+    ys = run({k: jnp.asarray(v)
+              for k, v in jax_operands(sc, groups, split, chain, structures).items()})
     return {k: np.asarray(v)[0, :NL if k.startswith("lk") else NR]
             if k.startswith(("lk_", "rs_")) else np.asarray(v) for k, v in ys.items()}
+
+
+def max_err(got, ref):
+    """max |got - ref| over the largest |ref|, NaN only where both are NaN."""
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(got), nan)
+    if nan.all():
+        return 0.0
+    return np.nanmax(np.abs(got - ref)) / max(np.nanmax(np.abs(ref)), 1e-30)
+
+
+@pytest.fixture(scope="module")
+def jax_out(scenario):
+    return run_pallas(scenario)
 
 
 def test_substep_reference_vs_pallas_interpret(scenario, jax_out):
@@ -208,14 +257,15 @@ def _newton_np(cc, adx, beta, iters=6):
     return np.where(small, 0.0, q)
 
 
-def numpy_transcription(sc):
+def numpy_transcription(sc, groups=()):
     """The chunk-major sub-step algorithm of the Pallas kernel, in float64
     NumPy: rotating inflow windows filled by scatter-adds through the local
-    downstream offsets."""
+    downstream offsets; `groups` names the optional sideflow terms."""
     x, s = sc["x"], sc["s"]
     pos, fee = sc["pos"], sc["fee"]
     out = {k: np.zeros((NC, C)) for k in ("q1", "m31", "chanq", "sumdis", "q2", "m32",
-                                           "cross2", "side1", "ev_add")}
+                                           "cross2", "side1", "ev_add")
+           + (("trans",) if "trans" in groups else ())}
     lk = {"lk_st": s["lk_st0"].copy(), "lk_inold": s["lk_inold0"].copy(),
           "lk_out": s["lk_out0"].copy(), "lk_bal": s["lk_bal0"].copy(),
           "lk_in": np.zeros(NL), "lk_level": np.zeros(NL),
@@ -288,12 +338,26 @@ def numpy_transcription(sc):
                 side[t, lane] = qo
         # routing sub-steps (generic q-space solve, as the float64 kernel)
         q1, m31, q2, m32 = r["q1_0"], r["m31_0"], r["q2_0"], r["m32_0"]
+        chanq_prev = r["chanq_0"]
         sumdis = np.zeros(C)
         qrows = np.zeros((T, 2, C))
         chanq_rows = np.zeros((T, C))
         for t in range(T):
-            sf = r["ToChan"] - eva_add * (1.0 / T) + side[t]
+            sf = r["ToChan"] - eva_add * (1.0 / T)
+            if "wuse" in groups:
+                sf = sf - r["wuse"]
+            if "ramp" in groups:
+                sf = sf + (r["qin_old"] + (t + 1) * r["qdelta"]) / T
+            if "trans" in groups:
+                with np.errstate(invalid="ignore"):
+                    passed = np.where(r["uptrans"] != 0,
+                                      (chanq_prev ** r["tp2"] - r["tsub"]) ** r["tp1"], chanq_prev)
+                loss = (chanq_prev - passed) * DT_R
+                sf = sf - loss
+                out["trans"][c] += loss
+            sf = sf + side[t]
             sf = np.where(r["ischan"] != 0, sf * inv_dx / DT_R, 0.0)
+            sf = np.where(np.isnan(sf), 0.0, sf)
             ratio = np.where(m31 + m32 > 0, m31 / np.where(m31 + m32 > 0, m31 + m32, 1), 0)
             over = (m31 + m32 - r["chan2m3start"]) > r["m3limit"]
             s1 = np.where(over, ratio * sf, sf)
@@ -306,7 +370,7 @@ def numpy_transcription(sc):
             m32 = r["dx"] * r["alpha2"] * qrows[t, 1] ** BETA
             m32 = np.where(m32 - r["chan2m3start"] < 0, r["chan2m3start"], m32)
             q2 = (m32 * inv_dx / r["alpha2"]) ** (1 / BETA)
-            chanq_rows[t] = np.maximum(q1 + q2 - r["qlimit"], 0)
+            chanq_rows[t] = chanq_prev = np.maximum(q1 + q2 - r["qlimit"], 0)
             sumdis += chanq_rows[t]
         out["q1"][c], out["m31"][c], out["q2"][c], out["m32"][c] = q1, m31, q2, m32
         out["chanq"][c], out["sumdis"][c], out["side1"][c] = chanq_rows[-1], sumdis, s1
@@ -333,6 +397,27 @@ def numpy_transcription(sc):
     return out
 
 
+@pytest.mark.parametrize("case", list(SIDEFLOW_CASES))
+def test_substep_sideflow_terms_vs_pallas_interpret(scenario, case):
+    """float32 plain version with the optional sideflow terms vs the Pallas
+    kernel: each group alone and all together, with split and with single
+    routing, with the evaporation chain inside the kernel and with its
+    result handed in. Every output, `trans` included, within 1e-5 of its
+    largest magnitude (measured at most 1.3e-6, on `trans` with single
+    routing); the NaN lanes of `trans` (about 300 of 2048) are NaN in both."""
+    groups, split, chain, structures = SIDEFLOW_CASES[case]
+    ref = run_pallas(scenario, groups, split, chain, structures)
+    spec, xs = port_operands(scenario, torch.float32, groups, split, chain, structures)
+    ys = ks.kinwave_substep(spec, xs)
+    assert set(ys) == set(ref)
+    assert ("trans" in ys) == ("trans" in groups)
+    if "trans" in groups:
+        assert 0 < np.isnan(ref["trans"]).sum() < ref["trans"].size // 2
+    for k, r in ref.items():
+        err = max_err(ys[k].numpy(), r)
+        assert err <= 1e-5, f"{k}: {err:.3e}"
+
+
 def test_substep_reference_f64_vs_numpy(scenario):
     """float64 plain version (generic q-space solve) vs an independent
     float64 NumPy transcription: every output within 1e-12 of its largest
@@ -346,12 +431,35 @@ def test_substep_reference_f64_vs_numpy(scenario):
         assert err <= 1e-12, f"{k}: {err:.3e}"
 
 
+def test_substep_sideflow_terms_f64_vs_numpy(scenario):
+    """float64 plain version with water use, the inflow ramp and the
+    transmission loss (the in-kernel evaporation chain running too) vs the
+    NumPy transcription: every output within 1e-12 of its largest magnitude
+    (measured 1.2e-15, on `trans`), the NaN lanes of `trans` NaN in both."""
+    groups = ("wuse", "ramp", "trans")
+    spec, xs = port_operands(scenario, torch.float64, groups)
+    ys = ks.kinwave_substep(spec, xs)
+    ref = numpy_transcription(scenario, groups)
+    assert set(ys) == set(ref)
+    assert np.isnan(ref["trans"]).any()
+    for k, r in ref.items():
+        err = max_err(ys[k].numpy(), r)
+        assert err <= 1e-12, f"{k}: {err:.3e}"
+
+
 def test_wrapper_checks_operands(scenario):
-    """The wrapper refuses the JAX kernel's unported sideflow terms, a wrong
-    dtype and a wrong shape."""
+    """The wrapper refuses half a group of sideflow operands, precomputed
+    evaporation together with the in-kernel chain, a wrong dtype and a wrong
+    shape."""
     spec, xs = port_operands(scenario, torch.float32)
-    with pytest.raises(NotImplementedError):
-        ks.kinwave_substep(spec, {**xs, "wuse": xs["ToChan"]})
+    with pytest.raises(ValueError):
+        ks.kinwave_substep(spec, {**xs, "qin_old": xs["ToChan"]})
+    with pytest.raises(ValueError):
+        ks.kinwave_substep(spec, {**xs, "uptrans": xs["ischan"], "tp1": xs["dx"]})
+    with pytest.raises(ValueError):
+        ks.kinwave_substep(spec, {**xs, "eva": xs["ToChan"]})
+    with pytest.raises(ValueError):
+        ks.kinwave_substep(spec, {**xs, "wuse": xs["ToChan"].double()})
     with pytest.raises(ValueError):
         ks.kinwave_substep(spec, {**xs, "dx": xs["dx"].double()})
     with pytest.raises(ValueError):

@@ -6,7 +6,9 @@
 Phases, each reported on lines of its own; any failure raises and the
 script exits non-zero:
   1. the card's name and power limit; the CUDA kernels built from
-     lisflood_tpu_torch/csrc with nvcc (sm_90a), with their build time;
+     lisflood_tpu_torch/csrc with nvcc (sm_90a), with their build time; the
+     arithmetic instructions of pow and powf counted from their SASS and
+     held to POW_FLOPS below (the constants of the kernel's bound);
   2. the sub-step kernel against its plain PyTorch version on the card, at a
      middle size with every main-path phase active (synthetic 240x200 model,
      NoRoutSteps=24, chunk 512, lakes, reservoirs, split routing, the
@@ -16,8 +18,9 @@ script exits non-zero:
      use, inflow ramp, transmission loss) from with_options, in float32 and
      float64, and in float32 with the evaporation chain outside the kernel
      (operand `eva`); two kernel runs bitwise equal; and the whole float64
-     step, default and all-options, on the card against the same step on the
-     CPU (within 1e-10);
+     step (default, all-options, and all-options with the evaporation
+     chain outside the kernel) on the card against the same step on the CPU
+     (within 1e-10);
   3. the main path: the continental synthetic model (1200x1000,
      NoRoutSteps=24, chunk 512, float32) through build_multi_step with
      ChanQAvg output, one warm-up step and two timed batches of five steps
@@ -33,9 +36,12 @@ script exits non-zero:
      water levels, pF, mass-balance reports) through build_multi_step, timed
      and profiled as in phase 3; launches equal steps, every state entry
      finite, TransCum non-negative and not all zero; the kernel's time with
-     the sideflow terms on, and its bound.
-Run as `python3 chip_smoke.py --pow-ops` it only counts the arithmetic
-instructions of pow and powf (the figures of POW_FLOPS below).
+     the sideflow terms on, its bound, and the plain version's time with the
+     kernel held to it at this shape (float32, within 1e-5 of each output's
+     max, `trans` included).
+Run as `python3 chip_smoke.py --side-flag-ab` it only times the main path's
+kernel launch against a build of the same source without the SIDE template
+flag (the optional sideflow terms then guarded by their null pointers alone).
 The line before the last is a JSON object of per-kernel figures; the last is
 {"ok": true, "device": {...}}. Needs no network; stops what it starts.
 """
@@ -69,7 +75,8 @@ QSPACE_ROW = lambda iters: (3 + 8 + 9 * iters + 5, 1 + 3 + iters + 2)     # (pla
 QSPACE_ITERS = {"float32": 4, "float64": 6}
 # one pow, by the arithmetic instructions (add, multiply; a fused
 # multiply-add counts 2) in the SASS that nvcc 12 emits for pow / powf on
-# sm_90a, every branch included: counted by `python3 chip_smoke.py --pow-ops`
+# sm_90a, every branch included: phase 1 counts them anew and fails if they
+# differ
 POW_FLOPS = {"float32": 63, "float64": 122}
 # the optional sideflow terms: eva and wuse 1 per lane each; per sub-step
 # the inflow ramp 3; the transmission loss 4, and on lanes with uptrans set
@@ -168,7 +175,8 @@ def phase_mid(torch, ks):
     with every main-path phase, in float32 with single routing and no
     evaporation chain (the kernel's one-lane sub-step), and with the optional
     sideflow terms; then the whole float64 step, default and all-options, on
-    the card vs on the CPU. Returns the figures of the float32 sideflow case
+    the card vs on the CPU, the latter also with the evaporation chain outside
+    the kernel. Returns the figures of the float32 sideflow case
     and of the float64 default case."""
     from lisflood_tpu_torch.models.synthetic import build_synthetic_model, with_options
     model = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512)
@@ -216,13 +224,15 @@ def phase_mid(torch, ks):
             figures[name] = {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd,
                              "bound_ms": bound_ms, "bound_by": bound_by}
     # the whole float64 step, card (kernel) vs CPU (plain version)
-    for m, what in ((model, "default"), (options, "all-options")):
+    for m, what in ((model, "default"), (options, "all-options"),
+                    (eva_outside, "all-options, evaporation outside")):
         outs = {}
         for dev in ("cuda", "cpu"):
             step, s, f, _, _ = kernel_inputs(m, dev, torch.float64)
             s2, d = step(s, f)
             outs[dev] = step.natural_state(s2)
-            if m is options:
+            assert step.eva_in_kernel == (m is not eva_outside)
+            if m is not model:
                 outs[dev].update({k: d[k] for k in ("ChanQAvg", "MBError", "MBErrorSplitRoutingM3")})
         # the two mass-balance residuals are differences of catchment totals
         # (summed with atomics on the card): held on the scale of those totals
@@ -269,8 +279,11 @@ def timed_steps(torch, ks, multi, s, forcing, card):
 
 def profile_step(torch, step, s, f, step_ms):
     """One step under torch.profiler: the device's busy time by kernel rows,
-    against the unprofiled steady step time `step_ms`. A profiler that
-    records no device time is reported and is no failure."""
+    against the unprofiled steady step time `step_ms` (the profiled step's
+    own wall time holds the profiler's cost). The idle share is printed as
+    it comes out, below 0 if the profiled kernels ran longer than that
+    step. A profiler that records no device time is said so on a line of
+    its own and is no failure: a machine may refuse the tracing."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -281,18 +294,18 @@ def profile_step(torch, step, s, f, step_ms):
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(device_us(e) for e in rows) / 1e3
     if busy_ms == 0:
-        print("  torch.profiler recorded no device time", flush=True)
+        print("  torch.profiler recorded no device time: idle share not measured", flush=True)
         return
     rows.sort(key=device_us, reverse=True)
     top = "; ".join(f"{e.key[:40]} {device_us(e) / 1e3:.1f} ms x{e.count}" for e in rows[:4])
     print(f"  one step under torch.profiler: device busy {busy_ms:.1f} ms in "
-          f"{sum(e.count for e in rows)} kernels, {max(1 - busy_ms / step_ms, 0) * 100:.0f}% idle "
-          f"of the {step_ms:.1f} ms step; largest: {top}", flush=True)
+          f"{sum(e.count for e in rows)} kernels, {(1 - busy_ms / step_ms) * 100:.1f}% idle "
+          f"of the unprofiled {step_ms:.1f} ms step; largest: {top}", flush=True)
 
 
 def count_pow_ops():
     """Counts the arithmetic instructions in the SASS of pow and powf for
-    sm_90a (an FMA as 2): the figures of POW_FLOPS."""
+    sm_90a (an FMA as 2), by element type: the figures of POW_FLOPS."""
     import os
     import re
     import tempfile
@@ -309,12 +322,61 @@ def count_pow_ops():
                         "-cubin", "-o", cubin, cu], check=True, timeout=300)
         sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass", cubin],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-    for fn, prefix in (("pow64", "D"), ("pow32", "F")):
+    counted = {}
+    for fn, prefix, dtype in (("pow64", "D", "float64"), ("pow32", "F", "float32")):
         body = sass[sass.index("Function : " + fn):]
         body = body[:body.index("Function : ", 20)] if "Function : " in body[20:] else body
         ops = re.findall(r"\b(%s(?:ADD|MUL|FMA))\b" % prefix, body)
         flops = sum(2 if op.endswith("FMA") else 1 for op in ops)
-        print(f"{fn}: {len(ops)} arithmetic instructions, {flops} operations", flush=True)
+        print(f"  {fn}: {len(ops)} arithmetic instructions, {flops} operations", flush=True)
+        counted[dtype] = flops
+    return counted
+
+
+def side_flag_ab(torch):
+    """Times the main-path launch (continental shape, float32, no optional
+    sideflow operand) with the kernel as it is and with a build of the same
+    source in which the SIDE template flag is taken out, so that one
+    instantiation serves both paths; flag, no flag, no flag, flag."""
+    import ctypes
+    import os
+    import re
+    import tempfile
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.step import build_multi_step
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+    from lisflood_tpu_torch.ops import _build
+    from lisflood_tpu_torch.ops import kinwave_substep as ks
+    from lisflood_tpu_torch.ops.routing_ops import kernel_operands
+    print(smi_line(), flush=True)
+    src = _build.SOURCES["kinwave_substep"].read_text()
+    src = src.replace("template <typename T, bool POLY, bool SIDE>",
+                      "template <typename T, bool POLY>").replace("SIDE && ", "")
+    src, n = re.subn(r"if \(side\) (substep_kernel<\w+, \w+), true>(.*)\n\s*else .*\n",
+                     r"\1>\2\n", src)
+    assert n == 3 and "SIDE &&" not in src, "the source's SIDE flag is not where it was"
+    cfg, params, state, aux = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
+    multi, p = build_multi_step(cfg, params, aux, dtype=torch.float32, device="cuda")
+    f = to_device(synthetic_forcing(cfg.num_pixels, seed=0), "cuda", torch.float32)
+    s, _ = multi.step(multi.prepare_state(state), f)
+    spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, f), multi.routers)
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, so = os.path.join(tmp, "noflag.cu"), os.path.join(tmp, "noflag.so")
+        with open(cu, "w") as fh:
+            fh.write(src)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu], check=True,
+                       capture_output=True, timeout=600)
+        libs = {"flag": _build.load("kinwave_substep"), "no flag": ctypes.CDLL(so)}
+        outs = {}
+        for name in ("flag", "no flag", "no flag", "flag"):
+            _build._libs["kinwave_substep"] = libs[name]
+            ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 5)
+            outs[name] = ks.kinwave_substep(spec, xs)
+            print(f"main-path launch, {spec.n_chunks} chunks, {name}: {ms:.3f} ms (mean of 5)",
+                  flush=True)
+        torch.cuda.synchronize()
+    assert all(torch.equal(outs["flag"][k], v) for k, v in outs["no flag"].items())
+    print("outputs of the two builds bitwise equal", flush=True)
     return 0
 
 
@@ -323,8 +385,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:] == ["--pow-ops"]:
-        return count_pow_ops()
+    if sys.argv[1:] == ["--side-flag-ab"]:
+        return side_flag_ab(torch)
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
     from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
@@ -345,6 +407,8 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}", flush=True)
+
+    assert count_pow_ops() == POW_FLOPS, "POW_FLOPS is not what this nvcc emits for pow"
 
     print("phase 2: kernel vs plain version, 240x200, T=24, C=512", flush=True)
     mid = phase_mid(torch, ks)
@@ -423,9 +487,12 @@ def main():
     assert bool((trans_cum >= 0).all()) and float(trans_cum.max()) > 0, "TransCum"
     q5 = outs5["ChanQAvg"]
     assert q5.shape == (5, cfg5.num_pixels) and bool(torch.isfinite(q5).all()) and bool((q5 >= 0).all())
+    assert bool(torch.isfinite(outs5["MBErrorMM"]).all())
     print(f"  every state entry finite ({len(s5)} entries); TransCum max {float(trans_cum.max()):.4g} "
           f"m3, sum {float(trans_cum.double().sum()):.4g} m3; ChanQAvg mean {float(q5.mean()):.4g} "
-          f"m3/s; max |MBErrorMM| {float(outs5['MBErrorMM'].abs().max()):.3g} mm", flush=True)
+          f"m3/s; max |MBErrorMM| {float(outs5['MBErrorMM'].abs().max()):.3g} mm (the "
+          f"reference's balance does not close with every option on; the port is held to "
+          f"the reference's residual by the CPU tests)", flush=True)
     profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
     d5 = multi5.step.land_phase(s5, forcing5[0])
     spec5, xs5 = kernel_operands(cfg5, p5, s5, d5, multi5.routers)
@@ -438,11 +505,19 @@ def main():
           f"abstraction + surface routing {land5_ms:.1f} ms, routing kernel {kernel5_ms:.1f} ms; "
           f"operand build, post-routing and the mass balance's catchment totals are the rest",
           flush=True)
+    t0 = time.perf_counter()
+    ref5 = ks.substep_reference(spec5, xs5)
+    torch.cuda.synchronize()
+    plain5_ms = (time.perf_counter() - t0) * 1e3
+    assert "trans" in ref5 and bool(torch.isfinite(ys5["trans"]).all())
+    rel5, absd5 = max_rel_err(ys5, ref5)
     side = mid["float32"]
     print(f"  kernel with the sideflow terms {kernel5_ms:.3f} ms/launch (mean of {n_rep}); bound "
-          f"{bound5_ms:.4f} ms ({bound5_by}); held to the plain version at 240x200 (phase 2: "
-          f"kernel {side['ms']:.3f} ms, plain {side['plain_ms']:.0f} ms, max abs err "
-          f"{side['max_abs_err']:.3e}); card {card}", flush=True)
+          f"{bound5_ms:.4f} ms ({bound5_by}); plain version {plain5_ms:.1f} ms (one run), kernel "
+          f"vs plain max rel err {rel5:.3e} (tol 1e-05), max abs err {absd5:.3e}, at this "
+          f"path's shape ({spec5.n_chunks} chunks, window {spec5.window}); at 240x200 (phase 2) "
+          f"kernel {side['ms']:.3f} ms, plain {side['plain_ms']:.0f} ms; card {card}", flush=True)
+    assert rel5 <= 1e-5, f"kernel with the sideflow terms disagrees with the plain version: {rel5}"
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
@@ -450,11 +525,10 @@ def main():
         {"name": "kinwave_substep", "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches, "max_abs_err": absd, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
-        # the same kernel on the all-options path: times at the continental
-        # shape, the plain version's time and the error at 240x200
+        # the same kernel on the all-options path, every figure at its shape
         {"name": "kinwave_substep_sideflow", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches5, "max_abs_err": side["max_abs_err"],
-         "ms": kernel5_ms, "plain_ms": side["plain_ms"], "bound_ms": bound5_ms,
+         "replaces": replaces, "launches": launches5, "max_abs_err": absd5,
+         "ms": kernel5_ms, "plain_ms": plain5_ms, "bound_ms": bound5_ms,
          "bound_by": bound5_by, "library_ms": None},
     ]}
     print(json.dumps(figures))

@@ -314,7 +314,10 @@ __device__ __forceinline__ bool feeds(const int* fee, int n, int c, int C) {
   return hit;
 }
 
-// SIDE: whether any of K4b's operands is present
+// SIDE: whether any of K4b's operands is present. With one instantiation
+// and the terms guarded by their null pointers alone, the launch without
+// them ran about 6% slower (135 against 127 ms at 2,648 chunks of 512 in
+// float32 on an H100 at 700 W; `python3 chip_smoke.py --side-flag-ab`).
 template <typename T, bool POLY, bool SIDE>
 __global__ void __launch_bounds__(kMaxThreads) substep_kernel(const SubstepArgs a) {
   const int C = a.chunk, T_ = a.T, E = a.E;

@@ -457,27 +457,29 @@ def _waterbalance(cfg, p, s, d):
     if cfg.rep_total_water_storage:
         out["TotalWaterStorageMM"] = (channel_stored + hillslope_stored) * p["M3toMM"]
     if cfg.rep_mbts:
+        # one catchment total per balance term: the per-pixel parts are
+        # summed first (a total is ~1 M atomic adds on the card)
         sum_in = torch.where(torch.isnan(s["sumInWB"]), 0.0, s["sumInWB"])
-        water_in = catchtotal(sum_in) + catchtotal(d["TotalPrecipitationWB"] * p["MMtoM3"])
-        water_stored = catchtotal(channel_stored) + catchtotal(hillslope_stored)
-        hillslope_out = (d["TaWB"] + d["TaInterceptionWB"] + d["ESActWB"] + d["GwLossWB"]) * p["MMtoM3"]
+        water_in = catchtotal(sum_in + d["TotalPrecipitationWB"] * p["MMtoM3"])
+        channel_total = catchtotal(channel_stored)
+        hillslope_total = catchtotal(hillslope_stored)
+        water_stored = channel_total + hillslope_total
         sum1 = torch.where(p["AtLastPointC"], d["ChanQAvg"], 0.0)
-        water_out = catchtotal(sum1 * cfg.dt_sec) + catchtotal(hillslope_out)
-        if cfg.simulate_lakes:
-            # EWLakeWBM3 is never updated in the reference
-            water_out = water_out + catchtotal(s["EWLakeCUMM3"] * 0.0)
+        # the reference never updates EWLakeWBM3: lakes add nothing here
+        pixel_out = sum1 * cfg.dt_sec + (d["TaWB"] + d["TaInterceptionWB"] + d["ESActWB"]
+                                         + d["GwLossWB"]) * p["MMtoM3"]
         if cfg.open_water_evapo:
-            water_out = water_out + catchtotal(d["EvaWBM3"])
+            pixel_out = pixel_out + d["EvaWBM3"]
         if cfg.trans_loss:
-            water_out = water_out + catchtotal(d["TransCum"])
+            pixel_out = pixel_out + d["TransCum"]
         if cfg.water_use:
-            water_out = water_out + catchtotal(d["IrriLossCUM"]) + catchtotal(d["wateruseCum"])
+            pixel_out = pixel_out + d["IrriLossCUM"] + d["wateruseCum"]
+        water_out = catchtotal(pixel_out)
         dis_stru = torch.where(p["IsUpsOfStructureKinematicC"], d["ChanQ"] * cfg.dt_routing, 0.0)
-        dis_structures = catchtotal(dis_stru)
         if cfg.simulate_lakes:
-            dis_lake = torch.zeros_like(d["Rain"]).index_copy_(
+            dis_stru = dis_stru + torch.zeros_like(dis_stru).index_copy_(
                 0, p["LakeIndex"], 0.5 * d["LakeInflowCC"] * cfg.dt_routing)
-            dis_structures = dis_structures + catchtotal(dis_lake)
+        dis_structures = catchtotal(dis_stru)
         dis_structures = dis_structures - s["DischargeM3StructuresIni"]
         mb_error = s["WaterInit"] + water_in - water_stored - water_out - dis_structures
         out["MB_WaterInit"] = s["WaterInit"]
@@ -485,8 +487,8 @@ def _waterbalance(cfg, p, s, d):
         out["MB_WaterStored"] = water_stored
         out["MB_WaterOut"] = water_out
         out["MB_DisStructures"] = dis_structures
-        out["MB_ChannelStored"] = catchtotal(channel_stored)
-        out["MB_HillslopeStored"] = catchtotal(hillslope_stored)
+        out["MB_ChannelStored"] = channel_total
+        out["MB_HillslopeStored"] = hillslope_total
         out["MBError"] = mb_error
         out["MBErrorMM"] = 1000.0 * mb_error / p["CatchArea"]
         out["WaterInit"] = water_stored + dis_structures

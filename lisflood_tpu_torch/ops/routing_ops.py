@@ -295,12 +295,12 @@ def _post_routing(cfg, p, s, d, carry, dtype):
             storage_step = storage_step + out["LakeStorageM3Balance"]
         if cfg.simulate_reservoirs or cfg.simulate_lakes:
             # water on its way into a structure at the end of the step
-            dis_structures = catchtotal(torch.where(
-                p["IsUpsOfStructureKinematicC"], carry["ChanQ"] * cfg.dt_routing, 0.0))
+            dis_stru = torch.where(
+                p["IsUpsOfStructureKinematicC"], carry["ChanQ"] * cfg.dt_routing, 0.0)
             if cfg.simulate_lakes:
-                dis_lake = expand(p["LakeIndex"], 0.5 * carry["LakeInflowCC"] * cfg.dt_routing)
-                dis_structures = dis_structures + catchtotal(dis_lake)
-            dis_structures = dis_structures - s["DischargeM3StructuresIni"]
+                dis_stru = dis_stru + expand(p["LakeIndex"],
+                                             0.5 * carry["LakeInflowCC"] * cfg.dt_routing)
+            dis_structures = catchtotal(dis_stru) - s["DischargeM3StructuresIni"]
         storage_step1 = catchtotal(storage_step)
         mb_error = (-storage_step1 + s["StorageStepINIT"] - out_step - dis_structures
                     + carry["AddedTRUN"])

@@ -13,14 +13,19 @@ script exits non-zero:
      middle size with every main-path phase active (synthetic 240x200 model,
      NoRoutSteps=24, chunk 512, lakes, reservoirs, split routing, the
      evaporation chain): float32 within 1e-5 and float64 within 1e-12 of
-     each output's max, and float32 once more with single routing and no
-     evaporation chain; the same with the optional sideflow terms (water
-     use, inflow ramp, transmission loss) from with_options, in float32 and
-     float64, and in float32 with the evaporation chain outside the kernel
-     (operand `eva`); two kernel runs bitwise equal; and the whole float64
-     step (default, all-options, and all-options with the evaporation
-     chain outside the kernel) on the card against the same step on the CPU
-     (within 1e-10);
+     each output's max, both also with five weighted feeders per lake and
+     reservoir (the order of the owner's sum), and float32 once more with
+     single routing and no evaporation chain; the same with the optional
+     sideflow terms (water use, inflow ramp, transmission loss) from
+     with_options, in float32 and float64, and in float32 with the
+     evaporation chain outside the kernel (operand `eva`); in every case the
+     outputs bitwise equal for 1 block, 2 blocks and the launcher's own block
+     count, and over ten repeated launches (a race between blocks shows as a
+     flaky bit); a launch with
+     more blocks than the card holds at once must be refused; and the whole
+     float64 step (default, all-options, and all-options with the
+     evaporation chain outside the kernel) on the card against the same step
+     on the CPU (within 1e-10);
   3. the main path: the continental synthetic model (1200x1000,
      NoRoutSteps=24, chunk 512, float32) through build_multi_step with
      ChanQAvg output, one warm-up step and two timed batches of five steps
@@ -28,23 +33,30 @@ script exits non-zero:
      second is the steady state); the kernel's launch count must equal the
      steps run and every state entry must be finite; then one step under
      torch.profiler for the device's busy share;
-  4. at the main-path shape: the kernel's time (CUDA events over repeated
-     launches) and its bound; the plain version's time (one run, ~100 s)
-     and the kernel held to it (float32, within 1e-5 of each output's max);
+  4. at the main-path shape: the chunk dependency graph (edges, longest
+     chain), the kernel's block count, the co-resident limit and the ring
+     depth, its time (CUDA events over repeated launches) by block count
+     from 1 to the limit, and its bound; the plain version's
+     time (one run, ~100 s) and the kernel held to it (float32, within 1e-5
+     of each output's max);
   5. the all-options path: the continental model with every option of
      with_options on (water use, rice, inflow, transmission loss, polders,
      water levels, pF, mass-balance reports) through build_multi_step, timed
      and profiled as in phase 3; launches equal steps, every state entry
      finite, TransCum non-negative and not all zero; the kernel's time with
-     the sideflow terms on, its bound, and the plain version's time with the
-     kernel held to it at this shape (float32, within 1e-5 of each output's
-     max, `trans` included).
+     the sideflow terms on (by block count as in phase 4), its bound, and the
+     plain version's time with the kernel held to it at this shape (float32,
+     within 1e-5 of each output's max, `trans` included).
+The operands on which the kernel is held to its plain version are drawn with
+fixed-order sums (fixed_order_sums), so that every run compares on the same
+numbers.
 Run as `python3 chip_smoke.py --side-flag-ab` it only times the main path's
 kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
 The line before the last is a JSON object of per-kernel figures; the last is
 {"ok": true, "device": {...}}. Needs no network; stops what it starts.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -118,6 +130,57 @@ def max_rel_err(ys, ref):
     return rel[0], absd[0]
 
 
+SCAN_BLOCKS = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 132)
+
+
+def same_bits(a, b):
+    """Whether two dicts of float tensors hold the same bits, NaNs included."""
+    import torch
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return all(torch.equal(v.view(bits[v.dtype]), b[k].view(bits[v.dtype])) for k, v in a.items())
+
+
+def blocks_bitwise(torch, ks, spec, xs):
+    """The launcher's plan, and whether the outputs have the same bits with 1
+    block, 2 blocks and the launcher's count, and over ten launches with it."""
+    ys = ks.kinwave_substep(spec, xs)
+    plan = dict(ks.kinwave_substep.last_plan)
+    by_blocks = all(same_bits(ys, ks._launch(spec, xs, blocks=g)) for g in (1, 2))
+    repeats = all(same_bits(ys, ks.kinwave_substep(spec, xs)) for _ in range(10))
+    torch.cuda.synchronize()
+    return ys, plan, by_blocks, repeats
+
+
+def plan_text(plan, spec):
+    return (f"{plan['blocks']} blocks of {spec.chunk} threads (co-resident limit "
+            f"{plan['limit']}), ring of {plan['ring']} slots")
+
+
+def chunk_graph_text(xs):
+    """The chunk dependency graph of the operands' wavefront tables: edges,
+    the longest chain of dependent chunks (with T - 1 the critical path of
+    the task graph) and the mean number of chunks per depth."""
+    deps = xs["wf_deps"].tolist()
+    ptr, feeders = xs["wf_sdep_ptr"].tolist(), xs["wf_sdep_list"].tolist()
+    depth, edges = [], 0
+    for c, row in enumerate(deps):
+        sources = [d for d in row if d >= 0] + feeders[ptr[c]:ptr[c + 1]]
+        edges += len(sources)
+        depth.append(1 + max((depth[d] for d in sources), default=0))
+    return (f"{len(deps)} chunks, {edges} chunk-to-chunk edges, longest chain {max(depth)}, "
+            f"{len(deps) / max(depth):.2f} chunks per depth")
+
+
+def block_scan(torch, ks, spec, xs, limit, n_rep):
+    """The kernel's milliseconds by block count, 1 to the co-resident limit."""
+    counts = sorted({min(g, limit, spec.n_chunks) for g in SCAN_BLOCKS})
+    return {g: cuda_ms(torch, lambda: ks._launch(spec, xs, blocks=g), n_rep) for g in counts}
+
+
+def scan_text(scan):
+    return ", ".join(f"{g}: {ms:.3f}" for g, ms in scan.items())
+
+
 def bound(xs, ys, spec):
     """(bound_ms, bound_by): bytes of every input read once and every output
     written once over the HBM rate, against the operations this run's
@@ -154,9 +217,26 @@ def bound(xs, ys, spec):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@contextlib.contextmanager
+def fixed_order_sums(torch):
+    """Within this context index_add_ sums in a fixed order. The land phase's
+    regional totals (water use) are atomic sums otherwise, whose last bit
+    changes from run to run; `trans`, a sum of differences of near-equal
+    discharges, amplifies such a bit, and the kernel's distance to the plain
+    version on it then moves between 1e-7 and 1e-5 from draw to draw. The
+    operands that the kernel is held to the plain version on are drawn in
+    this context, so that every run compares on the same numbers."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def kernel_inputs(model, device, dtype, seed=0):
     """A built step, its state and forcing, and the sub-step operands its
-    land phase gives the routing kernel."""
+    land phase gives the routing kernel (the same in every run)."""
+    import torch
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_step
     from lisflood_tpu_torch.models.synthetic import synthetic_forcing
@@ -166,8 +246,34 @@ def kernel_inputs(model, device, dtype, seed=0):
     s = step.prepare_state(state)
     f = to_device({**synthetic_forcing(cfg.num_pixels, seed=seed),
                    **aux.get("forcing_options", {})}, device, dtype)
-    spec, xs = kernel_operands(cfg, p, s, step.land_phase(s, f), step.routers)
+    with fixed_order_sums(torch):
+        spec, xs = kernel_operands(cfg, p, s, step.land_phase(s, f), step.routers)
     return step, s, f, spec, xs
+
+
+def spread_feeders(torch, ks, spec, xs, seed=5):
+    """The operands `xs` with every structure fed by five weighted lanes
+    spread over the three chunks before its own, in shuffled feeder slots
+    (the synthetic model's structures have at most two feeders, for which
+    the order of the owner's sum cannot show)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    C = spec.chunk
+    filled = (xs["ischan"] != 0).cpu().numpy()
+    out = dict(xs)
+    for prefix in ("lk", "rs"):
+        fee = np.full(tuple(xs[prefix + "_fee"].shape), -1, np.int64)
+        for s, pos in enumerate(xs[prefix + "_pos"].tolist()):
+            chunks = pos // C - 1 - rng.integers(0, 3, 5)
+            assert chunks.min() >= 0
+            fee[s, rng.permutation(fee.shape[1])[:5]] = [
+                c * C + int(rng.choice(np.flatnonzero(filled[c]))) for c in chunks]
+        weights = np.where(fee >= 0, rng.uniform(0.5, 1.5, fee.shape), 0.0)
+        out[prefix + "_fee"] = torch.as_tensor(fee, dtype=torch.int32, device=xs["dx"].device)
+        out[prefix + "_fee_w"] = torch.as_tensor(weights, dtype=xs["dx"].dtype,
+                                                 device=xs["dx"].device)
+    out.update(ks.wavefront_operands(spec, out))
+    return out
 
 
 def phase_mid(torch, ks):
@@ -188,6 +294,8 @@ def phase_mid(torch, ks):
     # (model, dtype, tolerance, label, optional operands expected)
     cases = ((model, torch.float32, 1e-5, "all phases", set()),
              (model, torch.float64, 1e-12, "all phases", set()),
+             (model, torch.float32, 1e-5, "all phases, five feeders per structure", set()),
+             (model, torch.float64, 1e-12, "all phases, five feeders per structure", set()),
              (single, torch.float32, 1e-5, "single routing, no evaporation chain", set()),
              (options, torch.float32, 1e-5, "all phases, sideflow terms", side),
              (options, torch.float64, 1e-12, "all phases, sideflow terms", side),
@@ -200,10 +308,9 @@ def phase_mid(torch, ks):
         assert (spec.E > 0) == (m is model or m is options), spec
         assert {k for k in ("eva", "wuse", "qin_old", "uptrans") if k in xs} == terms, sorted(xs)
         assert "lk_pos" in xs and "rs_pos" in xs, spec
-        ys = ks.kinwave_substep(spec, xs)
-        ys2 = ks.kinwave_substep(spec, xs)
-        torch.cuda.synchronize()
-        bitwise = all(torch.equal(ys[k], ys2[k]) for k in ys)
+        if "five feeders" in what:
+            xs = spread_feeders(torch, ks, spec, xs)
+        ys, plan, by_blocks, bitwise = blocks_bitwise(torch, ks, spec, xs)
         t0 = time.perf_counter()
         ref = ks.substep_reference(spec, xs)
         torch.cuda.synchronize()
@@ -212,17 +319,33 @@ def phase_mid(torch, ks):
         if "trans" in ys:
             assert bool(torch.isfinite(ys["trans"]).all()) and float(ys["trans"].max()) > 0
         name = str(dtype).replace("torch.", "")
-        kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 3)
+        kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 10)
         print(f"  240x200 {name} ({what}): kernel vs plain max rel err {rel:.3e} "
-              f"(tol {tol:g}), max abs {absd:.3e}; two kernel runs bitwise equal: "
-              f"{bitwise}; kernel {kernel_ms:.3f} ms, plain version {plain_s:.2f} s "
+              f"(tol {tol:g}), max abs {absd:.3e}; {plan_text(plan, spec)}; bitwise equal with "
+              f"1, 2 and {plan['blocks']} blocks: {by_blocks}, over "
+              f"ten launches: {bitwise}; kernel {kernel_ms:.3f} ms, plain version {plain_s:.2f} s "
               f"for {spec.n_chunks} chunks", flush=True)
         assert rel <= tol, f"{name}: kernel disagrees with the plain version: {rel}"
-        assert bitwise, "two kernel runs differ"
-        if (m is options and dtype == torch.float32) or (m is model and dtype == torch.float64):
+        assert by_blocks, "the outputs depend on the number of blocks"
+        assert bitwise, "repeated kernel runs differ"
+        assert plan["blocks"] > 1, plan
+        if ((m is options and dtype == torch.float32)
+                or (m is model and dtype == torch.float64 and what == "all phases")):
+            print(f"  chunk graph: {chunk_graph_text(xs)}", flush=True)
             bound_ms, bound_by = bound(xs, ys, spec)
+            one_block_ms = cuda_ms(torch, lambda: ks._launch(spec, xs, blocks=1), 3)
+            print(f"  with one block {one_block_ms:.3f} ms", flush=True)
             figures[name] = {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd,
-                             "bound_ms": bound_ms, "bound_by": bound_by}
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "blocks": plan["blocks"], "ms_one_block": one_block_ms}
+    # more blocks than the card holds at once: the launcher refuses
+    try:
+        ks._launch(spec, xs, blocks=plan["limit"] + 1)
+    except RuntimeError as err:
+        print(f"  {plan['limit'] + 1} blocks, one above the co-resident limit: refused ({err})",
+              flush=True)
+    else:
+        raise AssertionError("a launch above the co-resident limit was not refused")
     # the whole float64 step, card (kernel) vs CPU (plain version)
     for m, what in ((model, "default"), (options, "all-options"),
                     (eva_outside, "all-options, evaporation outside")):
@@ -352,8 +475,8 @@ def side_flag_ab(torch):
     src = _build.SOURCES["kinwave_substep"].read_text()
     src = src.replace("template <typename T, bool POLY, bool SIDE>",
                       "template <typename T, bool POLY>").replace("SIDE && ", "")
-    src, n = re.subn(r"if \(side\) (substep_kernel<\w+, \w+), true>(.*)\n\s*else .*\n",
-                     r"\1>\2\n", src)
+    src, n = re.subn(r"side \? (substep_kernel<\w+, \w+), true> : substep_kernel<\w+, \w+, false>",
+                     r"\1>", src)
     assert n == 3 and "SIDE &&" not in src, "the source's SIDE flag is not where it was"
     cfg, params, state, aux = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
     multi, p = build_multi_step(cfg, params, aux, dtype=torch.float32, device="cuda")
@@ -370,12 +493,13 @@ def side_flag_ab(torch):
         outs = {}
         for name in ("flag", "no flag", "no flag", "flag"):
             _build._libs["kinwave_substep"] = libs[name]
-            ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 5)
+            ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 20)
             outs[name] = ks.kinwave_substep(spec, xs)
-            print(f"main-path launch, {spec.n_chunks} chunks, {name}: {ms:.3f} ms (mean of 5)",
-                  flush=True)
+            print(f"main-path launch, {spec.n_chunks} chunks, "
+                  f"{ks.kinwave_substep.last_plan['blocks']} blocks, {name}: {ms:.3f} ms "
+                  f"(mean of 20)", flush=True)
         torch.cuda.synchronize()
-    assert all(torch.equal(outs["flag"][k], v) for k, v in outs["no flag"].items())
+    assert same_bits(outs["flag"], outs["no flag"])
     print("outputs of the two builds bitwise equal", flush=True)
     return 0
 
@@ -442,8 +566,13 @@ def main():
     print("phase 4: kernel timing at the main-path shape", flush=True)
     d = multi.step.land_phase(s, forcing[0])
     spec, xs = kernel_operands(cfg, p, s, d, multi.routers)
-    ys = ks.kinwave_substep(spec, xs)
-    n_rep = 5
+    n_rep = 20
+    ys, plan, by_blocks, repeats = blocks_bitwise(torch, ks, spec, xs)
+    assert by_blocks and repeats and plan["blocks"] > 1, (by_blocks, repeats, plan)
+    scan = block_scan(torch, ks, spec, xs, plan["limit"], 5)
+    print(f"  chunk graph: {chunk_graph_text(xs)}", flush=True)
+    print(f"  {plan_text(plan, spec)}; outputs bitwise equal with 1, 2 and {plan['blocks']} "
+          f"blocks and over ten launches; kernel ms by blocks: {scan_text(scan)}", flush=True)
     kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), n_rep)
     land_ms = cuda_ms(torch, lambda: multi.step.land_phase(s, forcing[0]), n_rep)
     print(f"  parts of the {step_ms:.1f} ms step, each timed alone (they overlap in the step: "
@@ -463,9 +592,10 @@ def main():
           f"({spec.n_chunks} chunks); card {card}", flush=True)
     assert rel <= 1e-5, f"kernel disagrees with the plain version: {rel}"
     f64 = mid["float64"]
-    print(f"  the float64 q-space kernel at 240x200: {f64['ms']:.3f} ms, bound "
-          f"{f64['bound_ms']:.4f} ms ({f64['bound_by']}), plain version {f64['plain_ms']:.0f} ms",
-          flush=True)
+    print(f"  the float64 q-space kernel at 240x200: {f64['ms']:.3f} ms with {f64['blocks']} "
+          f"blocks ({f64['ms_one_block']:.3f} ms with one), bound "
+          f"{f64['bound_ms']:.4f} ms "
+          f"({f64['bound_by']}), plain version {f64['plain_ms']:.0f} ms", flush=True)
 
     print("phase 5: all-options path, continental 1200x1000, T=24, C=512, float32", flush=True)
     t0 = time.perf_counter()
@@ -494,10 +624,21 @@ def main():
           f"reference's balance does not close with every option on; the port is held to "
           f"the reference's residual by the CPU tests)", flush=True)
     profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
-    d5 = multi5.step.land_phase(s5, forcing5[0])
-    spec5, xs5 = kernel_operands(cfg5, p5, s5, d5, multi5.routers)
+    # the operands the kernel is held to the plain version on: the same steps
+    # once more from the initial state with sums in a fixed order, so that
+    # every run has the same numbers
+    with fixed_order_sums(torch):
+        again5 = multi5.prepare_state(state5)
+        for i in range(STEPS_RUN):
+            again5, _ = multi5.step(again5, forcing5[i % len(forcing5)])
+        spec5, xs5 = kernel_operands(cfg5, p5, again5,
+                                     multi5.step.land_phase(again5, forcing5[0]), multi5.routers)
     assert all(k in xs5 for k in ("wuse", "qin_old", "qdelta", "uptrans", "tp1", "tp2", "tsub"))
-    ys5 = ks.kinwave_substep(spec5, xs5)
+    ys5, plan5, by_blocks5, repeats5 = blocks_bitwise(torch, ks, spec5, xs5)
+    assert by_blocks5 and repeats5 and plan5["blocks"] > 1, (by_blocks5, repeats5, plan5)
+    scan5 = block_scan(torch, ks, spec5, xs5, plan5["limit"], 5)
+    print(f"  {plan_text(plan5, spec5)}; outputs bitwise equal with 1, 2 and {plan5['blocks']} "
+          f"blocks and over ten launches; kernel ms by blocks: {scan_text(scan5)}", flush=True)
     kernel5_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec5, xs5), n_rep)
     land5_ms = cuda_ms(torch, lambda: multi5.step.land_phase(s5, forcing5[0]), n_rep)
     bound5_ms, bound5_by = bound(xs5, ys5, spec5)
@@ -524,12 +665,14 @@ def main():
     figures = {"kernels": [
         {"name": "kinwave_substep", "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches, "max_abs_err": absd, "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+         "blocks": plan["blocks"], "ms_one_block": scan[1]},
         # the same kernel on the all-options path, every figure at its shape
         {"name": "kinwave_substep_sideflow", "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches5, "max_abs_err": absd5,
          "ms": kernel5_ms, "plain_ms": plain5_ms, "bound_ms": bound5_ms,
-         "bound_by": bound5_by, "library_ms": None},
+         "bound_by": bound5_by, "library_ms": None,
+         "blocks": plan5["blocks"], "ms_one_block": scan5[1]},
     ]}
     print(json.dumps(figures))
     print(smi_line())

@@ -26,6 +26,7 @@ from ..device import resolve_device, to_device
 from ..ops import physics as ph
 from ..ops.indicators import groundwater_smooth
 from ..ops.kinwave_packed import PackedRouter
+from ..ops.kinwave_substep import wavefront_tables
 from ..ops.routing_ops import channel_routing_kernel, resolve_pipeline, surface_routing_step
 
 STATE_KEYS_BASE = [
@@ -216,6 +217,14 @@ def packed_routing_params(cfg, params_np, ps):
         if not has_t.any() or (1 <= delta.min() and delta.max() <= ps.window):
             out["kinp$EvaUpsTable"] = upstream_table(pos[has_t], tgt_pos, p_pad)
             eva_window_ok = True
+    # the kernel's per-chunk dependency tables (the step refuses a schedule
+    # whose feeders are not earlier, so none are built for one)
+    if feeders_earlier:
+        tables = wavefront_tables(
+            ps.n_chunks, ps.chunk, ps.window, out["kinp$UpsTable"], out.get("kinp$EvaUpsTable"),
+            out.get("kinp$LakePos"), out.get("kinp$LakeFee"),
+            out.get("kinp$ResPos"), out.get("kinp$ResFee"))
+        out.update({"kinp$" + k: v for k, v in tables.items()})
     return out, feeders_earlier, eva_window_ok
 
 

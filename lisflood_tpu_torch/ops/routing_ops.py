@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .kinwave_packed import PackedRouter
-from .kinwave_substep import SubstepSpec, kinwave_substep
+from .kinwave_substep import WAVEFRONT_TABLES, SubstepSpec, kinwave_substep
 from .physics import segment_spread
 
 
@@ -165,6 +165,8 @@ def kernel_operands(cfg, p, s, d, routers):
             "rs_st0": s["ReservoirStorageM3CC"], "rs_fill0": s["ReservoirFillCC"],
             "rs_buf0": buf0("Res"),
         })
+    # the kernel's dependency tables (the plain version does not read them)
+    xs.update({k: pk(k) for k in WAVEFRONT_TABLES})
     spec = SubstepSpec(n_chunks=n, chunk=C, window=ps.window, T=cfg.no_rout_steps,
                        dt_routing=cfg.dt_routing, beta=float(p["Beta"]),
                        split=split, E=E)

@@ -485,3 +485,12 @@ def test_ctypes_args_mirror_kernel_struct():
                            ctypes.c_void_p if pointer else
                            {"int": ctypes.c_int, "double": ctypes.c_double}[ctype]))
     assert fields == list(ks._Args._fields_)
+    # the wavefront's fields: block count, ring depth and table width as
+    # ints, every host-built table and the scratch of the protocol as pointers
+    kinds = dict(fields)
+    assert all(kinds[k] is ctypes.c_int for k in ("blocks", "ring", "D"))
+    tables = [ks._OPERAND_OF.get(k, k) for k, kind in fields if kind is ctypes.c_void_p]
+    assert set(ks.WAVEFRONT_TABLES) <= set(tables)
+    assert all(kinds[k] is ctypes.c_void_p for k in ("qring", "ev_ring", "stage", "ctrl",
+                                                     "lk_buf0", "rs_buf0"))
+    assert not {"side", "chanq_rows", "lk_buf", "rs_buf"} & set(kinds)

@@ -46,7 +46,26 @@ script exits non-zero:
      finite, TransCum non-negative and not all zero; the kernel's time with
      the sideflow terms on (by block count as in phase 4), its bound, and the
      plain version's time with the kernel held to it at this shape (float32,
-     within 1e-5 of each output's max, `trans` included).
+     within 1e-5 of each output's max, `trans` included);
+  6. the InitLisflood prerun on the continental model (float32): one warm-up
+     step and two timed batches of five as in phase 3, launches equal steps,
+     every state entry finite, avgdis = CumQ / TimeSinceStart, one profiled
+     step; the kernel's single-routing launch with the evaporation chain
+     outside it (operand `eva`): its time by block count and its bound; the
+     kernel held to its plain version at 240x200 in the prerun
+     configuration, float32 within 1e-5 and float64 within 1e-12, bitwise
+     equal for 1, 2 and the launcher's blocks;
+  7. the ensemble: M members of the main path (M = 8, or the largest power
+     of two whose memory, by phase 3's peak per model, fits 90% of the card)
+     folded into one model (models/ensemble.py), built on the host and timed
+     (EnsembleRunner), one warm-up step and two timed batches of five with
+     one kernel launch per ensemble step for all members; ms per ensemble
+     step and per member-step, peak device memory, one profiled step's idle
+     share; the kernel's time by block count and its bound; members 0 and
+     M-1 against the single model's step on the same state (float32 within
+     1e-5); one EnKF analysis (its time, finite fields, the gauges' mean
+     discharge moving toward the observation); the kernel held to its plain
+     version at 240x200 with 2 members.
 The operands on which the kernel is held to its plain version are drawn with
 fixed-order sums (fixed_order_sums), so that every run compares on the same
 numbers.
@@ -77,6 +96,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 FLOPS_PER_SUBSTEP = 2 + 10 + 2 + 6 + 2 * 76 + 10 + 1
 FLOPS_PER_HOP = 7
 FLOPS_PER_LANE = 12
+# the polynomial path with single routing (the InitLisflood prerun), counted
+# from the same source: per sub-step the sideflow (2), the lateral inflow
+# (1), the cc sum (3), one polynomial Newton solve (76), the storage (2) and
+# sumdis (1); per lane 1 (inv_dx) and the one pow of qb1's set-up
+FLOPS_PER_SUBSTEP_SINGLE = 2 + 1 + 3 + 76 + 2 + 1
+FLOPS_PER_LANE_SINGLE = (1, 1)     # (plain, pow)
 # q-space path (float64, or beta != 3/5), per routed lane-row and sub-step:
 # the cc sum (3 and 1 pow), newton_q (8 and 3 pow of set-up; each of its 4
 # (float32) or 6 (float64) unrolled iterations 9 and 1 pow; the loop has no
@@ -194,13 +219,16 @@ def bound(xs, ys, spec):
     n_ev = int((xs["ev_ups"] >= 0).sum()) if spec.E else 0
     dtype = str(xs["dx"].dtype).replace("torch.", "")
     pow_flops = POW_FLOPS[dtype]
-    if _poly(spec, xs["dx"].dtype):
-        assert spec.split, "the polynomial path's count is split routing's"
+    per_lane = FLOPS_PER_LANE
+    if _poly(spec, xs["dx"].dtype) and spec.split:
         per_substep = FLOPS_PER_SUBSTEP
+    elif _poly(spec, xs["dx"].dtype):
+        per_substep = FLOPS_PER_SUBSTEP_SINGLE
+        per_lane = FLOPS_PER_LANE_SINGLE[0] + FLOPS_PER_LANE_SINGLE[1] * pow_flops
     else:
         plain, pows = QSPACE_ROW(QSPACE_ITERS[dtype])
         per_substep = L * (plain + pows * pow_flops) + 2 + (10 + 2 + 4 if spec.split else 1)
-    per_lane = FLOPS_PER_LANE + ("eva" in xs) + ("wuse" in xs)
+    per_lane += ("eva" in xs) + ("wuse" in xs)
     flops = 0
     if "qin_old" in xs:
         per_substep += FLOPS_RAMP
@@ -276,6 +304,34 @@ def spread_feeders(torch, ks, spec, xs, seed=5):
     return out
 
 
+def held_to_plain(torch, ks, spec, xs, tol, what):
+    """The kernel against its plain version on the operands `xs`: outputs
+    within `tol` of each output's max, bitwise equal for 1, 2 and the
+    launcher's blocks and over ten launches, the launcher's plan above one
+    block. Returns the kernel's outputs and plan and the figures of the
+    comparison."""
+    ys, plan, by_blocks, bitwise = blocks_bitwise(torch, ks, spec, xs)
+    t0 = time.perf_counter()
+    ref = ks.substep_reference(spec, xs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rel, absd = max_rel_err(ys, ref)
+    if "trans" in ys:
+        assert bool(torch.isfinite(ys["trans"]).all()) and float(ys["trans"].max()) > 0
+    name = str(xs["dx"].dtype).replace("torch.", "")
+    kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 10)
+    print(f"  {name} ({what}): kernel vs plain max rel err {rel:.3e} "
+          f"(tol {tol:g}), max abs {absd:.3e}; {plan_text(plan, spec)}; bitwise equal with "
+          f"1, 2 and {plan['blocks']} blocks: {by_blocks}, over "
+          f"ten launches: {bitwise}; kernel {kernel_ms:.3f} ms, plain version {plain_s:.2f} s "
+          f"for {spec.n_chunks} chunks", flush=True)
+    assert rel <= tol, f"{name}: kernel disagrees with the plain version: {rel}"
+    assert by_blocks, "the outputs depend on the number of blocks"
+    assert bitwise, "repeated kernel runs differ"
+    assert plan["blocks"] > 1, plan
+    return ys, plan, {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd}
+
+
 def phase_mid(torch, ks):
     """Phase 2: kernel vs plain version at 240x200 in float32 and float64
     with every main-path phase, in float32 with single routing and no
@@ -310,33 +366,15 @@ def phase_mid(torch, ks):
         assert "lk_pos" in xs and "rs_pos" in xs, spec
         if "five feeders" in what:
             xs = spread_feeders(torch, ks, spec, xs)
-        ys, plan, by_blocks, bitwise = blocks_bitwise(torch, ks, spec, xs)
-        t0 = time.perf_counter()
-        ref = ks.substep_reference(spec, xs)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        rel, absd = max_rel_err(ys, ref)
-        if "trans" in ys:
-            assert bool(torch.isfinite(ys["trans"]).all()) and float(ys["trans"].max()) > 0
+        ys, plan, fig = held_to_plain(torch, ks, spec, xs, tol, "240x200, " + what)
         name = str(dtype).replace("torch.", "")
-        kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 10)
-        print(f"  240x200 {name} ({what}): kernel vs plain max rel err {rel:.3e} "
-              f"(tol {tol:g}), max abs {absd:.3e}; {plan_text(plan, spec)}; bitwise equal with "
-              f"1, 2 and {plan['blocks']} blocks: {by_blocks}, over "
-              f"ten launches: {bitwise}; kernel {kernel_ms:.3f} ms, plain version {plain_s:.2f} s "
-              f"for {spec.n_chunks} chunks", flush=True)
-        assert rel <= tol, f"{name}: kernel disagrees with the plain version: {rel}"
-        assert by_blocks, "the outputs depend on the number of blocks"
-        assert bitwise, "repeated kernel runs differ"
-        assert plan["blocks"] > 1, plan
         if ((m is options and dtype == torch.float32)
                 or (m is model and dtype == torch.float64 and what == "all phases")):
             print(f"  chunk graph: {chunk_graph_text(xs)}", flush=True)
             bound_ms, bound_by = bound(xs, ys, spec)
             one_block_ms = cuda_ms(torch, lambda: ks._launch(spec, xs, blocks=1), 3)
             print(f"  with one block {one_block_ms:.3f} ms", flush=True)
-            figures[name] = {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd,
-                             "bound_ms": bound_ms, "bound_by": bound_by,
+            figures[name] = {**fig, "bound_ms": bound_ms, "bound_by": bound_by,
                              "blocks": plan["blocks"], "ms_one_block": one_block_ms}
     # more blocks than the card holds at once: the launcher refuses
     try:
@@ -374,30 +412,210 @@ def phase_mid(torch, ks):
 STEPS_RUN = 11      # one warm-up step and two timed batches of five
 
 
-def timed_steps(torch, ks, multi, s, forcing, card):
-    """One warm-up step, then two batches of five timed steps over the six
-    forcings, with the kernel's launch count set to 0 just before and read
-    just after. The first batch still pays for a fresh process (the caching
-    allocator grows, the soil columns relax from their initial state); the
-    second is the steady state. Returns (state, the second batch's outputs,
-    its milliseconds per step, launches)."""
-    stack = lambda fs: {k: torch.stack([f[k] for f in fs]) for k in fs[0]}
+def stack_forcing(torch, fs):
+    return {k: torch.stack([f[k] for f in fs]) for k in fs[0]}
+
+
+def timed_batches(torch, ks, run, forcing):
+    """One warm-up step `run(forcing stack)`, then two batches of five timed
+    steps over the six forcings, with the kernel's launch count set to 0
+    just before and read just after. The first batch still pays for a fresh
+    start (the caching allocator grows, the soil columns relax from their
+    initial state, so their Courant sub-steps are more); the second is the
+    steady state. Returns (the last batch's result, the batches'
+    milliseconds per step, launches)."""
     ks.kinwave_substep.launches = 0
-    s, _ = multi(s, stack(forcing[:1]))
+    run(stack_forcing(torch, forcing[:1]))
     torch.cuda.synchronize()
     ms = []
     for _ in range(2):
         t0 = time.perf_counter()
-        s, outs = multi(s, stack(forcing[1:]))
+        out = run(stack_forcing(torch, forcing[1:]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) / 5 * 1e3)
-    launches = ks.kinwave_substep.launches
+    return out, ms, ks.kinwave_substep.launches
+
+
+def timed_steps(torch, ks, multi, s, forcing, card):
+    """timed_batches of the multi-step `multi` from state `s`; the launches
+    must equal the steps. Returns (state, the last batch's outputs, its
+    milliseconds per step, launches)."""
+    def run(stack):
+        nonlocal s
+        s, outs = multi(s, stack)
+        return outs
+
+    outs, ms, launches = timed_batches(torch, ks, run, forcing)
     cells = next(iter(outs.values())).shape[1]
-    print(f"  first 5 steps after the warm-up {ms[0]:.1f} ms/step, next 5 steps {ms[1]:.1f} "
-          f"ms/step = {cells / ms[1] * 1e3:.4g} cells*steps/s on {card}", flush=True)
+    print(f"  batches of 5 steps after the warm-up: {', '.join(f'{t:.1f}' for t in ms)} ms/step; "
+          f"the last = {cells / ms[-1] * 1e3:.4g} cells*steps/s on {card}", flush=True)
     print(f"  kinwave_substep launches {launches} for {STEPS_RUN} steps", flush=True)
     assert launches == STEPS_RUN, (launches, STEPS_RUN)
-    return s, outs, ms[1], launches
+    return s, outs, ms[-1], launches
+
+
+N_REP = 20
+
+
+def kernel_figures(torch, ks, spec, xs, what):
+    """At a main path's shape: the chunk graph, the launcher's plan, outputs
+    bitwise equal for 1, 2 and its blocks and over ten launches, the time by
+    block count (mean of 5 launches each), the time at the launcher's count
+    (CUDA events, mean of N_REP) and the bound. Returns the kernel's outputs
+    and the figures."""
+    print(f"  chunk graph: {chunk_graph_text(xs)}", flush=True)
+    ys, plan, by_blocks, repeats = blocks_bitwise(torch, ks, spec, xs)
+    assert by_blocks and repeats and plan["blocks"] > 1, (by_blocks, repeats, plan)
+    scan = block_scan(torch, ks, spec, xs, plan["limit"], 5)
+    kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), N_REP)
+    bound_ms, bound_by = bound(xs, ys, spec)
+    print(f"  {what}: {plan_text(plan, spec)}, window {spec.window}; outputs bitwise equal with "
+          f"1, 2 and {plan['blocks']} blocks and over ten launches; kernel ms by blocks: "
+          f"{scan_text(scan)}; kernel {kernel_ms:.3f} ms/launch (mean of {N_REP}), bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return ys, {"ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "blocks": plan["blocks"], "ms_one_block": scan[1]}
+
+
+def phase_prerun(torch, ks, model, card):
+    """Phase 6: the InitLisflood prerun at the continental shape, float32;
+    its kernel launch (single routing, `eva`) timed; the kernel held to its
+    plain version at 240x200 in the prerun configuration."""
+    import dataclasses
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.step import build_multi_step
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+    from lisflood_tpu_torch.ops.routing_ops import kernel_operands
+    cfg, params, state, aux = model
+    cfg = dataclasses.replace(cfg, init_lisflood=True)
+    t0 = time.perf_counter()
+    multi, p = build_multi_step(cfg, params, aux, output_keys=("ChanQAvg",),
+                                dtype=torch.float32, device="cuda")
+    s = multi.prepare_state(state)
+    torch.cuda.synchronize()
+    print(f"  prerun step built and moved to the card in {time.perf_counter() - t0:.1f} s; "
+          f"evaporation chain in the kernel: {multi.step.eva_in_kernel}", flush=True)
+    assert not multi.step.eva_in_kernel
+    forcing = [to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
+               for i in range(6)]
+    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card)
+    bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    assert "pk$Chan2QKin" not in s and "LakeStorageM3CC" not in s, sorted(s)
+    assert torch.equal(s["pk$avgdis"], s["pk$CumQ"] / s["TimeSinceStart"]), "avgdis"
+    print(f"  every state entry finite ({len(s)} entries, no floodplain, lake or reservoir "
+          f"state); avgdis = CumQ / TimeSinceStart ({float(s['TimeSinceStart']):.0f} steps); "
+          f"CumQ max {float(s['pk$CumQ'].max()):.4g}, LZInflowCUM max "
+          f"{float(s['LZInflowCUM'].max()):.4g}", flush=True)
+    spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, forcing[0]), multi.routers)
+    assert not spec.split and spec.E == 0 and "eva" in xs and "lk_pos" not in xs, spec
+    _, fig = kernel_figures(torch, ks, spec, xs, "prerun launch at the continental shape")
+    del multi, p, s, xs
+    mid = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512)
+    mid = (dataclasses.replace(mid[0], init_lisflood=True),) + mid[1:]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        _, _, _, spec_m, xs_m = kernel_inputs(mid, "cuda", dtype)
+        assert not spec_m.split and "eva" in xs_m, spec_m
+        _, _, held = held_to_plain(torch, ks, spec_m, xs_m, tol, "240x200, InitLisflood prerun")
+        if dtype == torch.float32:
+            fig.update(plain_ms=held["plain_ms"], max_abs_err=held["max_abs_err"])
+    return {**fig, "launches": launches, "step_ms": step_ms,
+            "plain_shape": "240x200, InitLisflood, float32"}
+
+
+def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
+    """Phase 7: M members of the main path in one step program; see the
+    module docstring. `single` is phase 3's step of one model."""
+    import numpy as np
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.ensemble import (EnsembleRunner, ensemble_model,
+                                                    fold_states, member_state, tile_forcing)
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+    from lisflood_tpu_torch.ops.routing_ops import kernel_operands
+    cfg, params, state, aux = model
+    P = cfg.num_pixels
+    total = torch.cuda.get_device_properties(0).total_memory
+    M = 8
+    while M > 1 and M * per_model_bytes > 0.9 * total:
+        M //= 2
+    print(f"  {M} members: {per_model_bytes / 2**30:.2f} GiB per model in phase 3, "
+          f"{total / 2**30:.1f} GiB on the card", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = EnsembleRunner(model, M, seed=0, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    kin = runner.step.routers["kin"]
+    print(f"  {M}-member model built on the host, moved to the card and perturbed in "
+          f"{time.perf_counter() - t0:.1f} s: {runner.cfg.num_pixels} cells, "
+          f"{kin.ps.n_chunks} chunks, window {kin.ps.window}", flush=True)
+    forcing = [to_device(synthetic_forcing(P, seed=i), "cuda", torch.float32) for i in range(6)]
+    _, ms, launches = timed_batches(torch, ks, runner.advance, forcing)
+    step_ms = ms[-1]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  batches of 5 ensemble steps after the warm-up: {', '.join(f'{t:.1f}' for t in ms)} "
+          f"ms per ensemble step; the last = {step_ms / M:.2f} ms per member-step = "
+          f"{M * P / step_ms * 1e3:.4g} cells*steps/s on {card}; kinwave_substep launches "
+          f"{launches} for {STEPS_RUN} ensemble steps of {M} members; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    assert launches == STEPS_RUN, (launches, "one launch per ensemble step")
+    bad = [k for k, v in runner.state.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    f0 = tile_forcing(forcing[0], M, P)
+    profile_step(torch, runner.step, runner.state, f0, step_ms)
+
+    with fixed_order_sums(torch):
+        spec, xs = kernel_operands(runner.cfg, runner.params, runner.state,
+                                   runner.step.land_phase(runner.state, f0), runner.step.routers)
+    _, fig = kernel_figures(torch, ks, spec, xs, f"ensemble launch, {M} members")
+    del xs
+
+    # members 0 and M-1 against the single model's step on the same state
+    C = kin.ps.chunk
+    with fixed_order_sums(torch):
+        after, _ = runner.step(runner.state, f0)
+        for m in (0, M - 1):
+            one, _ = single(member_state(runner.state, m, M, C), forcing[0])
+            mine = member_state(after, m, M, C)
+            worst = max((float((mine[k] - v).abs().max() / max(float(v.abs().max()), 1e-30)), k)
+                        for k, v in one.items())
+            print(f"  member {m} of the ensemble step vs the single model's step: max rel err "
+                  f"{worst[0]:.3e} ({worst[1]}; tol 1e-5)", flush=True)
+            assert worst[0] <= 1e-5, worst
+    del after
+
+    # one EnKF analysis, gauges at the five cells of largest upstream area
+    gauges = np.argsort(params["UpArea"])[-5:]
+    hx = runner._gauge_discharge(gauges)
+    obs, sigma = hx.mean(0) + 2 * hx.std(0), 0.1 * hx.std(0) + 1e-6
+    pos = torch.as_tensor(kin.ps.inv_perm[(np.arange(M)[:, None] * P + gauges).reshape(-1)],
+                          device="cuda")
+    at_gauges = lambda: runner.state["pk$ChanQKin"][pos].double().cpu().numpy().reshape(M, -1)
+    before = at_gauges().mean(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = runner.enkf_analysis(obs, gauges, sigma, seed=11)
+    torch.cuda.synchronize()
+    enkf_ms = (time.perf_counter() - t0) * 1e3
+    after_g = at_gauges().mean(0)
+    assert all(bool(torch.isfinite(v).all()) for v in new.values() if v.is_floating_point())
+    moved = np.abs(after_g - obs).sum() < np.abs(before - obs).sum()
+    print(f"  EnKF analysis of 7 fields x {M} members at 5 gauges: {enkf_ms:.1f} ms; finite; "
+          f"gauge mean ChanQKin {before.sum():.6g} -> {after_g.sum():.6g} m3/s toward "
+          f"{obs.sum():.6g}: {moved}", flush=True)
+    assert moved, (before, after_g, obs)
+    del runner, new
+
+    # the kernel against its plain version at 240x200 with 2 members
+    mid = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512)
+    cfg2, p2, aux2 = ensemble_model(mid[0], mid[1], mid[3], 2)
+    state2 = fold_states([mid[2], mid[2]], 512)
+    _, _, _, spec2, xs2 = kernel_inputs((cfg2, p2, state2, aux2), "cuda", torch.float32)
+    _, _, held = held_to_plain(torch, ks, spec2, xs2, 1e-5, "240x200, 2 members")
+    return {**fig, "launches": launches, "plain_ms": held["plain_ms"],
+            "max_abs_err": held["max_abs_err"], "members": M, "step_ms": step_ms,
+            "plain_shape": "240x200, 2 members, float32"}
 
 
 def profile_step(torch, step, s, f, step_ms):
@@ -538,6 +756,7 @@ def main():
     mid = phase_mid(torch, ks)
 
     print("phase 3: main path, continental 1200x1000, T=24, C=512, float32", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
     cfg, params, state, aux = model
@@ -555,6 +774,8 @@ def main():
     forcing = [to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
                for i in range(6)]
     s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card)
+    per_model_bytes = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory {per_model_bytes / 2**30:.2f} GiB", flush=True)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     q = outs["ChanQAvg"]
@@ -566,19 +787,12 @@ def main():
     print("phase 4: kernel timing at the main-path shape", flush=True)
     d = multi.step.land_phase(s, forcing[0])
     spec, xs = kernel_operands(cfg, p, s, d, multi.routers)
-    n_rep = 20
-    ys, plan, by_blocks, repeats = blocks_bitwise(torch, ks, spec, xs)
-    assert by_blocks and repeats and plan["blocks"] > 1, (by_blocks, repeats, plan)
-    scan = block_scan(torch, ks, spec, xs, plan["limit"], 5)
-    print(f"  chunk graph: {chunk_graph_text(xs)}", flush=True)
-    print(f"  {plan_text(plan, spec)}; outputs bitwise equal with 1, 2 and {plan['blocks']} "
-          f"blocks and over ten launches; kernel ms by blocks: {scan_text(scan)}", flush=True)
-    kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), n_rep)
-    land_ms = cuda_ms(torch, lambda: multi.step.land_phase(s, forcing[0]), n_rep)
+    ys, main = kernel_figures(torch, ks, spec, xs, "main-path launch")
+    kernel_ms, bound_ms, bound_by = main["ms"], main["bound_ms"], main["bound_by"]
+    land_ms = cuda_ms(torch, lambda: multi.step.land_phase(s, forcing[0]), N_REP)
     print(f"  parts of the {step_ms:.1f} ms step, each timed alone (they overlap in the step: "
           f"the host enqueues the next land phase while the routing kernel runs): land phase "
           f"+ surface routing {land_ms:.1f} ms, routing kernel {kernel_ms:.1f} ms", flush=True)
-    bound_ms, bound_by = bound(xs, ys, spec)
     # the plain version at the main-path shape: the comparison that holds the
     # kernel to it, and its time from this one run
     t0 = time.perf_counter()
@@ -586,7 +800,7 @@ def main():
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     rel, absd = max_rel_err(ys, ref)
-    print(f"  kernel {kernel_ms:.3f} ms/launch (mean of {n_rep}); bound {bound_ms:.4f} ms "
+    print(f"  kernel {kernel_ms:.3f} ms/launch (mean of {N_REP}); bound {bound_ms:.4f} ms "
           f"({bound_by}); plain version {plain_ms:.1f} ms (one run), kernel vs plain max "
           f"rel err {rel:.3e} (tol 1e-05), max abs err {absd:.3e}, at the main-path shape "
           f"({spec.n_chunks} chunks); card {card}", flush=True)
@@ -634,14 +848,9 @@ def main():
         spec5, xs5 = kernel_operands(cfg5, p5, again5,
                                      multi5.step.land_phase(again5, forcing5[0]), multi5.routers)
     assert all(k in xs5 for k in ("wuse", "qin_old", "qdelta", "uptrans", "tp1", "tp2", "tsub"))
-    ys5, plan5, by_blocks5, repeats5 = blocks_bitwise(torch, ks, spec5, xs5)
-    assert by_blocks5 and repeats5 and plan5["blocks"] > 1, (by_blocks5, repeats5, plan5)
-    scan5 = block_scan(torch, ks, spec5, xs5, plan5["limit"], 5)
-    print(f"  {plan_text(plan5, spec5)}; outputs bitwise equal with 1, 2 and {plan5['blocks']} "
-          f"blocks and over ten launches; kernel ms by blocks: {scan_text(scan5)}", flush=True)
-    kernel5_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec5, xs5), n_rep)
-    land5_ms = cuda_ms(torch, lambda: multi5.step.land_phase(s5, forcing5[0]), n_rep)
-    bound5_ms, bound5_by = bound(xs5, ys5, spec5)
+    ys5, opts = kernel_figures(torch, ks, spec5, xs5, "launch with the sideflow terms")
+    kernel5_ms, bound5_ms, bound5_by = opts["ms"], opts["bound_ms"], opts["bound_by"]
+    land5_ms = cuda_ms(torch, lambda: multi5.step.land_phase(s5, forcing5[0]), N_REP)
     print(f"  parts of the {step5_ms:.1f} ms step, each timed alone: land phase incl. water "
           f"abstraction + surface routing {land5_ms:.1f} ms, routing kernel {kernel5_ms:.1f} ms; "
           f"operand build, post-routing and the mass balance's catchment totals are the rest",
@@ -653,27 +862,37 @@ def main():
     assert "trans" in ref5 and bool(torch.isfinite(ys5["trans"]).all())
     rel5, absd5 = max_rel_err(ys5, ref5)
     side = mid["float32"]
-    print(f"  kernel with the sideflow terms {kernel5_ms:.3f} ms/launch (mean of {n_rep}); bound "
+    print(f"  kernel with the sideflow terms {kernel5_ms:.3f} ms/launch (mean of {N_REP}); bound "
           f"{bound5_ms:.4f} ms ({bound5_by}); plain version {plain5_ms:.1f} ms (one run), kernel "
           f"vs plain max rel err {rel5:.3e} (tol 1e-05), max abs err {absd5:.3e}, at this "
           f"path's shape ({spec5.n_chunks} chunks, window {spec5.window}); at 240x200 (phase 2) "
           f"kernel {side['ms']:.3f} ms, plain {side['plain_ms']:.0f} ms; card {card}", flush=True)
     assert rel5 <= 1e-5, f"kernel with the sideflow terms disagrees with the plain version: {rel5}"
+    del multi5, p5, s5, again5, xs5, ys5, ref5
+    torch.cuda.empty_cache()
+
+    print("phase 6: InitLisflood prerun, continental 1200x1000, T=24, C=512, float32", flush=True)
+    prerun = phase_prerun(torch, ks, model, card)
+    torch.cuda.empty_cache()
+
+    print("phase 7: ensemble of the main path, continental 1200x1000, T=24, C=512, float32",
+          flush=True)
+    ensemble = phase_ensemble(torch, ks, model, multi.step, per_model_bytes, card)
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
+    main.update(launches=launches, max_abs_err=absd, plain_ms=plain_ms,
+                plain_shape="1200x1000, float32")
+    opts.update(launches=launches5, max_abs_err=absd5, plain_ms=plain5_ms,
+                plain_shape="1200x1000, all options, float32")
+    # the one kernel on the four paths: ms, launches and bound at each path's
+    # continental shape, plain_ms and max_abs_err at plain_shape
     figures = {"kernels": [
-        {"name": "kinwave_substep", "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches, "max_abs_err": absd, "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-         "blocks": plan["blocks"], "ms_one_block": scan[1]},
-        # the same kernel on the all-options path, every figure at its shape
-        {"name": "kinwave_substep_sideflow", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches5, "max_abs_err": absd5,
-         "ms": kernel5_ms, "plain_ms": plain5_ms, "bound_ms": bound5_ms,
-         "bound_by": bound5_by, "library_ms": None,
-         "blocks": plan5["blocks"], "ms_one_block": scan5[1]},
-    ]}
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "library_ms": None, **{k: v for k, v in fig.items() if k != "step_ms"}}
+        for name, fig in (("kinwave_substep", main), ("kinwave_substep_sideflow", opts),
+                          ("kinwave_substep_prerun", prerun),
+                          ("kinwave_substep_ensemble", ensemble))]}
     print(json.dumps(figures))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -63,6 +63,10 @@ class ModelConfig:
     # soil Courant sub-stepping cap (the reference's per-pixel loop is
     # unbounded, soilloop.py:249; this is only a safety cap)
     max_soil_substeps: int = 100
+    # ensemble members folded into the pixel axis (models/ensemble.py): the
+    # counts above are then the ensemble's, member m holding pixels
+    # [m P, (m+1) P) of P = num_pixels / members; 1 for a single model
+    members: int = 1
 
     def use_eva_stencil(self, device):
         """'auto' picks the stencil form only on small grids on an
@@ -73,6 +77,24 @@ class ModelConfig:
                 return False
             return torch.device(device).type != "cpu"
         return bool(self.eva_stencil)
+
+    # the InitLisflood prerun routes a single lane and simulates no lake,
+    # reservoir or polder: what the step runs of those options
+    @property
+    def split(self):
+        return self.split_routing and not self.init_lisflood
+
+    @property
+    def lakes(self):
+        return self.simulate_lakes and not self.init_lisflood
+
+    @property
+    def reservoirs(self):
+        return self.simulate_reservoirs and not self.init_lisflood
+
+    @property
+    def polders(self):
+        return self.simulate_polders and not self.init_lisflood
 
     @property
     def dt_day(self):

@@ -5,17 +5,18 @@ lisflood_tpu/models/step.py.
 a `Step`, a callable `step(state, forcing) -> (state, diag)` that runs the
 reference's per-timestep order (Lisflood_dynamic.py:38-268):
 
-  meteo -> LAI -> [inflow] -> open-water fraction -> snow -> frost -> canopy
-  -> soil columns -> [pF] -> open/sealed -> [rice] -> [water abstraction] ->
-  per-pixel aggregation -> groundwater -> [open-water evaporation, when its
-  graph leaves the kernel's window] -> surface routing -> sub-stepped
-  channel routing (lakes, reservoirs, the evaporation chain and the sideflow
-  terms inside the routing kernel) -> [water level] -> [polder level] ->
-  [water balance]
+  [transient land use] -> meteo -> LAI -> [inflow] -> open-water fraction ->
+  snow -> frost -> canopy -> soil columns -> [pF] -> open/sealed -> [rice] ->
+  [water abstraction] -> per-pixel aggregation -> groundwater
+  [-> end of an InitLisfloodwithoutSplit step] -> [open-water evaporation,
+  when its graph leaves the kernel's window or in the InitLisflood prerun] ->
+  surface routing -> sub-stepped channel routing (lakes, reservoirs, the
+  evaporation chain and the sideflow terms inside the routing kernel) ->
+  [water level] -> [polder level] -> [water balance] -> [indicators]
 
-The channel-routing state lives in schedule-packed position space across
-steps ('pk$' state keys). Options the port does not run (_NOT_PORTED) raise
-NotImplementedError when the step is built.
+The InitLisflood prerun routes a single lane with no lake, reservoir or
+polder. The channel-routing state lives in schedule-packed position space
+across steps ('pk$' state keys).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..ops import physics as ph
-from ..ops.indicators import groundwater_smooth
+from ..ops.indicators import (groundwater_smooth, indicator_keys, indicator_state_zero,
+                              indicator_step)
 from ..ops.kinwave_packed import PackedRouter
 from ..ops.kinwave_substep import wavefront_tables
 from ..ops.routing_ops import channel_routing_kernel, resolve_pipeline, surface_routing_step
@@ -42,13 +44,10 @@ STATE_KEYS_BASE = [
     "TimeSinceStart",
 ]
 
-# options the port does not run yet, by ModelConfig field
-_NOT_PORTED = {
-    "init_lisflood": "InitLisflood",
-    "init_lisflood_without_split": "InitLisfloodwithoutSplit",
-    "indicator": "indicators",
-    "transient_landuse": "transient land use",
-}
+# the fractions a transient land-use step reads from its forcing (<key>_t,
+# and <key>_nt, the next step's, for the mass balance)
+LANDUSE_FRACTIONS = ("ForestFraction", "DirectRunoffFraction", "WaterFraction",
+                     "IrrigationFraction", "RiceFraction", "OtherFraction")
 
 
 def uses_packed_state(cfg):
@@ -61,7 +60,7 @@ def packed_routing_keys(cfg):
     """State entries held packed (pk$-prefixed) when uses_packed_state."""
     keys = ["ChanQKin", "ChanM3Kin", "ChanQ", "CumQ", "avgdis",
             "DischargeM3Out", "sumDis"]
-    if cfg.split_routing:
+    if cfg.split:
         keys += ["Chan2QKin", "Chan2M3Kin", "CrossSection2Area", "Sideflow1Chan"]
     if cfg.trans_loss:
         keys += ["TransCum"]
@@ -72,12 +71,12 @@ def packed_routing_keys(cfg):
 
 def state_keys(cfg):
     keys = list(STATE_KEYS_BASE)
-    if cfg.split_routing:
+    if cfg.split:
         keys += ["Chan2QKin", "Chan2M3Kin", "CrossSection2Area", "Sideflow1Chan"]
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         keys += ["LakeStorageM3CC", "LakeInflowOldCC", "LakeOutflowCC",
                  "LakeStorageM3BalanceCC", "LakeLevelCC", "LakeStorageM3", "EWLakeCUMM3"]
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         keys += ["ReservoirStorageM3CC", "ReservoirFillCC", "ReservoirStorageM3"]
     if cfg.water_use:
         keys += ["ActualAccumulatedReUsedWaterM3", "IrriLossCUM", "wateruseCum",
@@ -86,10 +85,12 @@ def state_keys(cfg):
         keys += ["TransCum"]
     if cfg.inflow:
         keys += ["QInM3Old"]
-    if cfg.simulate_polders:
+    if cfg.polders:
         keys += ["PolderStorageM3"]
     if cfg.rep_mbts:
         keys += ["WaterInit", "DischargeM3StructuresIni", "StorageStepINIT"]
+    if cfg.indicator and cfg.water_use:
+        keys += list(indicator_keys(cfg))
     if uses_packed_state(cfg):
         pk = set(packed_routing_keys(cfg))
         keys = ["pk$" + k if k in pk else k for k in keys]
@@ -145,7 +146,7 @@ def packed_routing_params(cfg, params_np, ps):
     out["kinp$IsChannelKinematic"] = ps.pack_np(
         np.asarray(params_np["IsChannelKinematic"], bool), False)
     out["kinp$AtLastPointC"] = ps.pack_np(np.asarray(params_np["AtLastPointC"], bool), False)
-    if cfg.split_routing:
+    if cfg.split:
         pk("ChannelAlpha2", 1.0)
         pk("QLimit", 0.0)
         pk("M3Limit", np.inf)      # padded lanes never count as over-limit
@@ -190,13 +191,13 @@ def packed_routing_params(cfg, params_np, ps):
         return idx, w, np.where(w > 0, idx, -1).astype(np.int32)
 
     struct_pos = []
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         lake_pos = ps.inv_perm[np.asarray(params_np["LakeIndex"], np.int64)]
         out["kinp$LakePos"] = lake_pos.astype(np.int32)
         out["kinp$LakeUpsIdx"], out["kinp$LakeUpsW"], out["kinp$LakeFee"] = \
             ups_gather(params_np["LakeIndex"])
         struct_pos += list(lake_pos)
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         res_pos = ps.inv_perm[np.asarray(params_np["ReservoirIndex"], np.int64)]
         out["kinp$ResPos"] = res_pos.astype(np.int32)
         out["kinp$ResUpsIdx"], out["kinp$ResUpsW"], out["kinp$ResFee"] = \
@@ -205,10 +206,11 @@ def packed_routing_params(cfg, params_np, ps):
     if len(set(struct_pos)) != len(struct_pos):
         raise ValueError("two lakes/reservoirs share a pixel")
 
-    # the open-water evaporation chain inside the kernel: its transfers
-    # follow downEva, whose edges must land 1..W chunks later
+    # the open-water evaporation chain inside the kernel (never in the
+    # InitLisflood prerun): its transfers follow downEva, whose edges must
+    # land 1..W chunks later
     eva_window_ok = False
-    if cfg.open_water_evapo and "downEva" in params_np:
+    if cfg.open_water_evapo and not cfg.init_lisflood and "downEva" in params_np:
         down_eva = np.asarray(params_np["downEva"], np.int64)     # (P,), P = pit
         tgt = down_eva[pix]
         has_t = tgt < P
@@ -269,13 +271,6 @@ def natural_state(cfg, routers, state):
             for k, v in state.items()}
 
 
-def check_options(cfg):
-    """Raise NotImplementedError for options outside the port's slice."""
-    off = [name for field, name in _NOT_PORTED.items() if getattr(cfg, field)]
-    if off:
-        raise NotImplementedError(f"options not ported yet: {', '.join(off)}")
-
-
 class Step:
     """One model step on the device: `step(state, forcing) -> (state, diag)`.
 
@@ -284,15 +279,16 @@ class Step:
     and returns the diagnostics the routing consumes."""
 
     def __init__(self, cfg, params, routers, device):
-        check_options(cfg)
         self.cfg = cfg
         self.params = params
         self.routers = routers
         self.device = torch.device(device)
         self.pipeline = resolve_pipeline(cfg, routers, self.device)
         # the evaporation chain runs inside the routing kernel when its graph
-        # fits the schedule window, else before the routing (evapowater_step)
-        self.eva_in_kernel = cfg.open_water_evapo and routers["kin"].eva_window_ok
+        # fits the schedule window, else before the routing (evapowater_step),
+        # as always in the InitLisflood prerun
+        self.eva_in_kernel = (cfg.open_water_evapo and not cfg.init_lisflood
+                              and routers["kin"].eva_window_ok)
 
     def prepare_state(self, state, dtype=None):
         """NumPy state -> the step's packed state on the device."""
@@ -302,8 +298,27 @@ class Step:
     def natural_state(self, state):
         return natural_state(self.cfg, self.routers, state)
 
-    def land_phase(self, s, f):
-        cfg, p, routers = self.cfg, self.params, self.routers
+    def step_params(self, f):
+        """The parameters of the step with forcing `f`: with transient land
+        use a copy whose six fractions are the forcing's `<key>_t` and whose
+        SoilFraction and PermeableFraction follow from them
+        (landusechange.py:94-148); the step's own parameters stay as they
+        are."""
+        if not self.cfg.transient_landuse:
+            return self.params
+        p = dict(self.params)
+        for k in LANDUSE_FRACTIONS:
+            p[k] = f[k + "_t"]
+        p["SoilFraction"] = torch.stack([p["OtherFraction"] + p["RiceFraction"],
+                                         p["ForestFraction"], p["IrrigationFraction"]])
+        p["PermeableFraction"] = 1 - p["DirectRunoffFraction"] - p["WaterFraction"]
+        return p
+
+    def land_phase(self, s, f, p=None):
+        """The step up to the channel routing (to the groundwater with
+        InitLisfloodwithoutSplit); `p` is step_params(f)."""
+        cfg, routers = self.cfg, self.routers
+        p = self.step_params(f) if p is None else p
         d = dict(f)  # diagnostics namespace, seeded with forcing
         d["TimeSinceStart"] = s["TimeSinceStart"] + 1.0
 
@@ -352,6 +367,8 @@ class Step:
                                              cfg.grid_rows, cfg.grid_cols)
         d.update(ph.soil_perpixel_step(cfg, p, s, d))
         d.update(ph.groundwater_step(cfg, p, s, d))
+        if cfg.init_lisflood_without_split:
+            return d
 
         if cfg.open_water_evapo:
             if self.eva_in_kernel:
@@ -372,8 +389,11 @@ class Step:
         return d
 
     def __call__(self, s, f):
-        cfg, p = self.cfg, self.params
-        d = self.land_phase(s, f)
+        cfg = self.cfg
+        p = self.step_params(f)
+        d = self.land_phase(s, f, p)
+        if cfg.init_lisflood_without_split:
+            return _collect_state(cfg, s, d), d
         # the routing starts from the lake and reservoir storages that the
         # water abstraction left
         route_state = dict(s)
@@ -386,18 +406,27 @@ class Step:
             d.update(ph.waterlevel_step(cfg, p, s, d))
         # polder level diagnostic: the reference's dynamic polder parts are a
         # no-op skeleton (polder.py:72-177), so the storage passes through
-        if cfg.simulate_polders:
+        if cfg.polders:
             d["PolderLevel"] = torch.where(
                 p["IsPolder"], s["PolderStorageM3"] / torch.clamp_min(p["PolderArea"], 1e-30), 0.0)
         if cfg.rep_total_water_storage or cfg.rep_mbts:
             d.update(_waterbalance(cfg, p, s, d))
+        # water-security indicators (indicatorcalc.py:80-235)
+        if cfg.indicator and cfg.water_use:
+            month_dis = s["MonthDisM3"] + d["ChanQAvg"] * cfg.dt_sec
+            d["UpstreamSumMonthDis"] = ph.scatter_to_downstream(
+                month_dis, p["downstruct"], cfg.num_pixels)
+            d.update(indicator_step(cfg, p, s, d))
+            # month-end reset of the accumulators (Lisflood_dynamic.py:266-268)
+            zeros = indicator_state_zero(cfg, cfg.num_pixels, d["Rain"].dtype, d["Rain"].device)
+            for k in indicator_keys(cfg):
+                d[k] = torch.where(f["MonthEnd"], zeros[k], d[k])
         return _collect_state(cfg, s, d), d
 
 
 def build_step(cfg, params_np, aux, dtype=torch.float64, device=None):
     """Returns (step, device_params). `aux` holds the channel and overland
     schedules ('schedule_kin', 'schedule_tochan')."""
-    check_options(cfg)
     device = resolve_device(device)
     routers = build_routers(cfg, aux, device)
     p = device_params(cfg, params_np, routers, device, dtype)
@@ -436,13 +465,14 @@ def _collect_state(cfg, s, d):
 
 
 def _storage_channel(cfg, p, s, d):
-    """waterbalance.py:114-122."""
+    """waterbalance.py:114-122; the InitLisflood prerun holds no water in
+    lakes, reservoirs or polders."""
     stored = d["ChanM3"]
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         stored = stored + d["LakeStorageM3Balance"]
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         stored = stored + d["ReservoirStorageM3"]
-    if cfg.simulate_polders:
+    if cfg.polders:
         stored = stored + d.get("PolderStorageM3", s["PolderStorageM3"])
     return stored
 
@@ -458,14 +488,14 @@ def _storage_hillslope(cfg, p, s, d):
 
 def _waterbalance(cfg, p, s, d):
     """Total water storage and the catchment mass balance
-    (waterbalance.py:114-288), without transient land use."""
+    (waterbalance.py:114-288); the prerun (InitLisflood) has no balance."""
     catchtotal = lambda x: ph.segment_spread(x, p["Catchments"], cfg.num_catchments)
     out = {}
     channel_stored = _storage_channel(cfg, p, s, d)
     hillslope_stored = _storage_hillslope(cfg, p, s, d)
     if cfg.rep_total_water_storage:
         out["TotalWaterStorageMM"] = (channel_stored + hillslope_stored) * p["M3toMM"]
-    if cfg.rep_mbts:
+    if cfg.rep_mbts and not cfg.init_lisflood:
         # one catchment total per balance term: the per-pixel parts are
         # summed first (a total is ~1 M atomic adds on the card)
         sum_in = torch.where(torch.isnan(s["sumInWB"]), 0.0, s["sumInWB"])
@@ -500,10 +530,27 @@ def _waterbalance(cfg, p, s, d):
         out["MB_HillslopeStored"] = hillslope_total
         out["MBError"] = mb_error
         out["MBErrorMM"] = 1000.0 * mb_error / p["CatchArea"]
-        out["WaterInit"] = water_stored + dis_structures
+        if cfg.transient_landuse:
+            # the next step starts from the next step's fractions: WaterInit
+            # is the hillslope storage priced with them
+            # (waterbalance.py:186-271)
+            p_next = dict(p)
+            p_next["SoilFraction"] = torch.stack([
+                d["OtherFraction_nt"] + d["RiceFraction_nt"],
+                d["ForestFraction_nt"], d["IrrigationFraction_nt"]])
+            d_next = dict(d)
+            d_next["DirectRunoffFraction"] = d["DirectRunoffFraction_nt"]
+            hillslope_next = catchtotal(_storage_hillslope(cfg, p_next, s, d_next))
+            out["WaterInit"] = channel_total + hillslope_next + dis_structures
+            # the reference evaluates the analysis diagnostics after moving
+            # the fractions on to the next step's (waterbalance.py:186-199)
+            fr = {k: d[k + "_nt"] for k in LANDUSE_FRACTIONS}
+        else:
+            out["WaterInit"] = water_stored + dis_structures
+            fr = p
         # mass-balance analysis diagnostics (waterbalance.py:276-289)
-        sum_fracs = (p["ForestFraction"] + p["DirectRunoffFraction"] + p["WaterFraction"]
-                     + p["IrrigationFraction"] + p["OtherFraction"])
+        sum_fracs = (fr["ForestFraction"] + fr["DirectRunoffFraction"] + fr["WaterFraction"]
+                     + fr["IrrigationFraction"] + fr["OtherFraction"])
         npix = catchtotal(torch.ones_like(sum_fracs))
         out["AverageFractions"] = catchtotal(sum_fracs) / npix
         out["MBErrorStorage"] = mb_error / out["WaterInit"]

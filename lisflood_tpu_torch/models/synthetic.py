@@ -13,7 +13,9 @@ import dataclasses
 import numpy as np
 
 from ..graph.ldd import FlowGraph, build_schedule, direction_codes
+from ..ops.indicators import indicator_keys
 from .config import ModelConfig
+from .step import LANDUSE_FRACTIONS
 
 LDD_CODE = {(1, 0): 2, (1, 1): 3, (0, 1): 6, (-1, 1): 9, (-1, 0): 8,
             (-1, -1): 7, (0, -1): 4, (1, -1): 1}
@@ -347,15 +349,25 @@ def with_options(model, seed=0, eva_outside_window=False):
     (split routing, structures and open water on) with every further option
     of the step switched on, and the inputs those options read, drawn from
     `seed`: water use with groundwater smoothing and the per-sector reports,
-    rice irrigation, inflow hydrographs, transmission loss, polders, water
-    levels, pF, the mass-balance and total-storage reports, and the average
-    discharge.
+    the water-security indicators, rice irrigation, inflow hydrographs,
+    transmission loss, polders, water levels, pF, the mass-balance and
+    total-storage reports, and the average discharge. Transient land use
+    stays off, since its forcing changes from step to step: its inputs are in
+    `aux["landuse"]` and `landuse_forcing` gives a step's entries.
 
     Returns new `(cfg, params, state, aux)`; the arrays are NumPy and the
     config's field values are shared with the JAX package's ModelConfig, so
     both packages take the same inputs. `aux["forcing_options"]` holds the
     forcing entries the options add to synthetic_forcing's (the inflow
-    `QInM3` and the four sectors' demands).
+    `QInM3`, the four sectors' demands and the indicators' `MonthEnd`, False:
+    a caller ends a month by setting it True for one step).
+
+    The indicators' water regions are the four quadrants of the grid; their
+    inflow points are the pixels fed by a pixel of another region, over the
+    pre-cut drainage. `aux["landuse"]` holds, per fraction of
+    LANDUSE_FRACTIONS, a stack of three steps' maps: forest, irrigated,
+    sealed and water fractions drift by up to 10% a step, the rainfed
+    (`OtherFraction`) takes up the difference, so the six still sum to 1.
 
     Transmission loss acts on a tenth of the fifth of the pixels with the
     largest upstream area (no lake or reservoir among them). Each takes a
@@ -462,11 +474,37 @@ def with_options(model, seed=0, eva_outside_window=False):
         params.pop("evaDir2D", None)
         params.pop("landIdx", None)
 
+    # water-security indicators: the regions' inflow points, population
+    # and land-use mask; the monthly accumulators start at zero
+    downstruct = params["downstruct"]
+    fed = downstruct < P
+    cross = fed & (wreg != wreg[np.minimum(downstruct, P - 1)])
+    inflow_points = np.zeros(P, bool)
+    inflow_points[downstruct[cross]] = True
+    params["WaterRegionInflowPoints"] = inflow_points
+    params["RegionPopulation"] = _catchtotal(u(0, 1000), wreg, 4)
+    params["LandUseMask"] = (rng.random(P) > 0.2).astype(np.float64)
+    forcing["MonthEnd"] = np.bool_(False)
+
+    # transient land use: three steps of drifting fractions
+    fractions = {k: params[k] for k in LANDUSE_FRACTIONS}
+    stacks = {k: [] for k in LANDUSE_FRACTIONS}
+    for _ in range(3):
+        for k in ("ForestFraction", "IrrigationFraction", "DirectRunoffFraction", "WaterFraction"):
+            fractions[k] = fractions[k] * u(0.9, 1.1)
+        fractions["OtherFraction"] = 1 - sum(fractions[k] for k in LANDUSE_FRACTIONS
+                                             if k != "OtherFraction")
+        for k in LANDUSE_FRACTIONS:
+            stacks[k].append(fractions[k])
+    aux["landuse"] = {k: np.stack(v) for k, v in stacks.items()}
+
     cfg = dataclasses.replace(
-        cfg, water_use=True, groundwater_smooth=True, rep_water_use=True,
+        cfg, water_use=True, groundwater_smooth=True, rep_water_use=True, indicator=True,
         rice_irrigation=True, inflow=True, trans_loss=True, simulate_polders=True,
         simulate_water_levels=True, simulate_pf=True, rep_mbts=True,
         rep_total_water_storage=True, rep_average_dis=True, num_wregions=4)
+    state.update({k: np.zeros(P) for k in indicator_keys(cfg)})
+    state["DayCounter"] = np.float64(0.0)
 
     # the mass balance's initial storages (waterbalance.py:43-109,
     # routing.py:405-431), by the step's own accounting: channel, structure
@@ -490,6 +528,19 @@ def with_options(model, seed=0, eva_outside_window=False):
                           + _catchtotal(hillslope_init, catchments, n))
     aux["forcing_options"] = forcing
     return cfg, params, state, aux
+
+
+def landuse_forcing(aux, t):
+    """The transient land-use forcing of step t from `aux["landuse"]`
+    (LisfloodRunner.forcing_for): `<key>_t` the step's fractions, `<key>_nt`
+    the next step's (the last step's own at the end of the stacks)."""
+    stacks = aux["landuse"]
+    n = len(next(iter(stacks.values())))
+    out = {}
+    for k, v in stacks.items():
+        out[k + "_t"] = v[t]
+        out[k + "_nt"] = v[min(t + 1, n - 1)]
+    return out
 
 
 def synthetic_forcing(P, seed=0, dtype=np.float64):

@@ -515,13 +515,13 @@ def water_abstraction_step(cfg, p, s, d):
 
     # lakes and reservoirs abstraction (waterabstraction.py:418-467)
     dt_day = cfg.dt_day
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         pot_res = torch.minimum(0.02 * s["ReservoirStorageM3"],
                                 0.01 * p["TotalReservoirStorageM3C"]) * dt_day
         pot_res = torch.where(torch.isnan(pot_res), 0.0, pot_res)
     else:
         pot_res = zero
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         pot_lake = 0.10 * s["LakeStorageM3"] * dt_day
         pot_lake = torch.where(torch.isnan(pot_lake), 0.0, pot_lake)
     else:
@@ -537,10 +537,10 @@ def water_abstraction_step(cfg, p, s, d):
     lake_abstraction = pot_lake * frac_emptying
     res_abstraction = pot_res * frac_emptying
     out = {}
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         out["LakeStorageM3"] = s["LakeStorageM3"] - lake_abstraction
         out["LakeStorageM3CC"] = s["LakeStorageM3CC"] - lake_abstraction[p["LakeIndex"]]
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         out["ReservoirStorageM3"] = s["ReservoirStorageM3"] - res_abstraction
         out["ReservoirStorageM3CC"] = s["ReservoirStorageM3CC"] - res_abstraction[p["ReservoirIndex"]]
 

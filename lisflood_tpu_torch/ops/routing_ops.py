@@ -70,7 +70,7 @@ def resolve_pipeline(cfg, routers, device):
     kin = routers["kin"]
     if not isinstance(kin, PackedRouter):
         raise NotImplementedError("the sub-step loop needs the packed router")
-    structs = cfg.simulate_lakes or cfg.simulate_reservoirs
+    structs = cfg.lakes or cfg.reservoirs
     if structs and not kin.struct_feeders_earlier:
         raise NotImplementedError(
             "a lake or reservoir is not chunked after all of its feeders; the "
@@ -92,7 +92,7 @@ def kernel_operands(cfg, p, s, d, routers):
     pk = lambda name: p["kinp$" + name]
     spk = lambda k: s["pk$" + k]
     n, C = ps.n_chunks, ps.chunk
-    split = cfg.split_routing
+    split = cfg.split
     dtype = spk("ChanQKin").dtype
     c2 = lambda x: x.reshape(n, C)
     xs = {
@@ -141,7 +141,7 @@ def kernel_operands(cfg, p, s, d, routers):
     # structure inflow at the start of the step: the previous sub-step's
     # discharge of its <=8 feeders (pre-cut graph)
     buf0 = lambda name: (spk("ChanQ")[pk(name + "UpsIdx")] * pk(name + "UpsW")).sum(1)
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         xs.update({
             "lk_pos": pk("LakePos"), "lk_fee": pk("LakeFee"), "lk_fee_w": pk("LakeUpsW"),
             "lk_factor": p["LakeFactor"], "lk_factorsqr": p["LakeFactorSqr"],
@@ -150,7 +150,7 @@ def kernel_operands(cfg, p, s, d, routers):
             "lk_out0": s["LakeOutflowCC"], "lk_bal0": s["LakeStorageM3BalanceCC"],
             "lk_buf0": buf0("Lake"),
         })
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         xs.update({
             "rs_pos": pk("ResPos"), "rs_fee": pk("ResFee"), "rs_fee_w": pk("ResUpsW"),
             "rs_tot": p["TotalReservoirStorageM3CC"],
@@ -169,7 +169,7 @@ def kernel_operands(cfg, p, s, d, routers):
     xs.update({k: pk(k) for k in WAVEFRONT_TABLES})
     spec = SubstepSpec(n_chunks=n, chunk=C, window=ps.window, T=cfg.no_rout_steps,
                        dt_routing=cfg.dt_routing, beta=float(p["Beta"]),
-                       split=split, E=E)
+                       split=split, E=E, members=cfg.members)
     return spec, {k: v.contiguous() for k, v in xs.items()}
 
 
@@ -243,7 +243,7 @@ def _post_routing(cfg, p, s, d, carry, dtype):
     if cfg.inflow:
         # for the mass-balance module (Lisflood_dynamic.py:185-189)
         out["sumInWB"] = carry["QinADDEDM3"]
-    if not cfg.split_routing:
+    if not cfg.split:
         chan_m3 = carry["ChanM3Kin"]
     else:
         chan_m3 = carry["ChanM3Kin"] + carry["Chan2M3Kin"] - p["Chan2M3Start"]
@@ -251,7 +251,7 @@ def _post_routing(cfg, p, s, d, carry, dtype):
     out["TotalCrossSectionArea"] = chan_m3 * inv_dx
     out["sumDis"] = s["sumDis"] + carry["sumDisDay"]
     out["ChanQAvg"] = carry["sumDisDay"] / cfg.no_rout_steps
-    if cfg.rep_average_dis:
+    if cfg.init_lisflood or cfg.rep_average_dis:
         cum_q = s["CumQ"] + carry["ChanQ"]
         out["CumQ"] = cum_q
         out["avgdis"] = cum_q / d["TimeSinceStart"]
@@ -269,7 +269,7 @@ def _post_routing(cfg, p, s, d, carry, dtype):
     def expand(idx, cc):
         return torch.zeros(P, dtype=dtype, device=cc.device).index_copy_(0, idx, cc)
 
-    if cfg.simulate_lakes:
+    if cfg.lakes:
         li = p["LakeIndex"]
         out["LakeStorageM3Balance"] = expand(li, carry["LakeStorageM3BalanceCC"])
         out["LakeStorageM3"] = expand(li, carry["LakeStorageM3CC"])
@@ -278,7 +278,7 @@ def _post_routing(cfg, p, s, d, carry, dtype):
         out["LakeOutflow"] = expand(li, carry["LakeOutflowCC"])
         out["LakeInflowM3S"] = expand(li, carry["sumLakeInCC"] / cfg.dt_sec)
         out["LakeOutflowM3S"] = expand(li, carry["sumLakeOutCC"] / cfg.dt_sec)
-    if cfg.simulate_reservoirs:
+    if cfg.reservoirs:
         ri = p["ReservoirIndex"]
         out["ReservoirStorageM3"] = expand(ri, carry["ReservoirStorageM3CC"])
         out["ReservoirFill"] = expand(ri, carry["ReservoirFillCC"])
@@ -286,20 +286,20 @@ def _post_routing(cfg, p, s, d, carry, dtype):
         out["ReservoirOutflowM3S"] = expand(ri, carry["sumResOutCC"] / cfg.dt_sec)
 
     # split-routing mass balance (routing.py:645-691)
-    if cfg.rep_mbts and cfg.split_routing:
+    if cfg.rep_mbts and cfg.split:
         sum1 = torch.where(p["AtLastPointC"], carry["sumDisDay"] / cfg.no_rout_steps, 0.0)
         out_step = catchtotal(sum1 * cfg.dt_sec)
         storage_step = carry["ChanM3Kin"] + carry["Chan2M3Kin"] - p["Chan2M3Start"]
         dis_structures = torch.zeros(P, dtype=dtype, device=dx.device)
-        if cfg.simulate_reservoirs:
+        if cfg.reservoirs:
             storage_step = storage_step + out["ReservoirStorageM3"]
-        if cfg.simulate_lakes:
+        if cfg.lakes:
             storage_step = storage_step + out["LakeStorageM3Balance"]
-        if cfg.simulate_reservoirs or cfg.simulate_lakes:
+        if cfg.reservoirs or cfg.lakes:
             # water on its way into a structure at the end of the step
             dis_stru = torch.where(
                 p["IsUpsOfStructureKinematicC"], carry["ChanQ"] * cfg.dt_routing, 0.0)
-            if cfg.simulate_lakes:
+            if cfg.lakes:
                 dis_stru = dis_stru + expand(p["LakeIndex"],
                                              0.5 * carry["LakeInflowCC"] * cfg.dt_routing)
             dis_structures = catchtotal(dis_stru) - s["DischargeM3StructuresIni"]
@@ -339,7 +339,7 @@ def _post_routing_packed(cfg, p, s, d, carry_p, routers, carry_natural):
         if key in carry_p:
             out["pk$" + key] = carry_p[key]
     out["pk$sumDis"] = s["pk$sumDis"] + carry_p["sumDisDay"]
-    if cfg.rep_average_dis:
+    if cfg.init_lisflood or cfg.rep_average_dis:
         cum_q = s["pk$CumQ"] + carry_p["ChanQ"]
         out["pk$CumQ"] = cum_q
         out["pk$avgdis"] = cum_q / d["TimeSinceStart"]

@@ -38,8 +38,11 @@ def options_model(eva_outside_window=False):
 
 
 def jax_config(cfg, **kw):
-    """The JAX package's ModelConfig with the port config's field values."""
-    return JaxConfig(**dataclasses.asdict(cfg), **kw)
+    """The JAX package's ModelConfig with the port config's field values (all
+    but `members`, the port's ensemble fold, which is 1 here)."""
+    fields = dataclasses.asdict(cfg)
+    assert fields.pop("members") == 1
+    return JaxConfig(**fields, **kw)
 
 
 def forcing_of(cfg, aux, seed=0):

@@ -51,21 +51,24 @@ script exits non-zero:
      step and two timed batches of five as in phase 3, launches equal steps,
      every state entry finite, avgdis = CumQ / TimeSinceStart, one profiled
      step; the kernel's single-routing launch with the evaporation chain
-     outside it (operand `eva`): its time by block count and its bound; the
-     kernel held to its plain version at 240x200 in the prerun
-     configuration, float32 within 1e-5 and float64 within 1e-12, bitwise
-     equal for 1, 2 and the launcher's blocks;
+     outside it (operand `eva`): its time by block count, its bound, and the
+     plain version's time with the kernel held to it at this shape (float32,
+     within 1e-5); the kernel held to its plain version at 240x200 in the
+     prerun configuration in float64 (within 1e-12), bitwise equal for 1, 2
+     and the launcher's blocks;
   7. the ensemble: M members of the main path (M = 8, or the largest power
      of two whose memory, by phase 3's peak per model, fits 90% of the card)
      folded into one model (models/ensemble.py), built on the host and timed
      (EnsembleRunner), one warm-up step and two timed batches of five with
      one kernel launch per ensemble step for all members; ms per ensemble
      step and per member-step, peak device memory, one profiled step's idle
-     share; the kernel's time by block count and its bound; members 0 and
-     M-1 against the single model's step on the same state (float32 within
-     1e-5); one EnKF analysis (its time, finite fields, the gauges' mean
-     discharge moving toward the observation); the kernel held to its plain
-     version at 240x200 with 2 members.
+     share; the kernel's time by block count and its bound; the timed
+     launch's outputs on its first 32 M chunks (32 of each member's) held to
+     the plain version run over those chunks (float32, within 1e-5); every
+     member of the ensemble step against the single model's step on the same
+     state (float32 within 1e-5); one EnKF analysis (its time, finite fields,
+     the gauges' mean discharge moving toward the observation); the kernel
+     held to its plain version at 240x200 with 2 members.
 The operands on which the kernel is held to its plain version are drawn with
 fixed-order sums (fixed_order_sums), so that every run compares on the same
 numbers.
@@ -96,11 +99,15 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 FLOPS_PER_SUBSTEP = 2 + 10 + 2 + 6 + 2 * 76 + 10 + 1
 FLOPS_PER_HOP = 7
 FLOPS_PER_LANE = 12
-# the polynomial path with single routing (the InitLisflood prerun), counted
-# from the same source: per sub-step the sideflow (2), the lateral inflow
-# (1), the cc sum (3), one polynomial Newton solve (76), the storage (2) and
-# sumdis (1); per lane 1 (inv_dx) and the one pow of qb1's set-up
-FLOPS_PER_SUBSTEP_SINGLE = 2 + 1 + 3 + 76 + 2 + 1
+# the polynomial path with single routing (the InitLisflood prerun), per
+# sub-step, by line of csrc/kinwave_substep.cu: the sideflow, :556 (a multiply
+# and a divide, 2); cc, :570 (two multiplies and two adds, 4; the upstream
+# adds are counted from the tables); newton_v, :191-204 (its guesses,
+# :192-195, 7: two bit-hack estimates of a multiply and an add each, a
+# divide, a min and a multiply; five iterations of :198-201, 3 + 4 + 4 + 2 =
+# 13 each); v^3, :573 (2); v^5, :575 (2); the storage, :576 (2); sumdis, :636
+# (1). Per lane: inv_dx, :425 (1), and the pow of qb1, :446
+FLOPS_PER_SUBSTEP_SINGLE = 2 + 4 + (7 + 5 * 13) + 2 + 2 + 2 + 1
 FLOPS_PER_LANE_SINGLE = (1, 1)     # (plain, pow)
 # q-space path (float64, or beta != 3/5), per routed lane-row and sub-step:
 # the cc sum (3 and 1 pow), newton_q (8 and 3 pow of set-up; each of its 4
@@ -455,6 +462,8 @@ def timed_steps(torch, ks, multi, s, forcing, card):
 
 
 N_REP = 20
+# chunks of each member that phase 7 holds to the plain version
+PREFIX_PER_MEMBER = 32
 
 
 def kernel_figures(torch, ks, spec, xs, what):
@@ -479,8 +488,9 @@ def kernel_figures(torch, ks, spec, xs, what):
 
 def phase_prerun(torch, ks, model, card):
     """Phase 6: the InitLisflood prerun at the continental shape, float32;
-    its kernel launch (single routing, `eva`) timed; the kernel held to its
-    plain version at 240x200 in the prerun configuration."""
+    its kernel launch (single routing, `eva`) timed and held to its plain
+    version there; the kernel held to its plain version at 240x200 in the
+    prerun configuration in float64."""
     import dataclasses
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
@@ -510,18 +520,54 @@ def phase_prerun(torch, ks, model, card):
           f"{float(s['LZInflowCUM'].max()):.4g}", flush=True)
     spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, forcing[0]), multi.routers)
     assert not spec.split and spec.E == 0 and "eva" in xs and "lk_pos" not in xs, spec
-    _, fig = kernel_figures(torch, ks, spec, xs, "prerun launch at the continental shape")
-    del multi, p, s, xs
+    ys, fig = kernel_figures(torch, ks, spec, xs, "prerun launch at the continental shape")
+    t0 = time.perf_counter()
+    ref = ks.substep_reference(spec, xs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel, absd = max_rel_err(ys, ref)
+    print(f"  prerun kernel {fig['ms']:.3f} ms/launch; plain version {plain_ms:.1f} ms (one run), "
+          f"kernel vs plain max rel err {rel:.3e} (tol 1e-05), max abs err {absd:.3e}, at the "
+          f"continental shape ({spec.n_chunks} chunks)", flush=True)
+    assert rel <= 1e-5, f"prerun kernel disagrees with the plain version: {rel}"
+    del multi, p, s, xs, ys, ref
     mid = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512)
     mid = (dataclasses.replace(mid[0], init_lisflood=True),) + mid[1:]
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        _, _, _, spec_m, xs_m = kernel_inputs(mid, "cuda", dtype)
-        assert not spec_m.split and "eva" in xs_m, spec_m
-        _, _, held = held_to_plain(torch, ks, spec_m, xs_m, tol, "240x200, InitLisflood prerun")
-        if dtype == torch.float32:
-            fig.update(plain_ms=held["plain_ms"], max_abs_err=held["max_abs_err"])
-    return {**fig, "launches": launches, "step_ms": step_ms,
-            "plain_shape": "240x200, InitLisflood, float32"}
+    _, _, _, spec_m, xs_m = kernel_inputs(mid, "cuda", torch.float64)
+    assert not spec_m.split and "eva" in xs_m, spec_m
+    held_to_plain(torch, ks, spec_m, xs_m, 1e-12, "240x200, InitLisflood prerun")
+    return {**fig, "launches": launches, "step_ms": step_ms, "plain_ms": plain_ms,
+            "max_abs_err": absd, "plain_shape": "1200x1000, InitLisflood, float32"}
+
+
+def held_on_prefix(torch, ks, spec, xs, ys, n):
+    """The kernel's outputs `ys` on the operands `xs` against the plain
+    version run over the first `n` chunks alone: every dependence points to a
+    lower chunk, so the outputs of those chunks' lanes, and of the
+    structures they own, are final there. Returns (max rel err, max abs err,
+    the plain version's milliseconds)."""
+    import dataclasses
+    C = spec.chunk
+    part = {k: v for k, v in xs.items() if k not in ks.WAVEFRONT_TABLES}
+    for k, v in part.items():
+        if k in ("ups", "ev_ups"):
+            part[k] = v[:, :n * C]
+        elif v.dim() == 2 and tuple(v.shape) == (spec.n_chunks, C):
+            part[k] = v[:n]
+    t0 = time.perf_counter()
+    ref = ks.substep_reference(dataclasses.replace(spec, n_chunks=n), part)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got, want = {}, {}
+    for k, r in ref.items():
+        if k.startswith(("lk_", "rs_")):
+            owned = xs[k[:3] + "pos"] < n * C
+            if bool(owned.any()):
+                got[k], want[k] = ys[k][owned], r[owned]
+        else:
+            got[k], want[k] = ys[k][:n], r
+    rel, absd = max_rel_err(got, want)
+    return rel, absd, plain_ms
 
 
 def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
@@ -568,21 +614,28 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     with fixed_order_sums(torch):
         spec, xs = kernel_operands(runner.cfg, runner.params, runner.state,
                                    runner.step.land_phase(runner.state, f0), runner.step.routers)
-    _, fig = kernel_figures(torch, ks, spec, xs, f"ensemble launch, {M} members")
-    del xs
+    ys, fig = kernel_figures(torch, ks, spec, xs, f"ensemble launch, {M} members")
+    n = M * PREFIX_PER_MEMBER
+    rel, absd, plain_ms = held_on_prefix(torch, ks, spec, xs, ys, n)
+    print(f"  ensemble launch vs the plain version on its first {n} chunks ({PREFIX_PER_MEMBER} "
+          f"of each member's {spec.n_chunks // M}): max rel err {rel:.3e} (tol 1e-05), max abs "
+          f"err {absd:.3e}; plain version {plain_ms:.1f} ms (one run)", flush=True)
+    assert rel <= 1e-5, f"ensemble kernel disagrees with the plain version: {rel}"
+    del xs, ys
 
-    # members 0 and M-1 against the single model's step on the same state
+    # every member against the single model's step on the same state
     C = kin.ps.chunk
+    worst = []
     with fixed_order_sums(torch):
         after, _ = runner.step(runner.state, f0)
-        for m in (0, M - 1):
+        for m in range(M):
             one, _ = single(member_state(runner.state, m, M, C), forcing[0])
             mine = member_state(after, m, M, C)
-            worst = max((float((mine[k] - v).abs().max() / max(float(v.abs().max()), 1e-30)), k)
-                        for k, v in one.items())
-            print(f"  member {m} of the ensemble step vs the single model's step: max rel err "
-                  f"{worst[0]:.3e} ({worst[1]}; tol 1e-5)", flush=True)
-            assert worst[0] <= 1e-5, worst
+            worst.append(max((float((mine[k] - v).abs().max() / max(float(v.abs().max()), 1e-30)),
+                              k) for k, v in one.items()))
+    print(f"  members 0..{M - 1} of the ensemble step vs the single model's step, max rel err "
+          f"by member: {', '.join(f'{e:.3e} ({k})' for e, k in worst)} (tol 1e-5)", flush=True)
+    assert max(worst)[0] <= 1e-5, worst
     del after
 
     # one EnKF analysis, gauges at the five cells of largest upstream area
@@ -612,10 +665,10 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     cfg2, p2, aux2 = ensemble_model(mid[0], mid[1], mid[3], 2)
     state2 = fold_states([mid[2], mid[2]], 512)
     _, _, _, spec2, xs2 = kernel_inputs((cfg2, p2, state2, aux2), "cuda", torch.float32)
-    _, _, held = held_to_plain(torch, ks, spec2, xs2, 1e-5, "240x200, 2 members")
-    return {**fig, "launches": launches, "plain_ms": held["plain_ms"],
-            "max_abs_err": held["max_abs_err"], "members": M, "step_ms": step_ms,
-            "plain_shape": "240x200, 2 members, float32"}
+    held_to_plain(torch, ks, spec2, xs2, 1e-5, "240x200, 2 members")
+    return {**fig, "launches": launches, "plain_ms": plain_ms, "max_abs_err": absd,
+            "members": M, "step_ms": step_ms,
+            "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
 
 
 def profile_step(torch, step, s, f, step_ms):

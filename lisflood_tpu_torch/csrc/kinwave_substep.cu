@@ -45,18 +45,16 @@
 // dependencies are finished. A poll that sees no progress for kStallNs traps
 // (the launch then fails) instead of hanging the card.
 //
-// The rule for G (kinwave_substep_plan): min(co-resident blocks, n_chunks,
-// 4*T*members), where co-resident = SMs x
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the instantiation and
-// `members` the independent wavefronts of an ensemble whose members'
-// chunks are interleaved (models/ensemble.py; 1 for one model). The
-// pipeline is T tasks deep, chunks that do not depend on each other add to
-// that, and blocks that have claimed a chunk ahead of its turn load its
-// operands meanwhile; on the synthetic continental drainage one wavefront's
-// time falls until about 4*T blocks and is flat beyond, while 8 members'
-// go on falling up to the co-resident limit. A launch that cannot have one
-// block resident, or an explicit block count above the co-resident limit,
-// is refused.
+// The rule for G (kinwave_substep_plan): min(co-resident blocks, n_chunks),
+// where co-resident = SMs x cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// of the instantiation. The pipeline is T tasks deep, chunks that do not
+// depend on each other add to that, and blocks that have claimed a chunk
+// ahead of its turn load its operands meanwhile; on the synthetic
+// continental drainage one wavefront's time falls until about 4*T blocks and
+// is flat beyond, while the 8 interleaved wavefronts of an ensemble
+// (models/ensemble.py) go on falling up to the co-resident limit. A launch
+// that cannot have one block resident, or an explicit block count above the
+// co-resident limit, is refused.
 //
 // Hand-over of discharge. On the TPU a one-hot matrix product scatters a
 // chunk's discharge into a rotating inflow window. Here each lane instead
@@ -129,9 +127,8 @@ constexpr unsigned long long kStallNs = 5000000000ull;  // a poll this long trap
 // Field order and types must match _Args in ops/kinwave_substep.py.
 struct SubstepArgs {
   int n_chunks, chunk, window, T, split, E, K, KE, NL, NR;
-  // blocks launched (G), ring slots (R), entries per chunk in `deps` (D),
-  // interleaved ensemble members (independent wavefronts, for the rule of G)
-  int blocks, ring, D, members;
+  // blocks launched (G), ring slots (R), entries per chunk in `deps` (D)
+  int blocks, ring, D;
   double dt_routing, beta;
   // (n_chunks*chunk) rows
   const void *tochan, *dx, *adx1, *alpha1, *ischan, *q1_0, *m31_0, *chanq_0;
@@ -683,8 +680,8 @@ cudaError_t co_resident(const SubstepArgs& a, SubstepKernel kernel, int* limit) 
 extern "C" {
 
 // The number of blocks a launch of these arguments gets by the kernel's rule,
-// min(co-resident blocks, n_chunks, 4*T*members), in *blocks, and the co-resident
-// limit in *limit. Returns a cudaError_t: cudaErrorLaunchOutOfResources when
+// min(co-resident blocks, n_chunks), in *blocks, and the co-resident limit in
+// *limit. Returns a cudaError_t: cudaErrorLaunchOutOfResources when
 // not one block can be resident.
 int kinwave_substep_plan(const SubstepArgs* args, int is_double, int poly, int* blocks, int* limit) {
   const SubstepArgs& a = *args;
@@ -694,8 +691,6 @@ int kinwave_substep_plan(const SubstepArgs* args, int is_double, int poly, int* 
   if (*limit < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
   int g = *limit;
   if (g > a.n_chunks) g = a.n_chunks;
-  const int64_t cap = static_cast<int64_t>(4) * a.T * (a.members > 1 ? a.members : 1);
-  if (g > cap) g = static_cast<int>(cap);
   *blocks = g;
   return 0;
 }

@@ -271,6 +271,19 @@ def natural_state(cfg, routers, state):
             for k, v in state.items()}
 
 
+def check_options(cfg):
+    """Refuses what the reference cannot run: the InitLisflood prerun
+    simulates no lake or reservoir, whose storage the water-balance reports
+    (with either structure) and the indicators (with both) read; the JAX
+    step fails there with a KeyError."""
+    structures = cfg.simulate_lakes or cfg.simulate_reservoirs
+    if cfg.init_lisflood and (
+            (cfg.rep_total_water_storage or cfg.rep_mbts) and structures
+            or cfg.indicator and cfg.water_use and cfg.simulate_lakes and cfg.simulate_reservoirs):
+        raise ValueError("InitLisflood simulates no lake or reservoir: switch off the water-"
+                         "balance reports and the indicators, or the structures, for the prerun")
+
+
 class Step:
     """One model step on the device: `step(state, forcing) -> (state, diag)`.
 
@@ -279,6 +292,7 @@ class Step:
     and returns the diagnostics the routing consumes."""
 
     def __init__(self, cfg, params, routers, device):
+        check_options(cfg)
         self.cfg = cfg
         self.params = params
         self.routers = routers
@@ -465,8 +479,8 @@ def _collect_state(cfg, s, d):
 
 
 def _storage_channel(cfg, p, s, d):
-    """waterbalance.py:114-122; the InitLisflood prerun holds no water in
-    lakes, reservoirs or polders."""
+    """waterbalance.py:114-122; no polder storage in the InitLisflood prerun
+    (check_options refuses it with lakes or reservoirs)."""
     stored = d["ChanM3"]
     if cfg.lakes:
         stored = stored + d["LakeStorageM3Balance"]

@@ -70,10 +70,8 @@ chunk slots in global memory, R = 2 G + W (`ring_slots`), whose reuse the
 kernel guards: chunk c starts when chunks c-R..c-R+W are finished. A structure's
 lane runs step t of its chain inside task (c, t), from a per-structure table
 of its feeders' discharges that it sums in this module's plain order. G is
-the launcher's rule, min(co-resident blocks, n_chunks, 4 T members), with
-`members` the interleaved ensemble members of models/ensemble.py, whose
-wavefronts are independent (1 for one model); a launch that cannot be
-resident is refused. Sums keep their order, so the outputs have the
+the launcher's rule, min(co-resident blocks, n_chunks); a launch that cannot
+be resident is refused. Sums keep their order, so the outputs have the
 same bits for every G and in every run.
 """
 from __future__ import annotations
@@ -112,7 +110,6 @@ class SubstepSpec:
     beta: float
     split: bool
     E: int              # evaporation hops in the kernel (0: no chain)
-    members: int = 1    # interleaved ensemble members: independent wavefronts
 
 
 def _poly(spec, dtype):
@@ -615,7 +612,7 @@ class _Args(ctypes.Structure):
     """Mirror of struct SubstepArgs in csrc/kinwave_substep.cu."""
     _fields_ = ([(k, ctypes.c_int) for k in ("n_chunks", "chunk", "window", "T", "split",
                                                "E", "K", "KE", "NL", "NR",
-                                               "blocks", "ring", "D", "members")]
+                                               "blocks", "ring", "D")]
                 + [("dt_routing", ctypes.c_double), ("beta", ctypes.c_double)]
                 + [(k, ctypes.c_void_p) for k in _PTR_FIELDS])
 
@@ -662,7 +659,7 @@ def _launch(spec, xs, blocks=None):
     args = _Args(n_chunks=spec.n_chunks, chunk=spec.chunk, window=spec.window,
                  T=spec.T, split=int(spec.split), E=spec.E,
                  K=xs["ups"].shape[0], KE=xs["ev_ups"].shape[0] if spec.E else 0,
-                 NL=NL, NR=NR, D=xs["wf_deps"].shape[1], members=spec.members,
+                 NL=NL, NR=NR, D=xs["wf_deps"].shape[1],
                  dt_routing=float(spec.dt_routing), beta=float(spec.beta))
     tensors = {**xs, **ys}
     for f in _PTR_FIELDS:

@@ -169,7 +169,7 @@ def kernel_operands(cfg, p, s, d, routers):
     xs.update({k: pk(k) for k in WAVEFRONT_TABLES})
     spec = SubstepSpec(n_chunks=n, chunk=C, window=ps.window, T=cfg.no_rout_steps,
                        dt_routing=cfg.dt_routing, beta=float(p["Beta"]),
-                       split=split, E=E, members=cfg.members)
+                       split=split, E=E)
     return spec, {k: v.contiguous() for k, v in xs.items()}
 
 

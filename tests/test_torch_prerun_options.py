@@ -134,28 +134,25 @@ def test_init_lisflood_kernel_operands():
 
 def test_init_lisflood_all_options():
     """InitLisflood with every option of with_options, float64, two steps,
-    within 1e-10 (measured 2.5e-14, TransCum). The JAX step fails under InitLisflood
-    with the total-storage report, the mass balance or the indicators, all
-    of which read the lake and reservoir storages that the prerun does not
-    simulate (`KeyError: 'LakeStorageM3Balance'`): the port counts no
-    structure storage in the prerun, and the comparison runs with those
-    three off."""
+    within 1e-10 (measured 2.5e-14, TransCum). The JAX step fails under
+    InitLisflood with the total-storage report, the mass balance or the
+    indicators, which read the lake and reservoir storages that the prerun
+    does not simulate (`KeyError: 'LakeStorageM3Balance'`): the port refuses
+    each of those three at build, and the comparison runs with them off."""
     model = with_options(build_synthetic_model(**SIZE))
     cfg, params, state, aux = model
+    off = dict(rep_total_water_storage=False, rep_mbts=False, indicator=False)
     jcfg = jax_config(dataclasses.replace(cfg, init_lisflood=True))
     step, _ = jax_build_step(jcfg, params, aux)
     s = step.prepare_state({k: jnp.asarray(v) for k, v in state.items()})
     f = {k: jnp.asarray(v) for k, v in forcings(cfg, aux, 1)[0].items()}
     with pytest.raises(KeyError, match="LakeStorageM3Balance"):
         step(s, f)
-    # the port runs the same configuration
-    port, _ = build_step(dataclasses.replace(cfg, init_lisflood=True), params, aux, device="cpu")
-    s_t, d_t = port(port.prepare_state(state), to_device(forcings(cfg, aux, 1)[0], "cpu",
-                                                         torch.float64))
-    assert bool(torch.isfinite(d_t["TotalWaterStorageMM"]).all())
-    assert "WEI_Dem" in d_t and "RegionMonthReservoirAndLakeStorageM3" not in d_t
-    ref, got, _ = run_both(model, "f64", 2, ("ChanQAvg", "TransCum"), init_lisflood=True,
-                           rep_total_water_storage=False, rep_mbts=False, indicator=False)
+    for on in off:
+        with pytest.raises(ValueError, match="InitLisflood"):
+            build_step(dataclasses.replace(cfg, init_lisflood=True, **{**off, on: True}),
+                       params, aux, device="cpu")
+    ref, got, _ = run_both(model, "f64", 2, ("ChanQAvg", "TransCum"), init_lisflood=True, **off)
     assert_close(ref[-1], got[-1], 1e-10)
 
 

@@ -171,14 +171,20 @@ def test_multi_step_matches_step_loop():
 
 def test_unported_options_refused():
     """The step's last four options build (tests/test_torch_prerun_options.py
-    holds them to the JAX package); a router the port does not have is
-    refused."""
+    holds them to the JAX package), InitLisflood without the water-balance
+    reports and the indicators, which it refuses as the JAX step fails on
+    them; a router the port does not have is refused."""
     cfg, params, state, aux = port_synthetic.with_options(
         port_synthetic.build_synthetic_model(**SIZE))
+    prerun_off = dict(rep_total_water_storage=False, rep_mbts=False, indicator=False)
     for field in ("init_lisflood", "init_lisflood_without_split", "indicator",
                   "transient_landuse"):
-        step, _ = build_step(dataclasses.replace(cfg, **{field: True}), params, aux, device="cpu")
+        extra = prerun_off if field == "init_lisflood" else {}
+        step, _ = build_step(dataclasses.replace(cfg, **{field: True}, **extra), params, aux,
+                             device="cpu")
         assert getattr(step.cfg, field) and step.pipeline == "reference"
+    with pytest.raises(ValueError, match="InitLisflood"):
+        build_step(dataclasses.replace(cfg, init_lisflood=True), params, aux, device="cpu")
     with pytest.raises(NotImplementedError):
         build_step(dataclasses.replace(cfg, routing_kernel="sharded"), params, aux, device="cpu")
 

@@ -68,15 +68,32 @@ script exits non-zero:
      member of the ensemble step against the single model's step on the same
      state (float32 within 1e-5); one EnKF analysis (its time, finite fields,
      the gauges' mean discharge moving toward the observation); the kernel
-     held to its plain version at 240x200 with 2 members.
+     held to its plain version at 240x200 with 2 members; the evaporation
+     stencil's choice for the single model and the ensemble (equal: it is
+     made on a member's grid);
+  8. a catchment read from maps: write_catchment(tmp, 1200, 1000, seed=0,
+     n_steps=11) with classic netCDF (the host seconds of the write, of
+     load_settings and of build_model), its step at chunk 256 through
+     build_multi_step at float32, each day's meteo read from the PCRaster
+     stacks (meteo_forcing): one warm-up step and two timed batches of five
+     consecutive days, one launch per step of each kernel, every state entry
+     finite, one profiled step; the overland schedule's chunks, window and
+     edges (edges required); K5, the overland sweep kernel, on the land
+     phase's operands against its plain version (float32 within 1e-5 of each
+     lane's max), the same bits for 1, 8, 32 and 132 blocks and in two runs,
+     its time by block count and its bound; the same in float64 at 240x200
+     (within 1e-12); the sub-step kernel's launch at chunk 256 held to its
+     plain version on its first 256 chunks, its time and bound.
 The operands on which the kernel is held to its plain version are drawn with
 fixed-order sums (fixed_order_sums), so that every run compares on the same
 numbers.
 Run as `python3 chip_smoke.py --side-flag-ab` it only times the main path's
 kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
-The line before the last is a JSON object of per-kernel figures; the last is
-{"ok": true, "device": {...}}. Needs no network; stops what it starts.
+The line before the last but one is a JSON object of per-kernel figures (the
+sub-step kernel on its five paths, and kinwave_sweep); then the card's name
+and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
+stops what it starts.
 """
 import contextlib
 import json
@@ -100,13 +117,13 @@ FLOPS_PER_SUBSTEP = 2 + 10 + 2 + 6 + 2 * 76 + 10 + 1
 FLOPS_PER_HOP = 7
 FLOPS_PER_LANE = 12
 # the polynomial path with single routing (the InitLisflood prerun), per
-# sub-step, by line of csrc/kinwave_substep.cu: the sideflow, :556 (a multiply
-# and a divide, 2); cc, :570 (two multiplies and two adds, 4; the upstream
-# adds are counted from the tables); newton_v, :191-204 (its guesses,
-# :192-195, 7: two bit-hack estimates of a multiply and an add each, a
-# divide, a min and a multiply; five iterations of :198-201, 3 + 4 + 4 + 2 =
-# 13 each); v^3, :573 (2); v^5, :575 (2); the storage, :576 (2); sumdis, :636
-# (1). Per lane: inv_dx, :425 (1), and the pow of qb1, :446
+# sub-step, by line of csrc/kinwave_substep.cu: the sideflow, :467 (a multiply
+# and a divide, 2); cc, :481 (two multiplies and two adds, 4; the upstream
+# adds are counted from the tables); newton_v, csrc/kinwave_common.cuh:35-48
+# (its guesses, :36-39, 7: two bit-hack estimates of a multiply and an add
+# each, a divide, a min and a multiply; five iterations of :42-45, 3 + 4 + 4 +
+# 2 = 13 each); v^3, :484 (2); v^5, :486 (2); the storage, :487 (2); sumdis,
+# :547 (1). Per lane: inv_dx, :336 (1), and the pow of qb1, :357
 FLOPS_PER_SUBSTEP_SINGLE = 2 + 4 + (7 + 5 * 13) + 2 + 2 + 2 + 1
 FLOPS_PER_LANE_SINGLE = (1, 1)     # (plain, pow)
 # q-space path (float64, or beta != 3/5), per routed lane-row and sub-step:
@@ -122,6 +139,10 @@ QSPACE_ITERS = {"float32": 4, "float64": 6}
 # sm_90a, every branch included: phase 1 counts them anew and fails if they
 # differ
 POW_FLOPS = {"float32": 63, "float64": 122}
+# the overland sweep (csrc/kinwave_sweep.cu), float32 at beta = 3/5, per
+# lane-row and position: cc = inflow + const (1) and the polynomial Newton
+# solve (76, as above); one upstream add per edge and lane is counted apart
+FLOPS_SWEEP = 1 + 76
 # the optional sideflow terms: eva and wuse 1 per lane each; per sub-step
 # the inflow ramp 3; the transmission loss 4, and on lanes with uptrans set
 # 1 and 2 pow more
@@ -425,28 +446,34 @@ def stack_forcing(torch, fs):
 
 def timed_batches(torch, ks, run, forcing):
     """One warm-up step `run(forcing stack)`, then two batches of five timed
-    steps over the six forcings, with the kernel's launch count set to 0
-    just before and read just after. The first batch still pays for a fresh
-    start (the caching allocator grows, the soil columns relax from their
-    initial state, so their Courant sub-steps are more); the second is the
-    steady state. Returns (the last batch's result, the batches'
-    milliseconds per step, launches)."""
-    ks.kinwave_substep.launches = 0
+    steps, with every kernel's launch count set to 0 just before and read
+    just after. With eleven forcings the batches take forcings 1-5 and 6-10
+    (consecutive days), with fewer both take forcings 1-5. The first batch
+    still pays for a fresh start (the caching allocator grows, the soil
+    columns relax from their initial state, so their Courant sub-steps are
+    more); the second is the steady state. Returns (the last batch's result,
+    the batches' milliseconds per step, launches by kernel)."""
+    from lisflood_tpu_torch.ops.kinwave_packed import kinwave_sweep
+    ks.kinwave_substep.launches = kinwave_sweep.launches = 0
     run(stack_forcing(torch, forcing[:1]))
     torch.cuda.synchronize()
+    batches = [forcing[1:6], forcing[6:11]] if len(forcing) >= 11 else [forcing[1:6]] * 2
     ms = []
-    for _ in range(2):
+    for batch in batches:
         t0 = time.perf_counter()
-        out = run(stack_forcing(torch, forcing[1:]))
+        out = run(stack_forcing(torch, batch))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) / 5 * 1e3)
-    return out, ms, ks.kinwave_substep.launches
+    return out, ms, {"kinwave_substep": ks.kinwave_substep.launches,
+                     "kinwave_sweep": kinwave_sweep.launches}
 
 
-def timed_steps(torch, ks, multi, s, forcing, card):
-    """timed_batches of the multi-step `multi` from state `s`; the launches
-    must equal the steps. Returns (state, the last batch's outputs, its
-    milliseconds per step, launches)."""
+def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0):
+    """timed_batches of the multi-step `multi` from state `s`; the sub-step
+    kernel's launches must equal the steps, the overland sweep's `sweeps`
+    (one a step on an overland graph with edges, none without). Returns
+    (state, the last batch's outputs, its milliseconds per step, the
+    sub-step kernel's launches)."""
     def run(stack):
         nonlocal s
         s, outs = multi(s, stack)
@@ -456,9 +483,9 @@ def timed_steps(torch, ks, multi, s, forcing, card):
     cells = next(iter(outs.values())).shape[1]
     print(f"  batches of 5 steps after the warm-up: {', '.join(f'{t:.1f}' for t in ms)} ms/step; "
           f"the last = {cells / ms[-1] * 1e3:.4g} cells*steps/s on {card}", flush=True)
-    print(f"  kinwave_substep launches {launches} for {STEPS_RUN} steps", flush=True)
-    assert launches == STEPS_RUN, (launches, STEPS_RUN)
-    return s, outs, ms[-1], launches
+    print(f"  launches for {STEPS_RUN} steps: {launches}", flush=True)
+    assert launches == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": sweeps}, launches
+    return s, outs, ms[-1], launches["kinwave_substep"]
 
 
 N_REP = 20
@@ -596,7 +623,8 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
           f"{time.perf_counter() - t0:.1f} s: {runner.cfg.num_pixels} cells, "
           f"{kin.ps.n_chunks} chunks, window {kin.ps.window}", flush=True)
     forcing = [to_device(synthetic_forcing(P, seed=i), "cuda", torch.float32) for i in range(6)]
-    _, ms, launches = timed_batches(torch, ks, runner.advance, forcing)
+    _, ms, counts = timed_batches(torch, ks, runner.advance, forcing)
+    launches = counts["kinwave_substep"]
     step_ms = ms[-1]
     peak = torch.cuda.max_memory_allocated()
     print(f"  batches of 5 ensemble steps after the warm-up: {', '.join(f'{t:.1f}' for t in ms)} "
@@ -604,7 +632,12 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
           f"{M * P / step_ms * 1e3:.4g} cells*steps/s on {card}; kinwave_substep launches "
           f"{launches} for {STEPS_RUN} ensemble steps of {M} members; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    assert launches == STEPS_RUN, (launches, "one launch per ensemble step")
+    assert counts == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": 0}, (
+        counts, "one launch per ensemble step")
+    # the evaporation stencil is chosen by the member's grid, as for one model
+    print(f"  evaporation stencil on the card: single model {cfg.use_eva_stencil('cuda')}, "
+          f"{M}-member ensemble {runner.cfg.use_eva_stencil('cuda')}", flush=True)
+    assert runner.cfg.use_eva_stencil("cuda") == cfg.use_eva_stencil("cuda")
     bad = [k for k, v in runner.state.items()
            if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
@@ -669,6 +702,173 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     return {**fig, "launches": launches, "plain_ms": plain_ms, "max_abs_err": absd,
             "members": M, "step_ms": step_ms,
             "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
+
+
+SWEEP_BLOCKS = (1, 8, 32, 132)
+# chunks of the catchment's channel launch that phase 8 holds to the plain
+# version
+CATCHMENT_PREFIX = 256
+
+
+def sweep_bound(ops, q, n_edges):
+    """(bound_ms, bound_by) of one overland sweep (float32): const and adx
+    read once, q written once and the graph at its least, one int32
+    downstream index per position (what the JAX `_sweep` reads as
+    `down_local`), over the HBM rate, against FLOPS_SWEEP per lane-row and
+    position and one add per edge and lane over the float32 peak. The
+    kernel's padded source table and its dependency table are its own
+    design, not the function's inputs, and are not counted."""
+    n, L, C = q.shape
+    nbytes = sum(v.numel() * v.element_size() for v in (*ops, q)) + n * C * 4
+    flops = n * L * C * FLOPS_SWEEP + n_edges * L
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    print(f"  bound: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms; {flops / 1e9:.3f} GFLOP "
+          f"(float32) -> {t_ops:.4f} ms", flush=True)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_operands(step, s, f):
+    """The operands that the step's land phase gives the overland sweep:
+    (const, adx) in the sweep's (n_chunks, L, C) layout, from the land
+    phase's diagnostics as surface_routing_step forms them."""
+    from lisflood_tpu_torch.ops.routing_ops import overland_operands
+    p = step.step_params(f)
+    d = step.land_phase(s, f, p)
+    _, q0, lat, adx = overland_operands(step.cfg, p, s, d)
+    return step.routers["tochan"].sweep_operands(q0, lat, adx, p["Beta"])
+
+
+def sweep_held(torch, kp, tochan, ops, beta, tol, what):
+    """The sweep kernel on `ops` against its plain version: within `tol` of
+    each lane's max, the same bits for every block count of SWEEP_BLOCKS and
+    in two runs. Returns (outputs, plan, max abs err, plain ms)."""
+    q = kp.kinwave_sweep(*ops, tochan.ups, tochan.deps, beta)
+    plan = dict(kp.kinwave_sweep.last_plan)
+    by_blocks = all(same_bits({"q": q}, {"q": kp._launch_sweep(*ops, tochan.ups, tochan.deps, beta,
+                                                                blocks=g)})
+                    for g in SWEEP_BLOCKS if g <= plan["limit"])
+    twice = same_bits({"q": q}, {"q": kp.kinwave_sweep(*ops, tochan.ups, tochan.deps, beta)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = kp._sweep(*ops, tochan.ups.long(), beta)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diff = (q.double() - ref.double()).abs()
+    rel = float((diff.amax(dim=(0, 2)) / ref.double().abs().amax(dim=(0, 2)).clamp_min(1e-300)).max())
+    absd = float(diff.max())
+    print(f"  {what}: sweep kernel vs plain max rel err {rel:.3e} of each lane's max (tol {tol:g}), "
+          f"max abs {absd:.3e}; {plan['blocks']} blocks of {ops[0].shape[1] * ops[0].shape[2]} "
+          f"threads (co-resident limit {plan['limit']}); the same bits with "
+          f"{', '.join(str(g) for g in SWEEP_BLOCKS if g <= plan['limit'])} blocks: {by_blocks}, "
+          f"in two runs: {twice}; plain version {plain_ms:.1f} ms (one run)", flush=True)
+    assert rel <= tol, f"the sweep kernel disagrees with its plain version: {rel}"
+    assert by_blocks and twice, (by_blocks, twice)
+    assert plan["limit"] >= max(SWEEP_BLOCKS), plan
+    return q, plan, absd, plain_ms
+
+
+def phase_catchment(torch, ks, card):
+    """Phase 8: a catchment read from maps (write_catchment at 1200x1000,
+    classic netCDF) through load_settings, build_model and the step; the
+    overland sweep kernel and the sub-step kernel at chunk 256 held to their
+    plain versions. See the module docstring."""
+    import tempfile
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
+    from lisflood_tpu_torch.models.step import build_multi_step, build_step
+    from lisflood_tpu_torch.models.synthetic import write_catchment
+    from lisflood_tpu_torch.ops import kinwave_packed as kp
+    from lisflood_tpu_torch.ops.routing_ops import kernel_operands
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_catchment(tmp, 1200, 1000, seed=0, n_steps=STEPS_RUN, nc_format="classic")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        settings = load_settings(path)
+        t_settings = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg, params, state, aux = build_model(settings)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        forcing_np = meteo_forcing(settings, cfg, aux)
+        t_read = time.perf_counter() - t0
+    print(f"  host seconds: write_catchment {t_write:.1f}, load_settings {t_settings:.2f}, "
+          f"build_model {t_build:.1f}, the {len(forcing_np)} days of meteo from the PCRaster "
+          f"stacks {t_read:.1f}; P={cfg.num_pixels}, {int(params['IsChannel'].sum())} channel "
+          f"cells, lakes={cfg.num_lakes}, reservoirs={cfg.num_reservoirs}, "
+          f"NoRoutSteps={cfg.no_rout_steps}", flush=True)
+    assert len(forcing_np) == STEPS_RUN and cfg.no_rout_steps == 24 and cfg.split_routing
+    t0 = time.perf_counter()
+    multi, p = build_multi_step(cfg, params, aux, output_keys=("ChanQAvg",),
+                                dtype=torch.float32, device="cuda")
+    s = multi.prepare_state(state)
+    forcing = [to_device(f, "cuda", torch.float32) for f in forcing_np]
+    torch.cuda.synchronize()
+    tochan, kin = multi.routers["tochan"], multi.routers["kin"]
+    edges = int((tochan.ps.down_pos < tochan.ps.p_pad).sum())
+    print(f"  step built and moved to the card in {time.perf_counter() - t0:.1f} s; channel "
+          f"schedule {kin.ps.n_chunks} chunks of {kin.ps.chunk}, window {kin.ps.window}; "
+          f"overland schedule {tochan.ps.n_chunks} chunks of {tochan.ps.chunk}, window "
+          f"{tochan.ps.window}, {edges} edges, {tochan.ups.shape[0]} upstream rows, "
+          f"{tochan.deps.shape[1]} dependencies per chunk at most", flush=True)
+    assert edges > 0 and not tochan.no_edges and kin.ps.chunk == 256
+    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sweeps=STEPS_RUN)
+    bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    q = outs["ChanQAvg"]
+    assert q.shape == (5, cfg.num_pixels) and bool(torch.isfinite(q).all()) and bool((q >= 0).all())
+    print(f"  every state entry finite ({len(s)} entries); ChanQAvg mean {float(q.mean()):.4g} "
+          f"m3/s, max {float(q.max()):.4g} m3/s; overland discharge max "
+          f"{float(torch.stack([s['OFQOther'], s['OFQForest'], s['OFQDirect']]).max()):.4g} m3/s",
+          flush=True)
+    profile_step(torch, multi.step, s, forcing[0], step_ms)
+
+    print("  K5, the overland sweep, at the catchment's shape (float32):", flush=True)
+    beta = float(p["Beta"])
+    ops = sweep_operands(multi.step, s, forcing[0])
+    q5, plan, absd, plain_ms = sweep_held(torch, kp, tochan, ops, beta, 1e-5,
+                                          "1200x1000 catchment")
+    scan = {g: cuda_ms(torch, lambda: kp._launch_sweep(*ops, tochan.ups, tochan.deps, beta,
+                                                       blocks=g), N_REP)
+            for g in SWEEP_BLOCKS if g <= plan["limit"]}
+    sweep_ms = cuda_ms(torch, lambda: kp.kinwave_sweep(*ops, tochan.ups, tochan.deps, beta), N_REP)
+    bound_ms, bound_by = sweep_bound(ops, q5, edges)
+    print(f"  sweep kernel {sweep_ms:.4f} ms/launch (mean of {N_REP}), by blocks: {scan_text(scan)}; "
+          f"launches per step 1 ({launches} steps); bound {bound_ms:.4f} ms ({bound_by}); "
+          f"plain version {plain_ms:.1f} ms; card {card}", flush=True)
+    sweep = {"ms": sweep_ms, "bound_ms": bound_ms, "bound_by": bound_by, "blocks": plan["blocks"],
+             "ms_one_block": scan[1], "launches": STEPS_RUN, "plain_ms": plain_ms,
+             "max_abs_err": absd, "plain_shape": "1200x1000 catchment, overland, float32"}
+    del ops, q5
+
+    # the float64 sweep at 240x200
+    with tempfile.TemporaryDirectory() as tmp:
+        st = load_settings(write_catchment(tmp, 240, 200, seed=1, n_steps=1, nc_format="classic"))
+        cfg_m, params_m, state_m, aux_m = build_model(st)
+        f_m = meteo_forcing(st, cfg_m, aux_m)[0]
+    step_m, _ = build_step(cfg_m, params_m, aux_m, dtype=torch.float64, device="cuda")
+    ops_m = sweep_operands(step_m, step_m.prepare_state(state_m),
+                           to_device(f_m, "cuda", torch.float64))
+    sweep_held(torch, kp, step_m.routers["tochan"], ops_m, beta, 1e-12, "240x200 catchment, float64")
+    del step_m, ops_m
+
+    print("  the sub-step kernel at chunk 256 on this path:", flush=True)
+    with fixed_order_sums(torch):
+        spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, forcing[0]), multi.routers)
+    assert spec.chunk == 256 and spec.split and "lk_pos" in xs and "rs_pos" in xs, spec
+    ys, fig = kernel_figures(torch, ks, spec, xs, "catchment launch, chunk 256")
+    n = CATCHMENT_PREFIX
+    rel, absd_k, plain_k = held_on_prefix(torch, ks, spec, xs, ys, n)
+    print(f"  catchment launch vs the plain version on its first {n} of {spec.n_chunks} chunks: "
+          f"max rel err {rel:.3e} (tol 1e-05), max abs err {absd_k:.3e}; plain version "
+          f"{plain_k:.1f} ms (one run)", flush=True)
+    assert rel <= 1e-5, f"the catchment launch disagrees with the plain version: {rel}"
+    substep = {**fig, "launches": launches, "plain_ms": plain_k, "max_abs_err": absd_k,
+               "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
+    return sweep, substep
 
 
 def profile_step(torch, step, s, f, step_ms):
@@ -931,6 +1131,11 @@ def main():
     print("phase 7: ensemble of the main path, continental 1200x1000, T=24, C=512, float32",
           flush=True)
     ensemble = phase_ensemble(torch, ks, model, multi.step, per_model_bytes, card)
+    del multi, p, s, model, d, xs, ys, ref
+    torch.cuda.empty_cache()
+
+    print("phase 8: a catchment read from maps, 1200x1000, T=24, C=256, float32", flush=True)
+    sweep, catchment = phase_catchment(torch, ks, card)
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
@@ -938,14 +1143,21 @@ def main():
                 plain_shape="1200x1000, float32")
     opts.update(launches=launches5, max_abs_err=absd5, plain_ms=plain5_ms,
                 plain_shape="1200x1000, all options, float32")
-    # the one kernel on the four paths: ms, launches and bound at each path's
-    # continental shape, plain_ms and max_abs_err at plain_shape
+    # the sub-step kernel on the five paths and the overland sweep: ms,
+    # launches and bound at each path's full-width shape, plain_ms and
+    # max_abs_err at plain_shape
     figures = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "library_ms": None, **{k: v for k, v in fig.items() if k != "step_ms"}}
         for name, fig in (("kinwave_substep", main), ("kinwave_substep_sideflow", opts),
                           ("kinwave_substep_prerun", prerun),
-                          ("kinwave_substep_ensemble", ensemble))]}
+                          ("kinwave_substep_ensemble", ensemble),
+                          ("kinwave_substep_catchment", catchment))]}
+    # no PyTorch call computes the sweep (a dependent chain of Newton solves)
+    figures["kernels"].append(
+        {"name": "kinwave_sweep", "route": "cuda",
+         "source": "lisflood_tpu_torch/csrc/kinwave_sweep.cu",
+         "replaces": "lisflood_tpu/ops/kinwave_packed.py:211", "library_ms": None, **sweep})
     print(json.dumps(figures))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,7 @@
 """Local-drain-direction (LDD) graph preprocessing — host-side NumPy.
 
-The port's copy of the parts of lisflood_tpu/graph/ldd.py that the synthetic
-model and the routing schedule need. Only the NumPy implementations are
-kept: the JAX package's native C++ pass (graph_preproc.cpp) is an
+The port's copy of lisflood_tpu/graph/ldd.py. Only the NumPy
+implementations are kept: the JAX package's native C++ pass (graph_preproc.cpp) is an
 accelerator of the same functions and gives identical schedules.
 
 The routing *schedule* produced here (`build_schedule`) is the device-side
@@ -35,6 +34,12 @@ class FlowGraph:
     @property
     def is_pit(self):
         return self.downstream == -1
+
+    def upstream_counts(self):
+        cnt = np.zeros(self.num_pixels, dtype=np.int32)
+        valid = self.downstream >= 0
+        np.add.at(cnt, self.downstream[valid], 1)
+        return cnt
 
     def topo_distance(self):
         """Hop distance to the terminal pit: pits get 1, their upstreams 2, …
@@ -87,13 +92,16 @@ class FlowGraph:
                 acc[d] += acc[p]
         return acc
 
-    def catchment_labels(self):
-        """Label every pixel with the id of its terminal pit, pits numbered
+    def catchment_labels(self, point_ids=None):
+        """Label every pixel with the id of its terminal pit: pits numbered
         1..Npits in compressed (row-major) order (reference
-        routing.py:168-178)."""
+        routing.py:168-178), or `point_ids` at the pits when given."""
         labels = np.zeros(self.num_pixels, dtype=np.int32)
         pits = np.flatnonzero(self.downstream < 0)
-        labels[pits] = np.arange(1, pits.size + 1, dtype=np.int32)
+        if point_ids is None:
+            labels[pits] = np.arange(1, pits.size + 1, dtype=np.int32)
+        else:
+            labels[pits] = point_ids[pits]
         down = self.downstream
         for p in self.topo_order_down_up():
             d = down[p]
@@ -101,12 +109,84 @@ class FlowGraph:
                 labels[p] = labels[d]
         return labels
 
+    def downstream_value(self, values, pit_value=None):
+        """Value of `values` at the downstream pixel; at pits the pixel's own
+        value (PCRaster downstream)."""
+        values = np.asarray(values)
+        out = values.copy()
+        valid = self.downstream >= 0
+        out[valid] = values[self.downstream[valid]]
+        if pit_value is not None:
+            out[~valid] = pit_value
+        return out
+
     def upstream_sum(self, values):
         """Sum of `values` over immediate upstream pixels (PCRaster upstream)."""
         out = np.zeros(self.num_pixels, dtype=np.float64)
         valid = self.downstream >= 0
         np.add.at(out, self.downstream[valid], np.asarray(values, dtype=np.float64)[valid])
         return out
+
+
+def build_flow_graph(ldd_compressed, grid) -> FlowGraph:
+    """Build the compressed-space FlowGraph from a compressed LDD vector.
+
+    Cells whose LDD is missing (NaN/0) are isolated pits; cells draining
+    outside the grid or into masked cells become pits (the net effect of
+    PCRaster lddmask + the boundary guard in the reference's upDownLookups,
+    kinematic_wave_parallel_tools.py:111-130)."""
+    P = grid.num_pixels
+    ldd = np.nan_to_num(np.asarray(ldd_compressed, dtype=np.float64), nan=0.0).astype(np.int8)
+    # compressed index -> (row, col)
+    flat_idx = np.flatnonzero(grid.land_flat)
+    rows, cols = np.divmod(flat_idx, grid.ncols)
+    # land lookup: (row, col) -> compressed index
+    land_points = -np.ones(grid.nrows * grid.ncols, dtype=np.int64)
+    land_points[flat_idx] = np.arange(P)
+
+    downstream = -np.ones(P, dtype=np.int32)
+    for code, (dr, dc) in LDD_OFFSETS.items():
+        if code == PIT:
+            continue
+        sel = np.flatnonzero(ldd == code)
+        if sel.size == 0:
+            continue
+        r2 = rows[sel] + dr
+        c2 = cols[sel] + dc
+        inside = (r2 >= 0) & (r2 < grid.nrows) & (c2 >= 0) & (c2 < grid.ncols)
+        tgt = np.full(sel.size, -1, dtype=np.int64)
+        tgt[inside] = land_points[r2[inside] * grid.ncols + c2[inside]]
+        downstream[sel] = tgt.astype(np.int32)
+    return FlowGraph(downstream=downstream, ldd=ldd, num_pixels=P)
+
+
+def ldd_to_channel(ldd_compressed, is_channel):
+    """LddToChan: set channel pixels to pits so runoff routes overland to the
+    nearest channel (reference routing.py:125, lddrepair(ifthenelse(...)))."""
+    ldd = np.asarray(ldd_compressed, dtype=np.float64).copy()
+    ldd[np.asarray(is_channel, dtype=bool)] = PIT
+    return ldd
+
+
+def ldd_mask(ldd_compressed, keep):
+    """lddmask: restrict the ldd to `keep` cells; others become missing (0)."""
+    ldd = np.nan_to_num(np.asarray(ldd_compressed, dtype=np.float64), nan=0.0).copy()
+    ldd[~np.asarray(keep, dtype=bool)] = 0.0
+    return ldd
+
+
+def cut_structures(ldd_compressed, graph: FlowGraph, is_structure):
+    """Insert pits at cells immediately upstream of structures
+    (reservoirs/lakes), so the kinematic wave stops there; the structure's
+    outflow is re-injected downstream (reference structures.py:43-61).
+    Returns (new_ldd, is_ups_of_structure)."""
+    is_structure = np.asarray(is_structure, dtype=bool)
+    down_ok = graph.downstream >= 0
+    is_ups = np.zeros(graph.num_pixels, dtype=bool)
+    is_ups[down_ok] = is_structure[graph.downstream[down_ok]]
+    new_ldd = np.asarray(ldd_compressed, dtype=np.float64).copy()
+    new_ldd[is_ups] = PIT
+    return new_ldd, is_ups
 
 
 @dataclass
@@ -190,3 +270,20 @@ def direction_codes(downstream, flat_idx, nrows, ncols):
     all_adjacent = bool((codes != 0).all())
     codes2d[src] = codes
     return codes2d, all_adjacent
+
+
+def window_total(values2d, window_cells):
+    """PCRaster windowtotal on the 2-D grid: sum over a square window of
+    `window_cells` x `window_cells` cells centred on each cell (used by
+    groundwaterSmooth, reference waterabstraction.py:602-628). NaN cells
+    contribute 0."""
+    k = int(window_cells)
+    half = k // 2
+    data = np.nan_to_num(np.asarray(values2d, dtype=np.float64), nan=0.0)
+    # summed-area table with zero padding
+    padded = np.zeros((data.shape[0] + k, data.shape[1] + k))
+    padded[half:half + data.shape[0], half:half + data.shape[1]] = data
+    sat = padded.cumsum(0).cumsum(1)
+    sat = np.pad(sat, ((1, 0), (1, 0)))
+    out = (sat[k:, k:] - sat[:-k, k:] - sat[k:, :-k] + sat[:-k, :-k])
+    return out[: data.shape[0], : data.shape[1]]

@@ -70,10 +70,12 @@ class ModelConfig:
 
     def use_eva_stencil(self, device):
         """'auto' picks the stencil form only on small grids on an
-        accelerator; CPU runs keep the segment-sum form. The JAX package asks
-        its default backend; the port asks the device it runs on."""
+        accelerator; CPU runs keep the segment-sum form. The grid is a
+        member's: a folded ensemble chooses as its single model does (the
+        JAX package's vmap keeps the member's pixel count). The JAX package
+        asks its default backend; the port asks the device it runs on."""
         if self.eva_stencil == "auto":
-            if not (0 < self.num_pixels <= 200_000):
+            if not (0 < self.num_pixels // self.members <= 200_000):
                 return False
             return torch.device(device).type != "cpu"
         return bool(self.eva_stencil)
@@ -103,3 +105,53 @@ class ModelConfig:
     @property
     def dt_routing(self):
         return self.dt_sec / self.no_rout_steps
+
+    @classmethod
+    def from_settings(cls, settings, **overrides):
+        """The configuration the settings' options and bindings select, as the
+        JAX package's ModelConfig.from_settings; `overrides` are the counts
+        build_model works out. The JAX package's RoutingPipeline and
+        RoutingShards bindings choose among XLA schedules and device meshes,
+        which the port does not have: they are not read. A RoutingKernel
+        other than 'packed' is kept, and building the step refuses it."""
+        o = settings.options
+        dt_sec = float(settings.binding["DtSec"])
+        dt_sec_channel = float(settings.binding["DtSecChannel"])
+        no_rout = max(1, int(round(dt_sec / dt_sec_channel)))
+        if o.get("InitLisflood"):
+            no_rout = 1
+        kw = dict(
+            init_lisflood=bool(o.get("InitLisflood")),
+            init_lisflood_without_split=bool(o.get("InitLisfloodwithoutSplit")),
+            split_routing=bool(o.get("SplitRouting")),
+            simulate_lakes=bool(o.get("simulateLakes")),
+            simulate_reservoirs=bool(o.get("simulateReservoirs")),
+            simulate_polders=bool(o.get("simulatePolders")),
+            open_water_evapo=bool(o.get("openwaterevapo")),
+            var_fraction_water=bool(o.get("varfractionwater")),
+            rice_irrigation=bool(o.get("riceIrrigation")),
+            water_use=bool(o.get("wateruse")),
+            water_use_region=bool(o.get("wateruseRegion")),
+            transient_water_demand=bool(o.get("TransientWaterDemandChange")),
+            transient_landuse=bool(o.get("TransientLandUseChange")),
+            water_demand_ave_year=bool(o.get("useWaterDemandAveYear")),
+            drained_irrigation=bool(o.get("drainedIrrigation")),
+            groundwater_smooth=bool(o.get("groundwaterSmooth")),
+            trans_loss=bool(o.get("TransLoss")),
+            inflow=bool(o.get("inflow")),
+            indicator=bool(o.get("indicator")),
+            simulate_water_levels=bool(o.get("simulateWaterLevels")),
+            simulate_pf=bool(o.get("simulatePF")),
+            temperature_in_kelvin=bool(o.get("TemperatureInKelvin")),
+            rep_mbts=bool(o.get("repMBTs")),
+            rep_average_dis=bool(o.get("repAverageDis")),
+            rep_total_water_storage=bool(o.get("repTotalWaterStorageMaps")),
+            rep_water_use=bool(o.get("repWaterUse")),
+            routing_kernel=str(settings.binding.get("RoutingKernel", "packed")),
+            eva_stencil={"True": True, "False": False}.get(
+                str(settings.binding.get("EvaStencil", "auto")), "auto"),
+            no_rout_steps=no_rout,
+            dt_sec=dt_sec,
+        )
+        kw.update(overrides)
+        return cls(**kw)

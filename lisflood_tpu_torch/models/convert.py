@@ -13,10 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import resolve_device, to_device
 from ..graph.ldd import RoutingSchedule
 from .config import ModelConfig
-from .step import build_routers, device_params, prepare_state
+from .step import build_step
 
 
 # JAX-config fields that choose among XLA schedules and device meshes; the
@@ -48,11 +47,9 @@ def schedule_from_reference(schedule):
 def from_reference(cfg, params_np, state_np, aux, device=None, dtype=torch.float64):
     """Returns the port's (ModelConfig, device parameters, prepared packed
     state, routers); `models.step.Step(cfg, params, routers, device)` runs
-    them."""
-    device = resolve_device(device)
+    them. The model reaches the device as a model of the port's own does,
+    through models.step.build_step."""
     cfg_t = config_from_reference(cfg)
     aux_t = {k: schedule_from_reference(aux[k]) for k in ("schedule_kin", "schedule_tochan")}
-    routers = build_routers(cfg_t, aux_t, device)
-    params = device_params(cfg_t, params_np, routers, device, dtype)
-    state = prepare_state(cfg_t, routers, to_device(state_np, device, dtype))
-    return cfg_t, params, state, routers
+    step, params = build_step(cfg_t, params_np, aux_t, dtype, device)
+    return cfg_t, params, step.prepare_state(state_np), step.routers

@@ -28,8 +28,8 @@ from ..ops import physics as ph
 from ..ops.indicators import (groundwater_smooth, indicator_keys, indicator_state_zero,
                               indicator_step)
 from ..ops.kinwave_packed import PackedRouter
-from ..ops.kinwave_substep import wavefront_tables
 from ..ops.routing_ops import channel_routing_kernel, resolve_pipeline, surface_routing_step
+from ..ops.wavefront import upstream_table, wavefront_tables
 
 STATE_KEYS_BASE = [
     "SnowCoverS", "FrostIndex", "CumInterception", "CumInterSealed",
@@ -106,24 +106,6 @@ def build_routers(cfg, aux, device):
             f"routing_kernel={cfg.routing_kernel!r}: the port has the packed router only")
     return {"kin": PackedRouter(aux["schedule_kin"], device),
             "tochan": PackedRouter(aux["schedule_tochan"], device)}
-
-
-def upstream_table(src_pos, tgt_pos, p_pad):
-    """(K, p_pad) int32: the source positions of every target position, in
-    ascending order, -1 where there are fewer than K. The routing kernel sums
-    its upstream inflow in this order."""
-    src_pos = np.asarray(src_pos, np.int64)
-    tgt_pos = np.asarray(tgt_pos, np.int64)
-    if src_pos.size == 0:
-        return np.full((1, p_pad), -1, np.int32)
-    order = np.lexsort((src_pos, tgt_pos))
-    s, t = src_pos[order], tgt_pos[order]
-    first = np.r_[0, np.flatnonzero(np.diff(t)) + 1]
-    counts = np.diff(np.r_[first, t.size])
-    rank = np.arange(t.size) - np.repeat(first, counts)
-    table = np.full((int(counts.max()), p_pad), -1, np.int32)
-    table[rank, t] = s
-    return table
 
 
 def packed_routing_params(cfg, params_np, ps):

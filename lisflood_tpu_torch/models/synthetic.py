@@ -1,18 +1,24 @@
 """Synthetic catchment generator — a full model setup with no input files.
 
-The port's copy of lisflood_tpu/models/synthetic.py: for the same arguments
-it returns arrays equal to the JAX package's (config, params, state, aux),
-so it can build the continental model on a machine without JAX. The drainage network is a random spanning forest on
-an nrows x ncols grid; soil/channel parameters are drawn from realistic
-ranges.
+build_synthetic_model is the port's copy of lisflood_tpu/models/synthetic.py:
+for the same arguments it returns arrays equal to the JAX package's
+(config, params, state, aux), so it can build the continental model on a
+machine without JAX. The drainage network is a random spanning forest on an
+nrows x ncols grid; soil/channel parameters are drawn from realistic ranges.
+The port's own fixtures add to it: with_options (the inputs of every option
+of the step) and write_catchment (a catchment on disk, read through the
+settings and build_model).
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
 
 import numpy as np
 
 from ..graph.ldd import FlowGraph, build_schedule, direction_codes
+from ..io import csf, ncdf
 from ..ops.indicators import indicator_keys
 from .config import ModelConfig
 from .step import LANDUSE_FRACTIONS
@@ -553,3 +559,232 @@ def synthetic_forcing(P, seed=0, dtype=np.float64):
         "CalendarDay": np.float64(150.0),
         "LAIInterval": np.int32(12),
     }
+
+
+# LISFLOOD's default laea projection of the European (EFAS) grids
+LAEA_PROJ4 = ("+proj=laea +lat_0=52 +lon_0=10 +x_0=4321000 +y_0=3210000 +ellps=GRS80 "
+              "+units=m +no_defs")
+# the main path's options (split routing, lakes, reservoirs, open-water
+# evaporation, the mass-balance reports); InitLisflood is on by default in
+# the option registry
+CATCHMENT_OPTIONS = {"InitLisflood": False, "SplitRouting": True, "simulateLakes": True,
+                     "simulateReservoirs": True, "openwaterevapo": True, "repMBTs": True}
+METEO_STACKS = {"PrecipitationMaps": ("pr", 0.0, 15.0), "TavgMaps": ("ta", -5.0, 20.0),
+                "ET0Maps": ("et", 0.0, 5.0), "E0Maps": ("e0", 0.0, 6.0),
+                "ES0Maps": ("es", 0.0, 5.0)}
+
+
+def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_format="netcdf4"):
+    """Write a catchment of nrows x ncols 5 km cells as LISFLOOD reads it
+    from disk, into the directory `path`, and return its settings file.
+
+    A test fixture, like with_options; nothing in the step depends on it.
+    Every file is written with the port's own writers:
+      - PCRaster maps: the mask (a quarter disc of sea in the north-west
+        corner left out), the LDD of synthetic_drainage(nrows, ncols, seed),
+        the channels (cells whose upstream cell count is in the top fifth,
+        so the overland graph has edges), lake, reservoir and gauge sites at
+        the channel cells of largest upstream count, the lakes' mask, and
+        maps of the parameters that vary in space (land-use fractions,
+        soil depths and conductivities, channel and slope geometry, the
+        average discharge that splits the channel's two lanes);
+      - the lake and reservoir lookup tables;
+      - netCDF: the latitude template and the LAI maps (36 slices for each of
+        three vegetation types) on a projected laea x/y grid, as netCDF-4
+        (`nc_format="netcdf4"`, through h5py) or netCDF classic
+        (`nc_format="classic"`, through SciPy);
+      - meteo (precipitation, temperature and the three evaporation
+        forcings) as PCRaster stacks of `n_steps` maps, daily from
+        01/01/2000;
+      - every other binding the step's initialisation reads, as a number;
+      - settings.xml, with split routing, lakes, reservoirs, open-water
+        evaporation and the mass-balance reports on, DtSec 86400 and
+        DtSecChannel 3600 (NoRoutSteps 24); `options` (name -> bool) sets
+        further options over these.
+    Data are drawn from `seed`."""
+    if nc_format not in ("netcdf4", "classic"):
+        raise ValueError(f"nc_format {nc_format!r}: 'netcdf4' or 'classic'")
+    rng = np.random.default_rng([seed, 11])
+    root = os.path.abspath(path)
+    dirs = {k: os.path.join(root, k) for k in ("maps", "tables", "meteo", "out")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    P = nrows * ncols
+    cell, west, north = 5000.0, 2_500_000.0, 5_500_000.0
+    rows, cols = np.divmod(np.arange(P, dtype=np.int64), ncols)
+    land = (rows / nrows) ** 2 + (cols / ncols) ** 2 >= 0.04
+    ldd, down = synthetic_drainage(nrows, ncols, seed)
+    codes, _ = direction_codes(down, np.arange(P), nrows, ncols)
+    codes[codes == 0] = 5
+    ups = FlowGraph(downstream=down, ldd=ldd, num_pixels=P).accuflux(np.ones(P))
+    channel = land & (ups >= np.quantile(ups[land], 0.8))
+    order = np.argsort(np.where(channel, ups, -1.0), kind="stable")[::-1]
+    lakes, reservoirs, gauges = order[4:6], order[8:10], order[:3]
+    binding = {}
+
+    def write(name, values, scale=csf.VS_SCALAR, missing=None):
+        """A map of the grid; `values` per cell, NaN (or `missing`) = MV."""
+        file = os.path.join(dirs["maps"], name + ".map")
+        csf.write_map(file, np.asarray(values).reshape(nrows, ncols), west, north, cell,
+                      value_scale=scale,
+                      mv_mask=None if missing is None else missing.reshape(nrows, ncols))
+        binding[name] = f"$(PathMaps)/{name}.map"
+
+    def field(lo, hi):
+        return np.where(land, rng.uniform(lo, hi, P), np.nan).astype(np.float32)
+
+    def sites(name, cells):
+        ids = np.zeros(P, np.int32)
+        ids[cells] = np.arange(1, len(cells) + 1)
+        write(name, ids, csf.VS_NOMINAL, missing=ids == 0)
+
+    write("MaskMap", land.astype(np.uint8), csf.VS_BOOLEAN)
+    write("Ldd", codes.astype(np.uint8), csf.VS_LDD)
+    write("Channels", channel.astype(np.uint8), csf.VS_BOOLEAN)
+    sites("LakeSites", lakes)
+    sites("ReservoirSites", reservoirs)
+    sites("Gauges", gauges)
+    lake_mask = np.isin(np.arange(P), lakes) | np.isin(down, lakes)
+    write("LakeMask", lake_mask.astype(np.uint8), csf.VS_BOOLEAN)
+    fr = rng.dirichlet(np.ones(5), P).T * 0.2      # water, direct, forest, irrigated, rice
+    fractions = {"WaterFraction": fr[0], "DirectRunoffFraction": fr[1],
+                 "ForestFraction": fr[2], "IrrigationFraction": fr[3], "RiceFraction": fr[4]}
+    fractions["OtherFraction"] = 1 - fr.sum(0)
+    for name, v in fractions.items():
+        write(name, np.where(land, v, np.nan).astype(np.float32))
+    size = np.log1p(ups) / np.log1p(ups.max())    # 0 at the headwaters, 1 at the outlet
+    for name, lo, hi in (("ElevationStD", 0, 300), ("Grad", 1e-3, 0.1),
+                         ("SoilDepth1", 50, 150), ("SoilDepth1Forest", 60, 200),
+                         ("SoilDepth2", 100, 400), ("SoilDepth2Forest", 150, 500),
+                         ("SoilDepth3", 200, 800), ("SoilDepth3Forest", 300, 1000),
+                         ("MapKSat1", 10, 300), ("MapKSat2", 5, 100), ("MapKSat3", 1, 50),
+                         ("ChanGrad", 1e-4, 0.01), ("ChanMan", 0.02, 0.06),
+                         ("LZAvInflowMap", 0.1, 1.0)):
+        write(name, field(lo, hi))
+    write("ChanLength", np.where(land, cell * (1 + 0.4 * rng.random(P)), np.nan).astype(np.float32))
+    write("ChanBottomWidth", np.where(land, 2 + 98 * size, np.nan).astype(np.float32))
+    write("ChanDepthThreshold", np.where(land, 0.5 + 7.5 * size, np.nan).astype(np.float32))
+    # the average discharge of 1 mm/day of runoff from the upstream area
+    write("AvgDis", np.where(land, ups * cell * cell * 1e-3 / 86400.0, np.nan).astype(np.float32))
+
+    tables = {
+        "TabLakeArea": (lakes, rng.uniform(1e7, 1e8, 2)),
+        "TabLakeA": (lakes, rng.uniform(30, 150, 2)),
+        "TabLakeAvNetInflowEstimate": (lakes, rng.uniform(10, 50, 2)),
+        "TabTotStorage": (reservoirs, rng.uniform(1e8, 1e9, 2)),
+        "TabConservativeStorageLimit": (reservoirs, np.full(2, 0.1)),
+        "TabNormalStorageLimit": (reservoirs, np.full(2, 0.45)),
+        "TabFloodStorageLimit": (reservoirs, np.full(2, 0.9)),
+        "TabNonDamagingOutflowQ": (reservoirs, rng.uniform(100, 300, 2)),
+        "TabNormalOutflowQ": (reservoirs, rng.uniform(20, 80, 2)),
+        "TabMinOutflowQ": (reservoirs, rng.uniform(1, 5, 2)),
+    }
+    for name, (cells, values) in tables.items():
+        with open(os.path.join(dirs["tables"], name + ".txt"), "w") as fh:
+            fh.writelines(f"{i} {float(v)!r}\n" for i, v in enumerate(values, 1))
+        binding[name] = f"$(PathTables)/{name}.txt"
+
+    # netCDF on the projected grid: x ascending, y descending (north first)
+    x = west + cell * (np.arange(ncols) + 0.5)
+    y = north - cell * (np.arange(nrows) + 0.5)
+    xy = [("y", y, {"standard_name": "projection_y_coordinate", "units": "m"}),
+          ("x", x, {"standard_name": "projection_x_coordinate", "units": "m"})]
+    days = ("time", np.arange(36, dtype=np.float64) * 10.0,
+            {"units": "days since 2000-01-01", "calendar": "proleptic_gregorian"})
+
+    def write_nc(name, coords, var, data):
+        file = os.path.join(dirs["maps"], name + ".nc")
+        if nc_format == "classic":
+            ncdf.write_classic(file, coords, var, data, fill_value=-9999.0)
+        else:
+            f = ncdf.create_nc(file)
+            try:
+                for dim, values, attrs in coords:
+                    ncdf.add_dimension(f, dim, values, attrs)
+                ncdf.add_variable(f, var, tuple(c[0] for c in coords), data.dtype,
+                                  fill_value=-9999.0)[...] = data
+            finally:
+                f.close()
+        binding[name] = f"$(PathMaps)/{name}.nc"
+
+    write_nc("netCDFtemplate", xy, "template", np.where(land, 1.0, -9999.0)
+             .reshape(nrows, ncols).astype(np.float32))
+    season = 1 + 0.5 * np.sin(2 * np.pi * np.arange(36) / 36)
+    for name, lo, hi in (("LAIOtherMaps", 0.5, 3), ("LAIForestMaps", 2, 6),
+                         ("LAIIrrigationMaps", 0.5, 4)):
+        base = rng.uniform(lo, hi, P).reshape(nrows, ncols)
+        write_nc(name, [days] + xy, "lai", (season[:, None, None] * base).astype(np.float32))
+
+    # meteo stacks: map i of a stack is step i (PCRaster 8.3 names)
+    for key, (prefix, lo, hi) in METEO_STACKS.items():
+        for step in range(1, n_steps + 1):
+            nr = str(step)
+            name = f"{prefix}{'0' * (11 - len(prefix) - len(nr))}{nr}"
+            file = os.path.join(dirs["meteo"], f"{name[:8]}.{name[8:]}")
+            csf.write_map(file, field(lo, hi).reshape(nrows, ncols), west, north, cell)
+        binding[key] = f"$(PathMeteo)/{prefix}"
+
+    start = datetime.datetime(2000, 1, 1)
+    end = start + datetime.timedelta(days=n_steps - 1)
+    binding.update({
+        "CalendarDayStart": "01/01/2000 00:00", "StepStart": "01/01/2000 00:00",
+        "StepEnd": end.strftime("%d/%m/%Y %H:%M"), "DtSec": "86400", "DtSecChannel": "3600",
+        "PathOut": "$(PathOut)", "proj4_params": LAEA_PROJ4,
+        "GwLoss": "0", "GwPercValue": "0.5", "PrScaling": "1", "CalEvaporation": "1",
+        "TemperatureLapseRate": "0.0065", "SnowSeasonAdj": "1.0", "TempSnow": "1.0",
+        "SnowFactor": "1.0", "SnowMeltCoef": "4.0", "TempMelt": "0.0",
+        "SnowCoverAInitValue": "0", "SnowCoverBInitValue": "0", "SnowCoverCInitValue": "0",
+        "Kfrost": "0.57", "Afrost": "0.97", "FrostIndexThreshold": "56",
+        "SnowWaterEquivalent": "0.45", "FrostIndexInitValue": "0", "kdf": "0.72",
+        "CourantCrit": "0.4", "LeafDrainageTimeConstant": "0.1", "AvWaterRateThreshold": "5",
+        "MapCropCoef": "1.0", "MapForestCropCoef": "1.1", "MapIrrigationCropCoef": "1.05",
+        "MapCropGroupNumber": "4", "MapForestCropGroupNumber": "4.5",
+        "MapIrrigationCropGroupNumber": "3", "MapN": "0.2", "MapForestN": "0.4",
+        "MapKSat1Forest": "200", "MapKSat2Forest": "60",
+        "MapLambda1": "0.25", "MapLambda1Forest": "0.3", "MapLambda2": "0.2",
+        "MapLambda2Forest": "0.25", "MapLambda3": "0.15",
+        "MapGenuAlpha1": "0.03", "MapGenuAlpha1Forest": "0.04", "MapGenuAlpha2": "0.02",
+        "MapGenuAlpha2Forest": "0.03", "MapGenuAlpha3": "0.01",
+        "MapThetaSat1": "0.45", "MapThetaSat1Forest": "0.5", "MapThetaSat2": "0.42",
+        "MapThetaSat2Forest": "0.45", "MapThetaSat3": "0.4",
+        "MapThetaRes1": "0.05", "MapThetaRes1Forest": "0.06", "MapThetaRes2": "0.04",
+        "MapThetaRes2Forest": "0.05", "MapThetaRes3": "0.03",
+        **{k: "-9999" for k in ("ThetaInit1Value", "ThetaForestInit1Value",
+                                "ThetaIrrigationInit1Value", "ThetaInit2Value",
+                                "ThetaForestInit2Value", "ThetaIrrigationInit2Value",
+                                "ThetaInit3Value", "ThetaForestInit3Value",
+                                "ThetaIrrigationInit3Value")},
+        "b_Xinanjiang": "0.7", "PowerPrefFlow": "3.5",
+        "DSLRInitValue": "1", "DSLRForestInitValue": "1", "DSLRIrrigationInitValue": "1",
+        "CumIntInitValue": "0", "CumIntForestInitValue": "0", "CumIntIrrigationInitValue": "0",
+        "CumIntSealedInitValue": "0", "SMaxSealed": "1.0",
+        "UpperZoneTimeConstant": "10", "LowerZoneTimeConstant": "100", "LZInitValue": "-9999",
+        "LZThreshold": "0", "UZInitValue": "0", "UZForestInitValue": "0",
+        "UZIrrigationInitValue": "0",
+        "beta": "0.6", "ChanGradMin": "0.0001", "CalChanMan": "1.0", "ChanSdXdY": "1.0",
+        "TotalCrossSectionAreaInitValue": "-9999", "PrevDischarge": "-9999",
+        "CrossSection2AreaInitValue": "-9999", "PrevSideflowInitValue": "-9999",
+        "CalChanMan2": "3.0", "QSplitMult": "2.0",
+        "OFOtherInitValue": "0", "OFForestInitValue": "0", "OFDirectInitValue": "0",
+        "GradMin": "0.001", "OFDepRef": "5",
+        "LakeMultiplier": "1.0", "LakeInitialLevelValue": "-9999",
+        "LakePrevInflowValue": "-9999", "LakePrevOutflowValue": "-9999",
+        "adjust_Normal_Flood": "0.8", "ReservoirRnormqMult": "1.0",
+        "ReservoirInitialFillValue": "-9999", "maxNoEva": "5",
+    })
+    opts = {**CATCHMENT_OPTIONS, **(options or {})}
+    user = {"PathRoot": root, "PathMaps": "$(PathRoot)/maps", "PathTables": "$(PathRoot)/tables",
+            "PathMeteo": "$(PathRoot)/meteo", "PathOut": dirs["out"]}
+    # lfuser values are not expanded: give them whole
+    user = {k: v.replace("$(PathRoot)", root) for k, v in user.items()}
+    lines = ["<?xml version=\"1.0\" encoding=\"UTF-8\"?>", "<lfsettings>", "<lfuser>"]
+    lines += [f'  <textvar name="{k}" value="{v}"/>' for k, v in user.items()]
+    lines += ["</lfuser>", "<lfoptions>"]
+    lines += [f'  <setoption choice="{int(bool(v))}" name="{k}"/>' for k, v in opts.items()]
+    lines += ["</lfoptions>", "<lfbinding>"]
+    lines += [f'  <textvar name="{k}" value="{v}"/>' for k, v in binding.items()]
+    lines += ["</lfbinding>", "</lfsettings>"]
+    settings = os.path.join(root, "settings.xml")
+    with open(settings, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return settings

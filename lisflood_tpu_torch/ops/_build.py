@@ -3,8 +3,9 @@
 Each source under lisflood_tpu_torch/csrc/ is compiled by nvcc for sm_90a
 into a shared library with a plain C interface, at first use, into
 lisflood_tpu_torch/_build/ (listed in .gitignore), and loaded with ctypes.
-The library's name carries a hash of the source and the flags, so an edited
-source builds anew. Nothing here runs at import time.
+The library's name carries a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, so an edited source or header builds anew.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,12 +17,15 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"kinwave_substep": _PKG / "csrc" / "kinwave_substep.cu"}
+CSRC = _PKG / "csrc"
+SOURCES = {"kinwave_substep": CSRC / "kinwave_substep.cu",
+           "kinwave_sweep": CSRC / "kinwave_sweep.cu"}
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: every operation rounds on its own, as the plain PyTorch
 # versions' separate elementwise operations do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC)]
 
 _libs = {}
 build_log = {}
@@ -37,7 +41,7 @@ def _nvcc():
 
 
 def library_path(name):
-    src = SOURCES[name].read_bytes()
+    src = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,17 +7,26 @@ solvers reproduce the reference (kinematic_wave_parallel_tools.py:48-87)
 with a fixed iteration count; the float32 beta=3/5 path solves the
 transcendental-free polynomial v^5 + a*v^3 = c.
 
-The JAX package's `_sweep` is an XLA scan; here it is a plain loop over the
-chunks. It serves overland routing on schedules with edges (real
-catchments), which the synthetic model does not have: its overland schedule
-is edge-free, so overland routing there is the elementwise `newton_solve`.
+The JAX package's `_sweep` (an XLA scan that scatters each chunk's discharge
+into a rolling window with a one-hot matrix product) is `kinwave_sweep`
+here: the CUDA kernel csrc/kinwave_sweep.cu on a CUDA device, and its plain
+PyTorch version `_sweep` on the CPU. Both gather every position's upstream
+inflow from its sources in ascending order (ops/wavefront.upstream_table), so
+they agree to rounding and have the same bits in every run. The sweep serves
+overland routing on schedules with edges (every catchment built from maps);
+an edge-free schedule (the synthetic model marks every cell a channel) solves
+elementwise with `newton_solve`.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .wavefront import upstream_table, wavefront_tables
 
 NEWTON_TOL = 1e-12
 # 6 masked q-space iterations reach <=1e-12 over the adversarial sweep in
@@ -169,23 +178,133 @@ def pack_schedule(schedule) -> PackedSchedule:
                           num_pixels=P)
 
 
-def _sweep(const_p, adx_p, down_local, window, beta):
-    """The wavefront sweep over packed operands, one chunk at a time.
+def _sweep(const_p, adx_p, ups, beta):
+    """The plain version of the sweep, one chunk at a time.
 
-    const_p/adx_p: (n_chunks, L, C); down_local: (n_chunks, C) int64.
-    Returns q (n_chunks, L, C). The rolling window holds, at chunk c, the
-    accumulated upstream inflow for chunks [c, c+W); slot W*C is a dump for
-    lanes without a downstream neighbour."""
+    const_p/adx_p: (n_chunks, L, C); ups: (K, n_chunks * C) int64 source
+    positions of every position, ascending, -1 = none. Returns q
+    (n_chunks, L, C). Each chunk's inflow is the sum of its sources'
+    discharges in the table's order, then the chunk's Newton solve."""
     n_chunks, L, C = const_p.shape
-    W = window
-    win = const_p.new_zeros(L, W * C)
-    qs = torch.empty_like(const_p)
+    qs = torch.zeros_like(const_p)
     for c in range(n_chunks):
-        q = newton_solve(win[:, :C] + const_p[c], adx_p[c], beta)
-        qs[c] = q
-        add = q.new_zeros(L, W * C + 1).index_add_(1, down_local[c], q)[:, :W * C]
-        win = torch.cat([win[:, C:], win.new_zeros(L, C)], dim=1) + add
+        src = ups[:, c * C:(c + 1) * C]                       # (K, C)
+        valid = src >= 0
+        s = src.clamp_min(0)
+        vals = qs[s // C, :, s % C]                           # (K, C, L)
+        inflow = const_p.new_zeros(C, L)
+        for k in range(src.shape[0]):
+            inflow = inflow + torch.where(valid[k, :, None], vals[k], 0.0)
+        qs[c] = newton_solve(inflow.T + const_p[c], adx_p[c], beta)
     return qs
+
+
+class _SweepArgs(ctypes.Structure):
+    """Mirror of struct SweepArgs in csrc/kinwave_sweep.cu."""
+    _fields_ = ([(k, ctypes.c_int) for k in ("n_chunks", "chunk", "lanes", "K", "D", "blocks")]
+                + [("beta", ctypes.c_double)]
+                + [(k, ctypes.c_void_p) for k in ("cst", "adx", "q", "ups", "deps", "ctrl")])
+
+
+@functools.cache
+def _sweep_library():
+    from . import _build
+    lib = _build.load("kinwave_sweep")
+    int_p = ctypes.POINTER(ctypes.c_int)
+    lib.kinwave_sweep_plan.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_int, ctypes.c_int,
+                                       int_p, int_p]
+    lib.kinwave_sweep_plan.restype = ctypes.c_int
+    lib.kinwave_sweep_launch.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.kinwave_sweep_launch.restype = ctypes.c_int
+    lib.kinwave_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.kinwave_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _sweep_check(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"kinwave_sweep {what} failed: "
+                           + lib.kinwave_sweep_error_string(rc).decode())
+
+
+@functools.cache
+def _sweep_plan(device_index, n_chunks, C, L, K, D, is_double, poly):
+    """(blocks, co-resident limit) of the launcher's rule for one shape and
+    element type, asked of the library once."""
+    lib = _sweep_library()
+    args = _SweepArgs(n_chunks=n_chunks, chunk=C, lanes=L, K=K, D=D)
+    planned, limit = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _sweep_check(lib, lib.kinwave_sweep_plan(ctypes.byref(args), is_double, poly,
+                                                 ctypes.byref(planned), ctypes.byref(limit)),
+                     "plan")
+    return planned.value, limit.value
+
+
+def _launch_sweep(const_p, adx_p, ups, deps, beta, blocks=None):
+    """One launch of csrc/kinwave_sweep.cu on the current stream, with the
+    launcher's number of blocks (`blocks` overrides it: a diagnostic,
+    refused above the co-resident limit). The plan is left in
+    `kinwave_sweep.last_plan`."""
+    n_chunks, L, C = const_p.shape
+    lib = _sweep_library()
+    dev = const_p.device
+    is_double = int(const_p.dtype == torch.float64)
+    poly = int(const_p.dtype == torch.float32 and abs(float(beta) - 0.6) < 1e-9)
+    planned, limit = _sweep_plan(dev.index, n_chunks, C, L, ups.shape[0], deps.shape[1],
+                                 is_double, poly)
+    q = torch.empty_like(const_p)
+    ctrl = torch.zeros(n_chunks + 1, dtype=torch.int32, device=dev)
+    args = _SweepArgs(n_chunks=n_chunks, chunk=C, lanes=L, K=ups.shape[0], D=deps.shape[1],
+                      blocks=planned if blocks is None else int(blocks),
+                      beta=float(beta), cst=const_p.data_ptr(), adx=adx_p.data_ptr(),
+                      q=q.data_ptr(), ups=ups.data_ptr(), deps=deps.data_ptr(),
+                      ctrl=ctrl.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _sweep_check(lib, lib.kinwave_sweep_launch(ctypes.byref(args), is_double, poly,
+                                                   ctypes.c_void_p(stream)), "launch")
+    kinwave_sweep.launches += 1
+    kinwave_sweep.last_plan = {"blocks": args.blocks, "limit": limit}
+    return q
+
+
+def _check_sweep(const_p, adx_p, ups, deps):
+    """Device, dtype, shape and contiguity of the sweep's operands."""
+    n_chunks, L, C = const_p.shape
+    if const_p.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"const: dtype {const_p.dtype}")
+    if tuple(adx_p.shape) != tuple(const_p.shape) or adx_p.dtype != const_p.dtype:
+        raise ValueError(f"adx: {tuple(adx_p.shape)} {adx_p.dtype}, want const's")
+    if ups.dim() != 2 or ups.shape[1] != n_chunks * C or not 1 <= ups.shape[0] <= 8:
+        raise ValueError(f"ups: shape {tuple(ups.shape)}, want (1..8, {n_chunks * C})")
+    if deps.dim() != 2 or deps.shape[0] != n_chunks:
+        raise ValueError(f"deps: shape {tuple(deps.shape)}, want ({n_chunks}, D)")
+    for name, v in (("const", const_p), ("adx", adx_p), ("ups", ups), ("deps", deps)):
+        if v.device != const_p.device or not v.is_contiguous():
+            raise ValueError(f"{name}: not contiguous on {const_p.device}")
+
+
+def kinwave_sweep(const_p, adx_p, ups, deps, beta):
+    """One kinematic-wave time step over a packed schedule: const_p / adx_p
+    (n_chunks, L, C), ups (K, n_chunks * C) int32 and deps (n_chunks, D)
+    int32 from ops/wavefront. A CUDA tensor launches the kernel (and counts
+    the launch in `kinwave_sweep.launches`), a CPU tensor runs the plain
+    version `_sweep`; any other device raises. Returns q (n_chunks, L, C)."""
+    _check_sweep(const_p, adx_p, ups, deps)
+    kind = const_p.device.type
+    if kind == "cuda":
+        if ups.dtype != torch.int32 or deps.dtype != torch.int32:
+            raise TypeError("ups and deps: int32 on the card")
+        return _launch_sweep(const_p, adx_p, ups, deps, beta)
+    if kind == "cpu":
+        return _sweep(const_p, adx_p, ups.long(), beta)
+    raise RuntimeError(f"no sweep kernel for device {kind!r}")
+
+
+kinwave_sweep.launches = 0
+kinwave_sweep.last_plan = None
 
 
 class PackedRouter:
@@ -203,7 +322,14 @@ class PackedRouter:
         self.perm = torch.as_tensor(
             np.where(ps.perm < ps.num_pixels, ps.perm, ps.num_pixels), device=self.device)
         self.inv_perm = torch.as_tensor(ps.inv_perm, device=self.device)
-        self.down_local = torch.as_tensor(ps.down_local.astype(np.int64), device=self.device)
+        if not self.no_edges:
+            # the sweep's tables: every position's sources, ascending, and the
+            # chunks each chunk gathers from
+            has_down = ps.down_pos < ps.p_pad
+            ups = upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down], ps.p_pad)
+            deps = wavefront_tables(ps.n_chunks, ps.chunk, ps.window, ups)["wf_deps"]
+            self.ups = torch.as_tensor(ups, device=self.device)
+            self.deps = torch.as_tensor(deps, device=self.device)
 
     def pack(self, x, fill=0.0):
         """Natural (..., P) -> packed (..., p_pad) reorder on the device."""
@@ -214,30 +340,24 @@ class PackedRouter:
         """Packed (..., p_pad) -> natural (..., P)."""
         return xp[..., self.inv_perm]
 
-    def _route_const(self, constant, a_dx_div_dt, beta):
-        """Sweep over packed (L, p_pad) constant/adx operands."""
+    def sweep_operands(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """(L, P) natural-order lanes -> the sweep's packed (const, adx)
+        operands, each (n_chunks, L, C)."""
         ps = self.ps
-        L = constant.shape[0]
-        shape = (L, ps.n_chunks, ps.chunk)
-        qs = _sweep(constant.reshape(shape).transpose(0, 1).contiguous(),
-                    a_dx_div_dt.reshape(shape).transpose(0, 1).contiguous(),
-                    self.down_local, ps.window, float(beta))
-        return qs.transpose(0, 1).reshape(L, ps.p_pad)
-
-    def route_packed(self, discharge, lateral_inflow, a_dx_div_dt, beta):
-        """(L, p_pad) packed-order operands -> (L, p_pad) routed discharge."""
-        constant = a_dx_div_dt * discharge ** beta + lateral_inflow
-        if self.no_edges:
-            return newton_solve(constant, a_dx_div_dt, float(beta))
-        return self._route_const(constant, a_dx_div_dt, beta)
+        constant = self.pack(a_dx_div_dt * discharge ** beta + lateral_inflow)
+        adx = self.pack(a_dx_div_dt, 1.0)
+        shape = (constant.shape[0], ps.n_chunks, ps.chunk)
+        return (constant.reshape(shape).transpose(0, 1).contiguous(),
+                adx.reshape(shape).transpose(0, 1).contiguous())
 
     def route_batched(self, discharge, lateral_inflow, a_dx_div_dt, beta):
         """(L, P) natural-order operands -> (L, P) routed discharge."""
-        constant = a_dx_div_dt * discharge ** beta + lateral_inflow
         if self.no_edges:
+            constant = a_dx_div_dt * discharge ** beta + lateral_inflow
             return newton_solve(constant, a_dx_div_dt, float(beta))
-        q_p = self._route_const(self.pack(constant), self.pack(a_dx_div_dt, 1.0), beta)
-        return self.unpack(q_p)
+        qs = kinwave_sweep(*self.sweep_operands(discharge, lateral_inflow, a_dx_div_dt, beta),
+                           self.ups, self.deps, float(beta))
+        return self.unpack(qs.transpose(0, 1).reshape(discharge.shape[0], self.ps.p_pad))
 
     def route(self, discharge, lateral_inflow, a_dx_div_dt, beta):
         """Single-lane convenience wrapper."""

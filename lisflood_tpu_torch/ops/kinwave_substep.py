@@ -77,12 +77,13 @@ same bits for every G and in every run.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from .kinwave_packed import NEWTON_TOL, _newton_unrolled, _newton_v
+from .wavefront import FEEDERS, MAX_CHUNK, WAVEFRONT_TABLES, wavefront_tables
 
 ROW_NAMES = ["ToChan", "dx", "adx1", "alpha1", "ischan", "q1_0", "m31_0", "chanq_0"]
 SPLIT_ROW_NAMES = ["adx2", "alpha2", "qlimit", "m3limit", "chan2m3start",
@@ -95,9 +96,7 @@ RES_PARAMS = ["rs_fee_w", "rs_tot", "rs_cons", "rs_norm", "rs_flood", "rs_nfl",
 # optional sideflow terms; the operands of a group come together
 SIDEFLOW_GROUPS = (("eva",), ("wuse",), ("qin_old", "qdelta"),
                    ("uptrans", "tp1", "tp2", "tsub"))
-FEEDERS = 8
 MAX_UPS = 8
-MAX_CHUNK = 512
 
 
 @dataclass(frozen=True)
@@ -203,84 +202,6 @@ def _check(spec, xs):
     if "wf_deps" in want and (xs["wf_deps"].dim() != 2 or xs["wf_deps"].shape[0] != spec.n_chunks
                               or xs["wf_deps"].shape[1] < 1):
         raise ValueError(f"wf_deps: shape {tuple(xs['wf_deps'].shape)}, want ({spec.n_chunks}, D)")
-
-
-# ---------------------------------------------------------------------------
-# the wavefront's host-built tables
-
-WAVEFRONT_TABLES = ("wf_deps", "wf_own_ptr", "wf_own_list", "wf_feed_ptr", "wf_feed_ent",
-                    "wf_sdep_ptr", "wf_sdep_list", "wf_fee_ord")
-
-
-def _csr(n, keys, values):
-    """(n + 1 offsets, values sorted by key) as int32, the list never empty."""
-    keys = np.asarray(keys, np.int64)
-    order = np.argsort(keys, kind="stable")
-    ptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
-    vals = np.asarray(values, np.int64)[order]
-    return ptr.astype(np.int32), (vals if vals.size else np.zeros(1, np.int64)).astype(np.int32)
-
-
-def wavefront_tables(n_chunks, C, W, ups, ev_ups=None, lk_pos=None, lk_fee=None,
-                     rs_pos=None, rs_fee=None):
-    """The per-chunk tables of the kernel's dependency protocol, as int32
-    NumPy arrays, from the upstream tables `ups` / `ev_ups` (K, p_pad) and the
-    structures' positions (N,) and feeder positions (N, 8), -1 = none.
-    Structures are numbered lakes first.
-
-      wf_deps (n_chunks, D): the chunks that chunk c gathers from over the
-          routing and the evaporation graph, ascending, -1 padded; all lie
-          in c-W..c-1;
-      wf_own_ptr, wf_own_list: per chunk (offsets into the list) the
-          structures on its lanes;
-      wf_feed_ptr, wf_feed_ent: per chunk its feeder entries, slot * 512 +
-          lane with slot = structure * 8 + feeder;
-      wf_sdep_ptr, wf_sdep_list: per chunk the feeder chunks of the structures
-          it owns; all are earlier chunks;
-      wf_fee_ord (N, 8): each structure's feeders ordered by (chunk, feeder),
-          -1 padded: the order in which the owner sums them.
-
-    Raises ValueError where a source lies outside the window or a feeder does
-    not lie in an earlier chunk than its structure."""
-    pairs = []
-    for table in (ups, ev_ups):
-        if table is None:
-            continue
-        table = np.asarray(table, np.int64)
-        tgt = np.broadcast_to(np.arange(table.shape[1]) // C, table.shape)
-        on = table >= 0
-        pairs.append(np.unique(tgt[on] * n_chunks + table[on] // C))
-    pairs = np.unique(np.concatenate(pairs)) if pairs else np.zeros(0, np.int64)
-    tgt, src = pairs // n_chunks, pairs % n_chunks
-    if ((src >= tgt) | (src < tgt - W)).any():
-        raise ValueError("an upstream source lies outside the schedule window")
-    first = np.searchsorted(tgt, tgt)
-    deps = np.full((n_chunks, max(int((np.arange(tgt.size) - first).max(initial=0)) + 1, 1)),
-                   -1, np.int32)
-    deps[tgt, np.arange(tgt.size) - first] = src
-
-    pos = np.concatenate([np.asarray(v, np.int64).reshape(-1)
-                          for v in (lk_pos, rs_pos) if v is not None] or [np.zeros(0, np.int64)])
-    fee = np.concatenate([np.asarray(v, np.int64).reshape(-1, FEEDERS)
-                          for v in (lk_fee, rs_fee) if v is not None]
-                         or [np.zeros((0, FEEDERS), np.int64)])
-    sg, f = np.nonzero(fee >= 0)
-    fp = fee[sg, f]
-    if (fp // C >= pos[sg] // C).any():
-        raise ValueError("a structure's feeder does not lie in an earlier chunk")
-    out = {"wf_deps": deps}
-    out["wf_own_ptr"], out["wf_own_list"] = _csr(n_chunks, pos // C, np.arange(pos.size))
-    out["wf_feed_ptr"], out["wf_feed_ent"] = _csr(n_chunks, fp // C,
-                                                  (sg * FEEDERS + f) * MAX_CHUNK + fp % C)
-    sdep = np.unique((pos[sg] // C) * n_chunks + fp // C)
-    out["wf_sdep_ptr"], out["wf_sdep_list"] = _csr(n_chunks, sdep // n_chunks, sdep % n_chunks)
-    key = np.where(fee >= 0, (fee // C) * FEEDERS + np.arange(FEEDERS), np.iinfo(np.int64).max)
-    order = np.argsort(key, axis=1, kind="stable")
-    out["wf_fee_ord"] = np.where(np.take_along_axis(fee, order, 1) >= 0, order, -1).astype(np.int32)
-    if not pos.size:
-        out["wf_fee_ord"] = np.full((1, FEEDERS), -1, np.int32)
-    return out
 
 
 def wavefront_operands(spec, xs):
@@ -617,6 +538,7 @@ class _Args(ctypes.Structure):
                 + [(k, ctypes.c_void_p) for k in _PTR_FIELDS])
 
 
+@functools.cache
 def _library():
     from . import _build
     lib = _build.load("kinwave_substep")

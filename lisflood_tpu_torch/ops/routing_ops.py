@@ -18,12 +18,12 @@ from .kinwave_substep import WAVEFRONT_TABLES, SubstepSpec, kinwave_substep
 from .physics import segment_spread
 
 
-def surface_routing_step(cfg, p, s, d, routers):
-    """Overland kinematic wave for 3 runoff lanes (surface_routing.py:115-213)."""
+def overland_operands(cfg, p, s, d):
+    """The overland kinematic wave's operands for the lanes [Other, Forest,
+    Direct] (surface_routing.py:115-160): (surface runoff of the soil
+    fractions, (3, P) discharge, (3, P) lateral inflow, (3, P) alpha*dx/dt)."""
     soil_frac = p["SoilFraction"]
     surface_run_soil = soil_frac * torch.clamp_min(d["AvailableWaterForInfiltration"] - d["Infiltration"], 0)
-    surface_runoff = d["DirectRunoff"] + surface_run_soil.sum(0)
-    total_runoff = surface_runoff + d["UZOutflowPixel"] + d["LZOutflowToChannelPixel"]
 
     mmto_m3 = p["MMtoM3"]
     inv_pl = 1.0 / p["PixelLength"]
@@ -32,12 +32,22 @@ def surface_routing_step(cfg, p, s, d, routers):
     sideflow_other = (surface_run_soil[0] + surface_run_soil[2]) * mmto_m3 * inv_pl * inv_dt
     sideflow_forest = surface_run_soil[1] * mmto_m3 * inv_pl * inv_dt
 
-    beta = p["Beta"]
     # OFAlpha lanes [Other, Forest, Direct]; a_dx_div_dt = alpha * dx / dt
     dx = p["PixelLength"]
     adx = p["OFAlpha"] * dx / cfg.dt_sec
     q0 = torch.stack([s["OFQOther"], s["OFQForest"], s["OFQDirect"]])
     lat = torch.stack([sideflow_other, sideflow_forest, sideflow_direct]) * dx
+    return surface_run_soil, q0, lat, adx
+
+
+def surface_routing_step(cfg, p, s, d, routers):
+    """Overland kinematic wave for 3 runoff lanes (surface_routing.py:115-213)."""
+    surface_run_soil, q0, lat, adx = overland_operands(cfg, p, s, d)
+    surface_runoff = d["DirectRunoff"] + surface_run_soil.sum(0)
+    total_runoff = surface_runoff + d["UZOutflowPixel"] + d["LZOutflowToChannelPixel"]
+    mmto_m3 = p["MMtoM3"]
+    dx = p["PixelLength"]
+    beta = p["Beta"]
     q_lanes = routers["tochan"].route_batched(q0, lat, adx, beta)
     of_q_other, of_q_forest, of_q_direct = q_lanes[0], q_lanes[1], q_lanes[2]
 

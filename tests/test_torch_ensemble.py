@@ -335,3 +335,19 @@ def test_dump_load_round_trip(runners, tmp_path):
         assert torch.equal(port.state[k], v), k
     jax_runner.load_states(str(tmp_path / "port"), 5)
     assert set(jax_runner.state) == set(before)
+
+
+@pytest.mark.parametrize("members", [2, 3])
+def test_eva_stencil_chosen_per_member(members):
+    """The evaporation stencil is chosen by a member's grid: an ensemble of a
+    model with P <= 200,000 and M·P above it answers as its single model on
+    a CUDA device (use_eva_stencil reads only the device's type, so no card
+    is needed), and the CPU keeps the segment-sum form in both."""
+    cfg = dataclasses.replace(build_synthetic_model(**SIZE)[0], num_pixels=150_000)
+    folded = dataclasses.replace(cfg, num_pixels=members * cfg.num_pixels, members=members)
+    assert folded.num_pixels > 200_000
+    assert folded.use_eva_stencil("cuda") == cfg.use_eva_stencil("cuda") is True
+    assert folded.use_eva_stencil("cpu") == cfg.use_eva_stencil("cpu") is False
+    large = dataclasses.replace(cfg, num_pixels=250_000)
+    assert dataclasses.replace(large, num_pixels=members * 250_000,
+                               members=members).use_eva_stencil("cuda") is False

@@ -94,3 +94,70 @@ def test_route_batched_with_edges(dtype, tol):
     got = router.route_batched(torch.as_tensor(q0), torch.as_tensor(lat),
                                torch.as_tensor(adx), 0.6).numpy()
     assert _rel(ref, got) <= tol, _rel(ref, got)
+
+
+def _overland_schedule(nrows=48, ncols=40, chunk=64):
+    """The overland (to-channel) schedule of a realistic catchment: the
+    synthetic drainage cut by ldd_to_channel at a channel mask of the cells
+    whose upstream cell count is in the top fifth."""
+    from lisflood_tpu_torch.graph.ldd import build_flow_graph, ldd_to_channel
+    from lisflood_tpu_torch.io.grid import Grid
+    P = nrows * ncols
+    ldd, down = synthetic_drainage(nrows, ncols, seed=5)
+    ups = FlowGraph(downstream=down, ldd=ldd, num_pixels=P).accuflux(np.ones(P))
+    grid = Grid(west=0.0, north=0.0, cell=1.0, nrows=nrows, ncols=ncols,
+                mask2d=np.zeros((nrows, ncols), bool))
+    tochan = build_flow_graph(ldd_to_channel(ldd, ups >= np.quantile(ups, 0.8)), grid)
+    return build_schedule(tochan, chunk_size=chunk)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-6)])
+def test_sweep_overland_graph(dtype, tol):
+    """The plain sweep (PackedRouter on the CPU) on a realistic overland
+    graph against the JAX package's PackedRouter (an XLA scan summing
+    upstream inflow with a one-hot product), 3 lanes."""
+    sched = _overland_schedule()
+    P = sched.num_pixels
+    rng = np.random.default_rng(1)
+    q0 = rng.uniform(0, 2, (3, P)).astype(dtype)
+    lat = rng.uniform(0, 1e-2, (3, P)).astype(dtype)
+    adx = rng.uniform(1e-2, 10, (3, P)).astype(dtype)
+    ref = np.asarray(J.PackedRouter(sched).route_batched(
+        jnp.asarray(q0), jnp.asarray(lat), jnp.asarray(adx), 0.6))
+    router = K.PackedRouter(sched, "cpu")
+    assert not router.no_edges and router.ps.n_chunks > 4
+    got = router.route_batched(torch.as_tensor(q0), torch.as_tensor(lat),
+                               torch.as_tensor(adx), 0.6).numpy()
+    assert got.dtype == ref.dtype
+    assert _rel(ref, got) <= tol, _rel(ref, got)
+
+
+def test_sweep_tables_and_repeatability():
+    """The sweep's tables: every position's sources ascending (-1 after
+    them) and pointing to earlier chunks, every dependency a lower chunk
+    within the window W, and a chunk depends on exactly the chunks its
+    sources lie in. The plain version gives the same bits in two runs."""
+    router = K.PackedRouter(_overland_schedule(), "cpu")
+    ps = router.ps
+    ups, deps = router.ups.numpy(), router.deps.numpy()
+    C = ps.chunk
+    assert ups.dtype == np.int32 and deps.dtype == np.int32 and ups.shape[0] <= 8
+    for pos in range(ps.p_pad):
+        col = ups[:, pos]
+        src = col[col >= 0]
+        assert (col[src.size:] == -1).all() and (np.diff(src) > 0).all()
+        assert (ps.down_pos[src] == pos).all() and (src // C < pos // C).all()
+    assert ((ps.down_pos < ps.p_pad).sum()) == (ups >= 0).sum()
+    for c in range(ps.n_chunks):
+        d = deps[c][deps[c] >= 0]
+        assert ((d < c) & (d >= c - ps.window)).all()
+        want = np.unique(ups[:, c * C:(c + 1) * C][ups[:, c * C:(c + 1) * C] >= 0] // C)
+        np.testing.assert_array_equal(np.sort(d), want)
+    rng = np.random.default_rng(2)
+    shape = (ps.n_chunks, 3, C)
+    const = torch.as_tensor(rng.uniform(0, 1, shape), dtype=torch.float32)
+    adx = torch.as_tensor(rng.uniform(0.1, 10, shape), dtype=torch.float32)
+    a = K.kinwave_sweep(const, adx, router.ups, router.deps, 0.6)
+    b = K.kinwave_sweep(const, adx, router.ups, router.deps, 0.6)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert K.kinwave_sweep.launches == 0      # the CPU runs the plain version

@@ -83,7 +83,25 @@ script exits non-zero:
      lane's max), the same bits for 1, 8, 32 and 132 blocks and in two runs,
      its time by block count and its bound; the same in float64 at 240x200
      (within 1e-12); the sub-step kernel's launch at chunk 256 held to its
-     plain version on its first 256 chunks, its time and bound.
+     plain version on its first 256 chunks, its time and bound;
+  9. the settings-driven run (models/driver.py) on phase 8's catchment,
+     written with its outputs bound: lisfloodexe in float32 (Precision
+     single), the production run_scanned over the 11 days with PCRaster end
+     maps, the LZ state-map stack and the discharge and mass-balance TSS;
+     the host seconds of build_model, the run by part and close, seconds per
+     simulated day against phase 8's step loop, one launch of each kernel a
+     day; its end state and TSS rows held to phase 8's step loop over the
+     same days (meteo_forcing, the TSS sampled from each series' field by
+     its GaugeSampler), both under fixed_order_sums, within 1e-5 of each
+     field's max; one host accuflux at the full size (the TSS `total`
+     operation, a day's cost for each TSS that takes it); a 96x80 catchment
+     through lisfloodexe with -l in float64 on the card and on the CPU: the
+     printed lines equal, the TSS and the end state within 1e-10; and
+     MonteCarlo with EnKF through lisfloodexe, 4 members (fewer only if the
+     reckoned device memory, the sub-step kernel's ring included, does not
+     fit 90% of the card), one filter step, per-member PCRaster outputs: ms
+     per member-day, the ring's bytes, one launch of each kernel per
+     ensemble day, every member's files present and finite.
 The operands on which the kernel is held to its plain version are drawn with
 fixed-order sums (fixed_order_sums), so that every run compares on the same
 numbers.
@@ -96,9 +114,12 @@ and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
 """
 import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor float32 /
@@ -768,12 +789,14 @@ def sweep_held(torch, kp, tochan, ops, beta, tol, what):
     return q, plan, absd, plain_ms
 
 
-def phase_catchment(torch, ks, card):
+def phase_catchment(torch, ks, card, root):
     """Phase 8: a catchment read from maps (write_catchment at 1200x1000,
-    classic netCDF) through load_settings, build_model and the step; the
-    overland sweep kernel and the sub-step kernel at chunk 256 held to their
-    plain versions. See the module docstring."""
-    import tempfile
+    classic netCDF, into the directory `root`, its outputs bound for phase
+    9) through load_settings, build_model and the step; the overland sweep
+    kernel and the sub-step kernel at chunk 256 held to their plain
+    versions. See the module docstring. Returns the sweep's and the sub-step
+    kernel's figures and what phase 9 reuses: the settings path, the model,
+    the built step, the days' forcing on the card and the kernel's spec."""
     from lisflood_tpu_torch.config import load_settings
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
@@ -782,19 +805,19 @@ def phase_catchment(torch, ks, card):
     from lisflood_tpu_torch.ops import kinwave_packed as kp
     from lisflood_tpu_torch.ops.routing_ops import kernel_operands
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        path = write_catchment(tmp, 1200, 1000, seed=0, n_steps=STEPS_RUN, nc_format="classic")
-        t_write = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        settings = load_settings(path)
-        t_settings = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cfg, params, state, aux = build_model(settings)
-        t_build = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        forcing_np = meteo_forcing(settings, cfg, aux)
-        t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = write_catchment(root, 1200, 1000, seed=0, n_steps=STEPS_RUN, nc_format="classic",
+                           outputs=True, user={"EnsMembers": 1, "FilterSteps": ""})
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    settings = load_settings(path)
+    t_settings = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, params, state, aux = build_model(settings)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forcing_np = meteo_forcing(settings, cfg, aux)
+    t_read = time.perf_counter() - t0
     print(f"  host seconds: write_catchment {t_write:.1f}, load_settings {t_settings:.2f}, "
           f"build_model {t_build:.1f}, the {len(forcing_np)} days of meteo from the PCRaster "
           f"stacks {t_read:.1f}; P={cfg.num_pixels}, {int(params['IsChannel'].sum())} channel "
@@ -868,7 +891,230 @@ def phase_catchment(torch, ks, card):
     assert rel <= 1e-5, f"the catchment launch disagrees with the plain version: {rel}"
     substep = {**fig, "launches": launches, "plain_ms": plain_k, "max_abs_err": absd_k,
                "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
-    return sweep, substep
+    del xs, ys
+    context = {"path": path, "model": (cfg, params, state, aux), "step": multi.step,
+               "forcing": forcing, "spec": spec, "step_ms": step_ms, "blocks": fig["blocks"]}
+    return sweep, substep, context
+
+
+# members of phase 9's ensemble, fewer only if they do not fit the card
+DRIVER_MEMBERS = 4
+# the ensemble's filter step (the 6th of the 11 days)
+DRIVER_FILTER_STEP = 6
+
+
+def field_gate(key, ref, got, state):
+    """max |got - ref| over the scale of field `key`: its max, and for
+    CrossSection2Area (a difference of storages ~1e6 times larger, the second
+    lane's Chan2M3Kin and its start) Chan2M3Kin's max / 4000, as the CPU
+    tests hold it."""
+    ref, got = ref.double(), got.double()
+    if key in ("CrossSection2Area", "crosssection2end"):
+        scale = float(state["Chan2M3Kin"].double().abs().max()) / 4000.0
+    else:
+        scale = max(float(ref.abs().max()) if ref.numel() else 0.0, 1e-30)
+    return float((ref - got).abs().max()) / scale if ref.numel() else 0.0
+
+
+def ring_slot_bytes(spec):
+    """Bytes of one slot of the sub-step kernel's float32 rings (discharge
+    and evaporation hops, ops/kinwave_substep._launch)."""
+    return (spec.T * (2 if spec.split else 1) + max(spec.E - 1, 1)) * spec.chunk * 4
+
+
+def ensemble_ring_slots(spec, blocks, M):
+    """The ring's slots for M members of the model of `spec` interleaved: the
+    window and the chunks grow M times (models/ensemble.replicate_schedule),
+    the ring holds 2 blocks + window slots (ops/kinwave_substep.ring_slots)."""
+    window, n = spec.window * M, spec.n_chunks * M
+    return max(min(2 * blocks + window, n), window + 1)
+
+
+def phase_driver(torch, ks, card, ctx, tmp):
+    """Phase 9: the settings-driven run on the card; see the module
+    docstring. `ctx` is phase 8's context, `tmp` a scratch directory."""
+    import numpy as np
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.io import csf
+    from lisflood_tpu_torch.io.tss import read_tss
+    from lisflood_tpu_torch.models.driver import (lisfloodexe, output_var_fields, resolve_output,
+                                                  to_host)
+    from lisflood_tpu_torch.models.synthetic import write_catchment
+    from lisflood_tpu_torch.ops.kinwave_packed import kinwave_sweep
+    path, (cfg, params, state, aux), step = ctx["path"], ctx["model"], ctx["step"]
+    days = STEPS_RUN
+
+    # the production run, float32, both sums in a fixed order
+    out = os.path.join(tmp, "driver")
+    os.makedirs(out)
+    settings = load_settings(path, sys_args=["-v"],
+                             vars_to_set={"Precision": "single", "PathOut": out})
+    torch.cuda.reset_peak_memory_stats()
+    with fixed_order_sums(torch):
+        ks.kinwave_substep.launches = kinwave_sweep.launches = 0
+        t0 = time.perf_counter()
+        runner = lisfloodexe(settings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"kinwave_substep": ks.kinwave_substep.launches,
+                    "kinwave_sweep": kinwave_sweep.launches}
+    per_model = torch.cuda.max_memory_allocated()
+    sec = runner.seconds
+    run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
+    per_day = run_s / days
+    print(f"  lisfloodexe, {days} days at float32 on {card}: {wall:.1f} s in all; host seconds: "
+          f"build_model {sec['build_model']:.1f}, step built and state moved "
+          f"{sec['to_device']:.1f}; the run {run_s:.2f} (forcing read and moved "
+          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, copies to the host "
+          f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
+          f"{per_day * 1e3:.1f} ms per simulated day end to end against phase 8's step loop "
+          f"{ctx['step_ms']:.1f} ms/step; {len(runner.outputs.map_writers)} map outputs, "
+          f"{len(runner.outputs.tss_writers)} TSS; peak device memory "
+          f"{per_model / 2**30:.2f} GiB", flush=True)
+    print(f"  launches in the run: {launches} for {days} days", flush=True)
+    assert launches == {"kinwave_substep": days, "kinwave_sweep": days}, launches
+    assert runner.dtype == torch.float32 and runner.device.type == "cuda"
+    names = sorted(os.listdir(out))
+    assert {"dis.tss", "mbErrorMM.tss", "chanqend.map", "lzend.map",
+            f"lz000000.0{days:02d}"} <= set(names), names
+
+    # phase 8's step loop over the same days, the TSS sampled by each
+    # series' GaugeSampler from its field; the end state
+    tss = runner.outputs.tss_samplers
+    keys = sorted({k for _, ts in tss.values() for k in output_var_fields(ts.output_var)
+                   if k not in params})
+    ref = {name: [] for name in tss}
+    with fixed_order_sums(torch):
+        s = step.prepare_state(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in ctx["forcing"][:days]:
+            s, d = step(s, f)
+            host = to_host({k: d[k] for k in keys})
+            for name, (sampler, ts) in tss.items():
+                ref[name].append(sampler.sample(np.asarray(resolve_output(host, ts.output_var),
+                                                           np.float64)))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    worst = []
+    for name, writer in runner.outputs.tss_writers.items():
+        rows, steps = read_tss(writer.path)[1:]
+        assert list(steps) == list(range(1, days + 1)), (name, steps)
+        worst.append((field_gate(name, torch.as_tensor(np.array(ref[name])),
+                                 torch.as_tensor(rows), None), name))
+    ref_state = step.natural_state(s)
+    worst_state = max((field_gate(k, v, runner.state[k], ref_state), k)
+                      for k, v in ref_state.items() if v.is_floating_point())
+    print(f"  phase 8's step loop over the same {days} days with the TSS fields copied and "
+          f"sampled: {loop_s / days * 1e3:.1f} ms per day, so the driver's own cost is "
+          f"{(run_s - loop_s) / days * 1e3:.1f} ms a day; the driver's TSS against it, worst "
+          f"{max(worst)[0]:.3e} ({max(worst)[1]}), end state worst {worst_state[0]:.3e} "
+          f"({worst_state[1]}) of each field's max (tol 1e-5)", flush=True)
+    assert max(worst)[0] <= 1e-5 and worst_state[0] <= 1e-5, (worst, worst_state)
+    assert set(ref_state) == set(runner.state)
+    # the TSS `total` operation: one host accuflux over the catchment
+    graph = runner.outputs._graph
+    t0 = time.perf_counter()
+    graph.accuflux(np.ones(cfg.num_pixels) * runner.outputs._pixel_area)
+    total_s = time.perf_counter() - t0
+    print(f"  the TSS 'total' operation (host accuflux over {cfg.num_pixels} cells): "
+          f"{total_s:.2f} s per TSS that takes it, per day", flush=True)
+    del runner, s, d, ref_state
+    torch.cuda.empty_cache()
+
+    # -l at 96x80, float64, on the card and on the CPU
+    small = write_catchment(os.path.join(tmp, "small"), 96, 80, seed=0, n_steps=3,
+                            nc_format="classic", outputs=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d_out = os.path.join(tmp, f"small_{device}")
+        os.makedirs(d_out)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            r = lisfloodexe(load_settings(small, sys_args=["-l"], vars_to_set={"PathOut": d_out}),
+                            device=None if device == "cuda" else "cpu")
+        runs[device] = (r, printed.getvalue().splitlines(), d_out, time.perf_counter() - t0)
+    (gpu, gpu_lines, gpu_out, gpu_s), (cpu, cpu_lines, cpu_out, cpu_s) = runs["cuda"], runs["cpu"]
+    assert gpu.dtype == cpu.dtype == torch.float64 and gpu.device.type == "cuda"
+    assert gpu_lines == cpu_lines and len(gpu_lines) == 3, (gpu_lines, cpu_lines)
+    files = sorted(os.listdir(gpu_out))
+    assert files == sorted(os.listdir(cpu_out)) and "dis.tss" in files
+    errs = [(field_gate(n, torch.as_tensor(read_tss(os.path.join(cpu_out, n))[1]),
+                        torch.as_tensor(read_tss(os.path.join(gpu_out, n))[1]), None), n)
+            for n in files if n.endswith(".tss")]
+    errs += [(field_gate(k, v, gpu.state[k].cpu(), cpu.state), k) for k, v in cpu.state.items()
+             if v.is_floating_point()]
+    print(f"  -l at 96x80, float64: the card's {len(gpu_lines)} lines equal the CPU's "
+          f"({gpu_lines[-1].strip()}); TSS and end state worst {max(errs)[0]:.3e} ({max(errs)[1]}) "
+          f"of each field's max (tol 1e-10); {gpu_s:.1f} s on the card, {cpu_s:.1f} s on the "
+          f"CPU", flush=True)
+    assert max(errs)[0] <= 1e-10, errs
+    del gpu, cpu, runs
+
+    # MonteCarlo and EnKF through lisfloodexe
+    total = torch.cuda.get_device_properties(0).total_memory
+    spec, blocks = ctx["spec"], ctx["blocks"]
+    ring_mib = lambda slots: slots * ring_slot_bytes(spec) / 2**20
+    M = DRIVER_MEMBERS
+    while M > 1 and (M * per_model + ring_mib(ensemble_ring_slots(spec, blocks, M)) * 2**20
+                     > 0.9 * total):
+        print(f"  {M} members do not fit: {M} x {per_model / 2**30:.2f} GiB + a ring of "
+              f"{ring_mib(ensemble_ring_slots(spec, blocks, M)):.0f} MiB > 90% of "
+              f"{total / 2**30:.1f} GiB", flush=True)
+        M //= 2
+    slots = ensemble_ring_slots(spec, blocks, M)
+    print(f"  {M} members: reckoned ring {slots} slots, {ring_mib(slots):.0f} MiB (one model's "
+          f"{ring_mib(ensemble_ring_slots(spec, blocks, 1)):.0f} MiB), models {M} x "
+          f"{per_model / 2**30:.2f} GiB (the peak of the run above, phase 8's model on the "
+          f"card too), card {total / 2**30:.1f} GiB", flush=True)
+    ens_out = os.path.join(tmp, "ensemble")
+    os.makedirs(ens_out)
+    settings = load_settings(path, sys_args=["-v"], opts_to_set=["MonteCarlo", "EnKF"],
+                             vars_to_set={"Precision": "single", "PathOut": ens_out,
+                                          "EnsMembers": str(M),
+                                          "FilterSteps": str(DRIVER_FILTER_STEP),
+                                          "LZState": ""})
+    assert settings.ens_members == M and settings.filter_steps == [DRIVER_FILTER_STEP]
+    torch.cuda.reset_peak_memory_stats()
+    ks.kinwave_substep.launches = kinwave_sweep.launches = 0
+    t0 = time.perf_counter()
+    runner = lisfloodexe(settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"kinwave_substep": ks.kinwave_substep.launches,
+                "kinwave_sweep": kinwave_sweep.launches}
+    ens = runner.ensemble
+    ring = ks.kinwave_substep.last_plan["ring"]
+    es = ens.seconds
+    print(f"  MonteCarlo + EnKF, {M} members x {days} days at float32: {wall:.1f} s in all "
+          f"(build_model {runner.seconds['build_model']:.1f}, the folded model built, moved "
+          f"and perturbed {es['build']:.1f}, the days {es['days']:.2f}, EnKF {es['enkf']:.2f}, "
+          f"dumps {es['dumps']:.2f}); {es['days'] / (days * M) * 1e3:.1f} ms per member-day; "
+          f"ring {ring} slots, {ring_mib(ring):.0f} MiB; launches {launches} for {days} "
+          f"ensemble days; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
+    assert launches == {"kinwave_substep": days, "kinwave_sweep": days}, launches
+    assert ens.n == M and ring > spec.window * M, (ens.n, ring, spec.window)
+    top = sorted(os.listdir(ens_out))
+    assert top == [str(m) for m in range(1, M + 1)] + ["stateVar"], top
+    assert sorted(os.listdir(os.path.join(ens_out, "stateVar"))) == [
+        f"stateVar_{m}_{DRIVER_FILTER_STEP}.npz" for m in range(1, M + 1)]
+    expected = sorted(n for n in names if not n.startswith("lz0"))
+    for m in range(1, M + 1):
+        member = os.path.join(ens_out, str(m))
+        assert sorted(os.listdir(member)) == expected, (m, sorted(os.listdir(member)))
+        for n in expected:
+            if n.endswith(".tss"):
+                rows, steps = read_tss(os.path.join(member, n))[1:]
+                assert np.isfinite(rows).all() and len(steps) == days, (m, n)
+            else:
+                mp = csf.read_map(os.path.join(member, n))
+                assert np.isfinite(mp.data[~mp.mv_mask]).all(), (m, n)
+    print(f"  every member's {len(expected)} files present and finite, {M} dumps at step "
+          f"{DRIVER_FILTER_STEP}", flush=True)
+    del runner, ens
+    torch.cuda.empty_cache()
 
 
 def profile_step(torch, step, s, f, step_ms):
@@ -1134,8 +1380,14 @@ def main():
     del multi, p, s, model, d, xs, ys, ref
     torch.cuda.empty_cache()
 
-    print("phase 8: a catchment read from maps, 1200x1000, T=24, C=256, float32", flush=True)
-    sweep, catchment = phase_catchment(torch, ks, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        print("phase 8: a catchment read from maps, 1200x1000, T=24, C=256, float32", flush=True)
+        sweep, catchment, context = phase_catchment(torch, ks, card,
+                                                    os.path.join(tmp, "catchment"))
+        torch.cuda.empty_cache()
+        print("phase 9: the settings-driven run (lisfloodexe) on phase 8's catchment", flush=True)
+        phase_driver(torch, ks, card, context, tmp)
+        del context
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"

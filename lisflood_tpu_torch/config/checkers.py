@@ -89,7 +89,12 @@ def check_modules_inputs(settings):
 
 def check_meteo_forcings(settings):
     """Verify the forcing stacks cover the simulation window
-    (reference add1.py:798-855 checknetcdf, applied to the 4 forcings)."""
+    (reference add1.py:798-855 checknetcdf, applied to the 4 forcings). A
+    PCRaster numbered-map stack, which the runner reads where no netCDF file
+    of the binding's name exists (io/forcing.open_forcing_stack), passes when
+    it has the map of the first step: a later step without a map reuses the
+    last one (readmapsparse). The JAX package checks netCDF stacks only."""
+    from ..io.forcing import CsfStackReader
     from ..io.ncdf import NcFile
     from ..io.nctime import num_to_date
 
@@ -99,6 +104,13 @@ def check_meteo_forcings(settings):
         path = binding.get(key)
         if not path:
             errors.append(f"forcing binding {key} missing")
+            continue
+        nc_path = path if path.endswith(".nc") else os.path.splitext(path)[0] + ".nc"
+        if not os.path.exists(nc_path):
+            first = CsfStackReader(path, None, None).path_for_step(settings.step_start_int)
+            if not os.path.exists(first):
+                errors.append(f"forcing {key}: neither {nc_path} nor the PCRaster map "
+                              f"{first} of the first step exists")
             continue
         try:
             with NcFile(path) as nc:

@@ -29,19 +29,26 @@ eps - H X_f), on a set of prognostic fields, observing discharge at gauge
 pixels; the (n_obs, n_obs) solve runs on the host in NumPy, the anomaly
 products over the state on the device (`torch.matmul`).
 
-The settings-driven `run_from_settings` and `run_montecarlo` of the JAX
-package need its settings runner (`LisfloodRunner`), which the port does
-not have yet.
+An ensemble of a settings-driven run comes from its `LisfloodRunner`
+(models/driver.py) through `EnsembleRunner.from_runner`: the members start
+from the runner's state, take each day's forcing from `runner.forcing_for`
+(tiled over the members) and, with outputs, each reports its slice of the
+day's diagnostics through an OutputManager of its own into PathOut/<m>/ (the
+reference MonteCarloFramework layout). `run_from_settings` (MonteCarlo /
+EnKF from the settings, as lisfloodexe runs it) and `run_montecarlo` are the
+JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..graph.ldd import RoutingSchedule
+from .driver import OutputManager, to_host
 from .step import build_step
 
 # prognostic fields updated by the EnKF analysis (clamped at 0 after it)
@@ -170,6 +177,13 @@ def tile_forcing(forcing, M, P):
             for k, v in forcing.items()}
 
 
+def _member_slice(v, m, M):
+    """Member m's part of a folded diagnostic (host array): its slice of the
+    last axis (pixels, lakes, reservoirs or catchments); a scalar is every
+    member's."""
+    return v if v.ndim == 0 else v.reshape(v.shape[:-1] + (M, -1))[..., m, :]
+
+
 def perturb_state(generator, state, fields, sigma=0.05, min_val=0.0):
     """Multiplicative Gaussian perturbation of the named state fields
     (reference perturbState, add1.py:918-945): v * (1 + sigma N(0, 1)),
@@ -186,8 +200,8 @@ def perturb_state(generator, state, fields, sigma=0.05, min_val=0.0):
 class EnsembleRunner:
     """M members of one model advanced by one step program (module
     docstring): the counterpart of the JAX package's vmapped EnsembleRunner,
-    built from a single model `(cfg, params, state, aux)` of NumPy arrays
-    rather than from a `LisfloodRunner`. The members start from the model's
+    built from a single model `(cfg, params, state, aux)` of NumPy arrays, or
+    from a `LisfloodRunner` (from_runner). The members start from the model's
     state, each with its own perturbation of `perturb_fields` drawn from
     `seed`."""
 
@@ -197,6 +211,8 @@ class EnsembleRunner:
         cfg, params, state, aux = model
         self.n = n_members
         self.pixels = cfg.num_pixels
+        self.runner = None          # the settings-driven run, from_runner
+        self.outputs = None
         cfg_e, params_e, aux_e = ensemble_model(cfg, params, aux, n_members)
         self.step, self.params = build_step(cfg_e, params_e, aux_e, dtype, device)
         self.cfg = cfg_e
@@ -204,6 +220,30 @@ class EnsembleRunner:
         generator = torch.Generator(device=self.step.device).manual_seed(seed)
         self.state = perturb_state(generator, self.fold([state] * n_members),
                                    perturb_fields, sigma)
+
+    @classmethod
+    def from_runner(cls, runner, n_members, seed=0, with_outputs=False, **kw):
+        """The ensemble of a LisfloodRunner's model, in its dtype and on its
+        device, the members starting from the runner's state. With
+        `with_outputs` each member m writes the settings' outputs into
+        PathOut/<m+1>/."""
+        t0 = time.perf_counter()
+        state = {k: v.cpu().numpy() for k, v in runner.state.items()}
+        ens = cls((runner.config, runner.params_np, state, runner.aux), n_members, seed,
+                  dtype=runner.dtype, device=runner.device, **kw)
+        ens.runner = runner
+        # host seconds: the folded model built and perturbed, the days
+        # (steps, copies and reports), the EnKF analyses and the dumps
+        ens.seconds = {"build": time.perf_counter() - t0, "days": 0.0, "enkf": 0.0,
+                       "dumps": 0.0}
+        if with_outputs:
+            ens.outputs = []
+            for m in range(n_members):
+                s_m = runner.settings.for_subdir(str(m + 1))
+                os.makedirs(s_m.output_dir, exist_ok=True)
+                ens.outputs.append(OutputManager(s_m, runner.grid, runner.params_np,
+                                                 runner.aux, runner.config))
+        return ens
 
     def fold(self, states):
         """The members' states (single-model layout, natural or `pk$`
@@ -228,6 +268,36 @@ class EnsembleRunner:
             f = tile_forcing({k: v[t] for k, v in forcing_stack.items()}, self.n, self.pixels)
             self.state, diag = self.step(self.state, f)
         return self.state, diag
+
+    def advance_days(self, offsets):
+        """Advance all members over the runner's step offsets `offsets`
+        (from_runner), each day's forcing from runner.forcing_for, and report
+        each member's outputs: the fields the day reports are copied to the
+        host once a day for all members, member m's slice of each to its
+        OutputManager. Returns the state and the last day's diagnostics."""
+        runner = self.runner
+        start, end = runner.settings.step_start_int, runner.settings.step_end_int
+        diag = None
+        t0 = time.perf_counter()
+        for offset in offsets:
+            date = runner.dates[offset]
+            f = tile_forcing(runner.forcing_for(offset, date), self.n, self.pixels)
+            self.state, diag = self.step(self.state, f)
+            if self.outputs:
+                step = start + offset
+                fields = self.outputs[0].fields_at(step, step == end)
+                host = to_host({k: diag[k] for k in fields if k in diag})
+                for m, man in enumerate(self.outputs):
+                    man.report(step, date,
+                               {k: _member_slice(v, m, self.n) for k, v in host.items()},
+                               is_last=(step == end))
+        self.seconds["days"] += time.perf_counter() - t0
+        return self.state, diag
+
+    def close_outputs(self):
+        """Flush and close every member's outputs."""
+        for man in self.outputs or ():
+            man.close()
 
     # ------------------------------------------------------------------
     def enkf_analysis(self, obs_values, obs_pixels, obs_sigma,
@@ -308,3 +378,53 @@ class EnsembleRunner:
                 members.append({k: data[k] for k in data.files})
         self.state = self.fold(members)
 
+
+def run_from_settings(runner, settings, seed=0):
+    """MonteCarlo / EnKF from the settings file (reference main.py:98-115),
+    the JAX package's: `EnsMembers` members of the runner's model (the
+    reference forks a process per sample, setForkSamples, main.py:104-106),
+    each writing its outputs into PathOut/<m>/; at each of the `FilterSteps`
+    the members' states are dumped (stateVar.dynamic, stateVar.py:37-143)
+    and the analysis assimilates the ensemble mean of the outlets' discharge
+    with 10% error (the reference's setObservations is a random placeholder,
+    Lisflood_EnKF.py:50-63)."""
+    ens = EnsembleRunner.from_runner(runner, settings.ens_members, seed=seed, with_outputs=True)
+    start, end = settings.step_start_int, settings.step_end_int
+    n_steps = end - start + 1
+    filter_offsets = sorted(st - start + 1 for st in settings.filter_steps if start <= st <= end)
+    state_dir = os.path.join(settings.output_dir, "stateVar")
+    obs_pixels = np.flatnonzero(np.asarray(runner.params_np["AtLastPointC"]))
+    try:
+        prev = 0
+        for off in filter_offsets:
+            ens.advance_days(range(prev, off))
+            t0 = time.perf_counter()
+            ens.dump_states(state_dir, start + off - 1)
+            t1 = time.perf_counter()
+            if obs_pixels.size:
+                y = ens._gauge_discharge(obs_pixels).mean(0)
+                sigma = np.maximum(0.1 * np.abs(y), 1e-6)
+                ens.enkf_analysis(y, obs_pixels, sigma, seed=seed + off)
+            ens.seconds["dumps"] += t1 - t0
+            ens.seconds["enkf"] += time.perf_counter() - t1
+            prev = off
+        if prev < n_steps:
+            ens.advance_days(range(prev, n_steps))
+    finally:
+        ens.close_outputs()
+        runner.forcing.close()
+    return ens
+
+
+def run_montecarlo(runner, n_members, seed=0, max_steps=None, with_outputs=False):
+    """Monte Carlo run (main.py:98-106 analogue, members folded, not
+    forked): the perturbed ensemble of the runner's model advanced to the
+    end, or `max_steps` days; returns the EnsembleRunner."""
+    ens = EnsembleRunner.from_runner(runner, n_members, seed=seed, with_outputs=with_outputs)
+    n = runner.settings.step_end_int - runner.settings.step_start_int + 1
+    try:
+        ens.advance_days(range(n if max_steps is None else min(n, max_steps)))
+    finally:
+        ens.close_outputs()
+        runner.forcing.close()
+    return ens

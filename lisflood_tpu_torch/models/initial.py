@@ -26,7 +26,7 @@ from ..config.calendar import parse_date_or_step
 from ..graph import (build_flow_graph, build_schedule, cut_structures, direction_codes,
                      ldd_mask, ldd_to_channel)
 from ..io import MapLoader, NcFile, build_grid
-from ..io.forcing import ForcingReader, open_forcing_stack, run_dates
+from ..io.forcing import ForcingReader, run_dates
 from ..io.projection import read_lat_from_template
 from ..io.tables import lookup_scalar
 from ..ops.indicators import indicator_state_zero
@@ -900,34 +900,15 @@ METEO_KEYS = (("Precipitation", "PrecipitationMaps"), ("Tavg", "TavgMaps"),
 
 def meteo_forcing(settings, config, aux):
     """The forcing of every model step from StepStart to StepEnd, as NumPy
-    dicts: the four meteo maps read from their stacks (netCDF or PCRaster,
-    io/forcing.open_forcing_stack), the calendar day and the LAI interval, as
-    the JAX package's LisfloodRunner.forcing_for assembles them. Options whose
-    forcing has more entries (water use, inflow, transient land use, the
-    indicators, variable water fraction) raise NotImplementedError: their
-    forcing comes with the driver, which is not ported yet."""
-    more = [name for name, on in (
-        ("wateruse", config.water_use), ("inflow", config.inflow),
-        ("TransientLandUseChange", config.transient_landuse),
-        ("varfractionwater", config.var_fraction_water)) if on]
-    if more:
-        raise NotImplementedError(f"the forcing of {more} comes with the driver")
-    dates = run_dates(settings)
-    lai = aux["lai_day_to_interval"]
-    readers = {key: open_forcing_stack(settings.binding[name], aux["grid"], dates,
-                                       first_step=settings.step_start_int,
-                                       skip_valid_replace=settings.flags.get("skipvalreplace",
-                                                                             False))
-               for key, name in METEO_KEYS}
+    dicts (floats in float64), assembled by the driver's HostForcing as
+    LisfloodRunner.forcing_for assembles it: the meteo and calendar entries
+    and every option's (models/driver.py). Without TransientWaterDemandChange
+    the water demands are the maps build_model reads into the parameters."""
+    from .driver import HostForcing
+    source = HostForcing(settings, config, aux)
     try:
-        out = []
-        for i, date in enumerate(dates):
-            cal_day = int(date.strftime("%j"))
-            f = {key: r[i] for key, r in readers.items()}
-            f["CalendarDay"] = np.float64(cal_day)
-            f["LAIInterval"] = np.int32(lai[cal_day])
-            out.append(f)
-        return out
+        static = (source.static_demands()
+                  if config.water_use and not config.transient_water_demand else {})
+        return [{**source(i, date), **static} for i, date in enumerate(source.dates)]
     finally:
-        for r in readers.values():
-            r.close()
+        source.close()

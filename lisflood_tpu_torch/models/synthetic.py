@@ -19,6 +19,7 @@ import numpy as np
 
 from ..graph.ldd import FlowGraph, build_schedule, direction_codes
 from ..io import csf, ncdf
+from ..io.tss import TssWriter
 from ..ops.indicators import indicator_keys
 from .config import ModelConfig
 from .step import LANDUSE_FRACTIONS
@@ -574,7 +575,118 @@ METEO_STACKS = {"PrecipitationMaps": ("pr", 0.0, 15.0), "TavgMaps": ("ta", -5.0,
                 "ES0Maps": ("es", 0.0, 5.0)}
 
 
-def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_format="netcdf4"):
+def _option_inputs(binding, opts, rng, dirs, nrows, ncols, n_steps, start, land, channel, order,
+                   fractions, write, write_nc, xy):
+    """The inputs of the options `opts` switches on, for write_catchment:
+    maps through `write`, netCDF stacks through `write_nc`, into `binding`."""
+    P = nrows * ncols
+    cols = np.arange(P) % ncols
+    end = start + datetime.timedelta(days=n_steps - 1)
+
+    def field(lo, hi):
+        return np.where(land, rng.uniform(lo, hi, P), np.nan).astype(np.float32)
+
+    def stack(name, dates, maps):
+        """A netCDF stack of `maps` at `dates` in maps/, bound to `name`."""
+        ref = dates[0]
+        coords = [("time", np.array([(d - ref).days for d in dates], np.float64),
+                   {"units": f"days since {ref:%Y-%m-%d}", "calendar": "proleptic_gregorian"})]
+        data = np.where(np.isnan(maps), -9999.0, maps).reshape(len(dates), nrows, ncols)
+        write_nc(os.path.join(dirs["maps"], name + ".nc"), coords + xy, "value",
+                 data.astype(np.float32))
+        binding[name] = f"$(PathMaps)/{name}.nc"
+
+    if opts.get("inflow"):
+        # two inflow points on the channels and their hydrograph, a row a step
+        points = np.zeros(P, np.int32)
+        points[order[12:14]] = (1, 2)
+        write("InflowPoints", points, csf.VS_NOMINAL, missing=points == 0)
+        tss = TssWriter(os.path.join(dirs["tables"], "inflow.tss"), [1, 2])
+        for step in range(1, n_steps + 1):
+            tss.sample(step, rng.uniform(5.0, 50.0, 2))
+        tss.flush()
+        binding["QInTS"] = "$(PathTables)/inflow.tss"
+    if opts.get("wateruse"):
+        write("WUseRegion", (cols >= ncols // 2).astype(np.int32), csf.VS_NOMINAL)
+        write("GroundwaterBodies", (rng.random(P) < 0.6).astype(np.float32))
+        for name, lo, hi in (("FractionGroundwaterUsed", 0, 0.3),
+                             ("FractionNonConventionalWaterUsed", 0, 0.1),
+                             ("FractionLakeReservoirWaterUsed", 0, 0.3),
+                             ("EFlowThreshold", 0, 2), ("IrrigationMult", 1, 1.2),
+                             ("IndustryConsumptiveUseFraction", 0.1, 0.3),
+                             ("IrrigationWaterReUseM3", 0, 1e4),
+                             ("EnergyConsumptiveUseFraction", 0.01, 0.05),
+                             ("LivestockConsumptiveUseFraction", 0.5, 1),
+                             ("LeakageFraction", 0, 0.2), ("WaterSavingFraction", 0, 0.2),
+                             ("DomesticConsumptiveUseFraction", 0.1, 0.3),
+                             ("LeakageWaterLoss", 0, 0.5), ("IrrigationEfficiency", 0.6, 0.9),
+                             ("ConveyanceEfficiency", 0.7, 0.95)):
+            write(name, field(lo, hi))
+        binding.update({"WUsePercRemain": "0.5", "maxNoWateruse": "1",
+                        "IrrigationWaterReUseNumDays": "150", "LeakageReductionFraction": "0",
+                        "IrrigationType": "1"})
+        # the demands [mm/day], monthly from the month before the start to
+        # the month after the end
+        months = [datetime.datetime(start.year, start.month, 1)]
+        months.insert(0, (months[0] - datetime.timedelta(days=1)).replace(day=1))
+        while months[-1] <= end:
+            months.append((months[-1] + datetime.timedelta(days=32)).replace(day=1))
+        for name, hi in (("DomesticDemandMaps", 0.3), ("IndustrialDemandMaps", 0.2),
+                         ("LivestockDemandMaps", 0.05), ("EnergyDemandMaps", 0.2)):
+            stack(name, months, np.stack([field(0, hi) for _ in months]))
+        if opts.get("indicator"):
+            write("Population", field(0, 1000))
+            write("LandUseMask", (rng.random(P) > 0.2).astype(np.float32))
+            binding["PopulationMaps"] = binding["Population"]
+    if opts.get("TransientLandUseChange"):
+        # one map a year from the year before the start: forest, irrigated,
+        # sealed and water fractions drift by up to 10% a year, the rainfed
+        # (OtherFraction) takes up the difference
+        years = [datetime.datetime(y, 1, 1) for y in range(start.year - 1, end.year + 2)]
+        frac = dict(fractions)
+        maps = {k: [] for k in LANDUSE_FRACTIONS}
+        for _ in years:
+            for k in ("ForestFraction", "IrrigationFraction", "DirectRunoffFraction",
+                      "WaterFraction"):
+                frac[k] = frac[k] * rng.uniform(0.9, 1.1, P)
+            frac["OtherFraction"] = 1 - sum(frac[k] for k in LANDUSE_FRACTIONS
+                                            if k != "OtherFraction")
+            for k in LANDUSE_FRACTIONS:
+                maps[k].append(np.where(land, frac[k], np.nan))
+        for k in LANDUSE_FRACTIONS:
+            stack(k + "Maps", years, np.stack(maps[k]))
+    if opts.get("varfractionwater"):
+        water = np.where(land, fractions["WaterFraction"], np.nan)
+        write("FracMaxWater", (water * rng.uniform(1.0, 1.5, P)).astype(np.float32))
+        monthly = [datetime.datetime(2000, m, 1) for m in range(1, 13)]
+        stack("WFractionMaps", monthly, np.stack([water * rng.uniform(0.5, 1.0, P)
+                                                  for _ in monthly]))
+
+
+# the outputs write_catchment(outputs=True) binds: the end maps of the main
+# path's state, one state-map stack (LZ, every reported step), the discharge
+# TSS at the gauges, the mass-balance TSS per catchment and two upstream
+# averages (the TSS `total` operation; active with repBal1)
+END_MAPS = ("ChSideEnd", "ChanCrossSectionEnd", "ChanQEnd", "CrossSection2End",
+            "CumIntSealedEnd", "CumInterceptionEnd", "CumInterceptionForestEnd",
+            "CumInterceptionIrrigationEnd", "DSLREnd", "DSLRForestEnd", "DSLRIrrigationEnd",
+            "FrostIndexEnd", "LZEnd", "LakeLevelEnd", "LakePrevInflowEnd", "LakePrevOutflowEnd",
+            "OFDirectEnd", "OFForestEnd", "OFOtherEnd", "ReservoirFillEnd", "SnowCoverAEnd",
+            "SnowCoverBEnd", "SnowCoverCEnd", "Theta1End", "Theta1ForestEnd",
+            "Theta1IrrigationEnd", "Theta2End", "Theta2ForestEnd", "Theta2IrrigationEnd",
+            "Theta3End", "Theta3ForestEnd", "Theta3IrrigationEnd", "UZEnd", "UZForestEnd",
+            "UZIrrigationEnd")
+OUTPUT_TSS = {"DisTS": "dis", "ChanqTS": "chanq", "WaterMassBalanceTSS": "mbError",
+              "MassBalanceMMTSS": "mbErrorMM", "MBErrorStorageRatioTSS": "mbErrorStorage",
+              "AverageFractionsCatchmentTSS": "averageFractions",
+              "MassBalanceErrorSplitRoutingTSS": "mbErrorSplitRouting",
+              "OutletDischargeErrorSplitRoutingTSS": "outletDischargeError",
+              "TotalRunoffAvUpsTS": "totalRunoffUps", "EvaOpenWaterAvUpsTS": "evaOpenWaterUps"}
+
+
+def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_format="netcdf4",
+                    outputs=False, meteo_format="pcraster", start=datetime.date(2000, 1, 1),
+                    user=None):
     """Write a catchment of nrows x ncols 5 km cells as LISFLOOD reads it
     from disk, into the directory `path`, and return its settings file.
 
@@ -601,7 +713,25 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         evaporation and the mass-balance reports on, DtSec 86400 and
         DtSecChannel 3600 (NoRoutSteps 24); `options` (name -> bool) sets
         further options over these.
-    Data are drawn from `seed`."""
+    Data are drawn from `seed`. With the defaults of the arguments below the
+    files are those written before they existed, bit for bit:
+      - `outputs`: bind the outputs of END_MAPS, the state-map stack
+        LZState and the TSS of OUTPUT_TSS under $(PathOut) (which outputs
+        are written the options decide);
+      - `meteo_format` "netcdf": the meteo as one netCDF stack a forcing
+        (in `nc_format`, a daily time axis) instead of PCRaster stacks,
+        with the same values;
+      - `start`: the first day (CalendarDayStart and StepStart);
+      - `user`: more lfuser variables (EnsMembers, FilterSteps);
+      - the inputs of the options that `options` switches on, drawn from a
+        second stream of `seed`: inflow (two points on the channels and
+        their hydrograph TSS), water use (two regions, the four demands as
+        monthly netCDF stacks, read as transient forcing with
+        TransientWaterDemandChange and as the map nearest the start
+        without), the indicators (population, land-use mask), transient
+        land use (yearly netCDF stacks of the six fractions, one map a
+        year from the year before the start, the fractions drifting year
+        by year) and the variable water fraction (twelve monthly maps)."""
     if nc_format not in ("netcdf4", "classic"):
         raise ValueError(f"nc_format {nc_format!r}: 'netcdf4' or 'classic'")
     rng = np.random.default_rng([seed, 11])
@@ -692,8 +822,8 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
     days = ("time", np.arange(36, dtype=np.float64) * 10.0,
             {"units": "days since 2000-01-01", "calendar": "proleptic_gregorian"})
 
-    def write_nc(name, coords, var, data):
-        file = os.path.join(dirs["maps"], name + ".nc")
+    def write_nc(file, coords, var, data):
+        """A netCDF file of one variable, in `nc_format`."""
         if nc_format == "classic":
             ncdf.write_classic(file, coords, var, data, fill_value=-9999.0)
         else:
@@ -705,29 +835,49 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
                                   fill_value=-9999.0)[...] = data
             finally:
                 f.close()
+
+    def write_map_nc(name, coords, var, data):
+        write_nc(os.path.join(dirs["maps"], name + ".nc"), coords, var, data)
         binding[name] = f"$(PathMaps)/{name}.nc"
 
-    write_nc("netCDFtemplate", xy, "template", np.where(land, 1.0, -9999.0)
-             .reshape(nrows, ncols).astype(np.float32))
+    write_map_nc("netCDFtemplate", xy, "template", np.where(land, 1.0, -9999.0)
+                 .reshape(nrows, ncols).astype(np.float32))
     season = 1 + 0.5 * np.sin(2 * np.pi * np.arange(36) / 36)
     for name, lo, hi in (("LAIOtherMaps", 0.5, 3), ("LAIForestMaps", 2, 6),
                          ("LAIIrrigationMaps", 0.5, 4)):
         base = rng.uniform(lo, hi, P).reshape(nrows, ncols)
-        write_nc(name, [days] + xy, "lai", (season[:, None, None] * base).astype(np.float32))
+        write_map_nc(name, [days] + xy, "lai", (season[:, None, None] * base).astype(np.float32))
 
-    # meteo stacks: map i of a stack is step i (PCRaster 8.3 names)
+    # meteo stacks: map i of a stack is step i (PCRaster 8.3 names), or one
+    # netCDF file a forcing with a daily time axis
+    start = datetime.datetime(start.year, start.month, start.day)
+    daily = ("time", np.arange(n_steps, dtype=np.float64),
+             {"units": f"days since {start:%Y-%m-%d}", "calendar": "proleptic_gregorian"})
     for key, (prefix, lo, hi) in METEO_STACKS.items():
-        for step in range(1, n_steps + 1):
-            nr = str(step)
-            name = f"{prefix}{'0' * (11 - len(prefix) - len(nr))}{nr}"
-            file = os.path.join(dirs["meteo"], f"{name[:8]}.{name[8:]}")
-            csf.write_map(file, field(lo, hi).reshape(nrows, ncols), west, north, cell)
+        maps = [field(lo, hi).reshape(nrows, ncols) for _ in range(n_steps)]
+        if meteo_format == "netcdf":
+            write_nc(os.path.join(dirs["meteo"], prefix + ".nc"), [daily] + xy, prefix,
+                     np.where(np.isnan(maps), -9999.0, maps).astype(np.float32))
+        else:
+            for step, data in enumerate(maps, 1):
+                nr = str(step)
+                name = f"{prefix}{'0' * (11 - len(prefix) - len(nr))}{nr}"
+                csf.write_map(os.path.join(dirs["meteo"], f"{name[:8]}.{name[8:]}"), data,
+                              west, north, cell)
         binding[key] = f"$(PathMeteo)/{prefix}"
 
-    start = datetime.datetime(2000, 1, 1)
+    opts = {**CATCHMENT_OPTIONS, **(options or {})}
+    _option_inputs(binding, opts, np.random.default_rng([seed, 12]), dirs, nrows, ncols,
+                   n_steps, start, land, channel, order, fractions, write, write_nc, xy)
+    if outputs:
+        binding.update({k: f"$(PathOut)/{k.lower()}" for k in END_MAPS})
+        binding["LZState"] = "$(PathOut)/lz"
+        binding.update({k: f"$(PathOut)/{v}.tss" for k, v in OUTPUT_TSS.items()})
+
     end = start + datetime.timedelta(days=n_steps - 1)
     binding.update({
-        "CalendarDayStart": "01/01/2000 00:00", "StepStart": "01/01/2000 00:00",
+        "CalendarDayStart": start.strftime("%d/%m/%Y %H:%M"),
+        "StepStart": start.strftime("%d/%m/%Y %H:%M"),
         "StepEnd": end.strftime("%d/%m/%Y %H:%M"), "DtSec": "86400", "DtSecChannel": "3600",
         "PathOut": "$(PathOut)", "proj4_params": LAEA_PROJ4,
         "GwLoss": "0", "GwPercValue": "0.5", "PrScaling": "1", "CalEvaporation": "1",
@@ -772,11 +922,10 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         "adjust_Normal_Flood": "0.8", "ReservoirRnormqMult": "1.0",
         "ReservoirInitialFillValue": "-9999", "maxNoEva": "5",
     })
-    opts = {**CATCHMENT_OPTIONS, **(options or {})}
     user = {"PathRoot": root, "PathMaps": "$(PathRoot)/maps", "PathTables": "$(PathRoot)/tables",
-            "PathMeteo": "$(PathRoot)/meteo", "PathOut": dirs["out"]}
+            "PathMeteo": "$(PathRoot)/meteo", "PathOut": dirs["out"], **(user or {})}
     # lfuser values are not expanded: give them whole
-    user = {k: v.replace("$(PathRoot)", root) for k, v in user.items()}
+    user = {k: str(v).replace("$(PathRoot)", root) for k, v in user.items()}
     lines = ["<?xml version=\"1.0\" encoding=\"UTF-8\"?>", "<lfsettings>", "<lfuser>"]
     lines += [f'  <textvar name="{k}" value="{v}"/>' for k, v in user.items()]
     lines += ["</lfuser>", "<lfoptions>"]

@@ -10,8 +10,14 @@ reports) and on the InitLisflood prerun of the same catchment.
 Gates of the steps: float64 within 1e-10 of each field's max; float32
 within 3e-5 after one step and 1.5e-4 after more, CrossSection2Area on the
 Chan2M3Kin/4000 scale and Sideflow1Chan within 1e-2
-(tests/test_pallas_routing.py:53-60,87-108)."""
+(tests/test_pallas_routing.py:53-60,87-108).
+
+write_catchment's option inputs and output bindings: with each option that
+reads files of its own (inflow, water use with transient or static demand
+and the indicators, transient land use, the variable water fraction), and
+with the outputs bound, both build_models still agree bit for bit."""
 import dataclasses
+import datetime
 
 import numpy as np
 import pytest
@@ -50,16 +56,58 @@ def models(request, catchment):
             build_model(settings), settings)
 
 
-def test_build_model_arrays(models):
+def _same_arrays(jax_model, port_model):
     """params and state: the same keys, and every array the same bits
     (NaN-aware) with the same dtype."""
-    _, (_, jp, js, _), (_, tp, ts, _), _ = models
+    (_, jp, js, _), (_, tp, ts, _) = jax_model, port_model
     assert set(jp) == set(tp) and set(js) == set(ts)
     for ref, got in ((jp, tp), (js, ts)):
         for k, v in ref.items():
             a, b = np.asarray(v), np.asarray(got[k])
             assert a.dtype == b.dtype and a.shape == b.shape, k
             assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), k
+
+
+def test_build_model_arrays(models):
+    """params and state: the same keys, and every array the same bits
+    (NaN-aware) with the same dtype."""
+    _, jmodel, tmodel, _ = models
+    _same_arrays(jmodel, tmodel)
+
+
+# write_catchment's options that read inputs of their own, and the outputs
+OPTION_INPUTS = {
+    "inflow": {"inflow": True},
+    "water use, transient demand, indicators": {"wateruse": True,
+                                                "TransientWaterDemandChange": True,
+                                                "indicator": True},
+    "water use, static demand": {"wateruse": True},
+    "transient land use": {"TransientLandUseChange": True},
+    "variable water fraction": {"varfractionwater": True},
+    "outputs bound": None,
+}
+
+
+@pytest.mark.parametrize("case", list(OPTION_INPUTS))
+def test_build_model_option_inputs(tmp_path, case):
+    """Both build_models on write_catchment's option inputs (6 days from
+    28/12/1999, across a year end), bit for bit; the options' own entries
+    are there."""
+    opts = OPTION_INPUTS[case]
+    path = write_catchment(tmp_path, 48, 40, seed=2, n_steps=6, options=opts,
+                           outputs=opts is None, start=datetime.date(1999, 12, 28))
+    jmodel, tmodel = jax_build_model(jax_load_settings(path)), build_model(load_settings(path))
+    _same_arrays(jmodel, tmodel)
+    cfg, params, state, aux = tmodel
+    expected = {"inflow": ("InflowPoints", "inflow_tss"), "wateruse": ("WUseRegionC",),
+                "indicator": ("Population",), "TransientLandUseChange": ("ForestFraction",),
+                "varfractionwater": ("varW", "varW_day_to_month")}
+    for option in opts or ():
+        for k in expected.get(option, ()):
+            assert k in params or k in aux, (option, k)
+    assert cfg.water_use == bool((opts or {}).get("wateruse"))
+    if opts == {"wateruse": True}:
+        assert params["DomesticDemandMM"].shape == (cfg.num_pixels,)
 
 
 def test_build_model_config_and_schedules(models):

@@ -35,8 +35,9 @@ script exits non-zero:
      torch.profiler for the device's busy share;
   4. at the main-path shape: the chunk dependency graph (edges, longest
      chain), the kernel's block count, the co-resident limit and the ring
-     depth, its time (CUDA events over repeated launches) by block count
-     from 1 to the limit, and its bound; the plain version's
+     depth, its time (CUDA events over repeated launches queued behind a
+     sleep kernel, so the device's time: cuda_ms, which times every kernel)
+     by block count from 1 to the limit, and its bound; the plain version's
      time (one run, ~100 s) and the kernel held to it (float32, within 1e-5
      of each output's max);
   5. the all-options path: the continental model with every option of
@@ -79,10 +80,16 @@ script exits non-zero:
      consecutive days, one launch per step of each kernel, every state entry
      finite, one profiled step; the overland schedule's chunks, window and
      edges (edges required); K5, the overland sweep kernel, on the land
-     phase's operands against its plain version (float32 within 1e-5 of each
-     lane's max), the same bits for 1, 8, 32 and 132 blocks and in two runs,
-     its time by block count and its bound; the same in float64 at 240x200
-     (within 1e-12); the sub-step kernel's launch at chunk 256 held to its
+     phase's operands: the overland forest (trees, the largest, levels in a
+     tile) and the tile tables' host seconds; the kernel at its default tile
+     cap against its plain version (float32 within 1e-5 of each lane's max,
+     whether bitwise equal printed), the same bits in two runs and at the
+     caps of SWEEP_CAPS, its time at each cap and its bound; where its time
+     goes, from one traced launch (sweep_where: blocks resident per SM,
+     staging share, cycles per level, and the tile with the most levels in
+     the launch and alone); the same in float64 at 240x200 (within 1e-12), also at a
+     cap below its largest tree, where tiles keep q in global memory; the
+     sub-step kernel's launch at chunk 256 held to its
      plain version on its first 256 chunks, its time and bound;
   9. the settings-driven run (models/driver.py) on phase 8's catchment,
      written with its outputs bound: lisfloodexe in float32 (Precision
@@ -180,10 +187,13 @@ def smi_line():
 
 def cuda_ms(torch, fn, n_rep):
     """Mean milliseconds of `fn()` on the card over `n_rep` runs after one
-    warm-up run, from CUDA events."""
+    warm-up run, from CUDA events, the queue kept full: a sleep kernel holds
+    the stream while the host enqueues the runs, so a launch shorter than
+    its wrapper's host time is timed on the device."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(n_rep):
         fn()
@@ -725,7 +735,9 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
             "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
 
 
-SWEEP_BLOCKS = (1, 8, 32, 132)
+# tile caps of the overland sweep at which phase 8 checks the same bits and
+# times the kernel (its default, ops/wavefront.SWEEP_CAP, besides)
+SWEEP_CAPS = (256, 512, 2048, 4096, 8192)
 # chunks of the catchment's channel launch that phase 8 holds to the plain
 # version
 CATCHMENT_PREFIX = 256
@@ -760,16 +772,18 @@ def sweep_operands(step, s, f):
     return step.routers["tochan"].sweep_operands(q0, lat, adx, p["Beta"])
 
 
-def sweep_held(torch, kp, tochan, ops, beta, tol, what):
-    """The sweep kernel on `ops` against its plain version: within `tol` of
-    each lane's max, the same bits for every block count of SWEEP_BLOCKS and
-    in two runs. Returns (outputs, plan, max abs err, plain ms)."""
-    q = kp.kinwave_sweep(*ops, tochan.ups, tochan.deps, beta)
+def sweep_held(torch, kp, tochan, ops, beta, tol, what, caps=SWEEP_CAPS):
+    """The sweep kernel on `ops` at the default tile cap against its plain
+    version: within `tol` of each lane's max, whether bitwise equal, the same
+    bits in two runs and at every cap of `caps`. Returns (outputs, plan, max
+    abs err, plain ms)."""
+    q = kp.kinwave_sweep(*ops, tochan.sweep_tiles(), beta)
     plan = dict(kp.kinwave_sweep.last_plan)
-    by_blocks = all(same_bits({"q": q}, {"q": kp._launch_sweep(*ops, tochan.ups, tochan.deps, beta,
-                                                                blocks=g)})
-                    for g in SWEEP_BLOCKS if g <= plan["limit"])
-    twice = same_bits({"q": q}, {"q": kp.kinwave_sweep(*ops, tochan.ups, tochan.deps, beta)})
+    twice = same_bits({"q": q}, {"q": kp.kinwave_sweep(*ops, tochan.sweep_tiles(), beta)})
+    by_cap = {}
+    for cap in caps:
+        by_cap[cap] = same_bits({"q": q}, {"q": kp.kinwave_sweep(*ops, tochan.sweep_tiles(cap), beta)})
+        by_cap[cap] = (by_cap[cap], dict(kp.kinwave_sweep.last_plan))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = kp._sweep(*ops, tochan.ups.long(), beta)
@@ -778,15 +792,66 @@ def sweep_held(torch, kp, tochan, ops, beta, tol, what):
     diff = (q.double() - ref.double()).abs()
     rel = float((diff.amax(dim=(0, 2)) / ref.double().abs().amax(dim=(0, 2)).clamp_min(1e-300)).max())
     absd = float(diff.max())
+    bits = torch.int32 if q.dtype == torch.float32 else torch.int64
+    bitwise = bool(torch.equal(q.view(bits), ref.view(bits)))
     print(f"  {what}: sweep kernel vs plain max rel err {rel:.3e} of each lane's max (tol {tol:g}), "
-          f"max abs {absd:.3e}; {plan['blocks']} blocks of {ops[0].shape[1] * ops[0].shape[2]} "
-          f"threads (co-resident limit {plan['limit']}); the same bits with "
-          f"{', '.join(str(g) for g in SWEEP_BLOCKS if g <= plan['limit'])} blocks: {by_blocks}, "
-          f"in two runs: {twice}; plain version {plain_ms:.1f} ms (one run)", flush=True)
+          f"max abs {absd:.3e}, bitwise equal: {bitwise} ({int((q != ref).sum())} of {q.numel()} "
+          f"values differ); {plan['tiles']} tiles of at most {plan['cap']} positions, "
+          f"{plan['threads']} threads and {plan['smem_bytes']} shared bytes a block, "
+          f"{plan['global_tiles']} tiles with q in global memory; the same bits in two runs: "
+          f"{twice}, at caps "
+          + ", ".join(f"{c} ({p['tiles']} tiles, {p['global_tiles']} in global memory): {ok}"
+                      for c, (ok, p) in by_cap.items())
+          + f"; plain version {plain_ms:.1f} ms (one run)", flush=True)
     assert rel <= tol, f"the sweep kernel disagrees with its plain version: {rel}"
-    assert by_blocks and twice, (by_blocks, twice)
-    assert plan["limit"] >= max(SWEEP_BLOCKS), plan
+    assert twice and all(ok for ok, _ in by_cap.values()), (twice, by_cap)
     return q, plan, absd, plain_ms
+
+
+def tile_range(tiles, a, b):
+    """The SweepTiles of tiles a..b-1 of `tiles` alone (a diagnostic)."""
+    import dataclasses
+
+    import numpy as np
+    tp = tiles.tile_ptr.cpu().numpy().astype(np.int64)
+    lp = tiles.lvl_ptr.cpu().numpy().astype(np.int64)
+    K = tiles.ups.shape[0]
+    return dataclasses.replace(
+        tiles, tile_ptr=(tiles.tile_ptr[a:b + 1] - int(tp[a])).contiguous(),
+        pos=tiles.pos[tp[a]:tp[b]].contiguous(), slots=tiles.slots[K * tp[a]:K * tp[b]].contiguous(),
+        lvl_ptr=(tiles.lvl_ptr[a:b + 1] - int(lp[a])).contiguous(),
+        lvl_off=tiles.lvl_off[lp[a]:lp[b]].contiguous(), count=tiles.count[a:b],
+        padded=tiles.padded[a:b])
+
+
+def sweep_where(torch, kp, ops, tiles, beta):
+    """Where one launch of the sweep kernel spends its time, from its blocks'
+    records (kinwave_packed.sweep_trace): the launch's span on the global
+    clock, the blocks resident on an SM on average, the share of the blocks'
+    cycles spent staging, the cycles per level; and the tile with the most
+    levels, in the launch and launched alone: the kernel's critical path."""
+    import numpy as np
+
+    def records(t):
+        rec = kp.sweep_trace(*ops, t, beta)[1].astype(np.float64)
+        return rec[:, 1], rec[:, 2], rec[:, 3], rec[:, 4]
+    levels = np.diff(tiles.lvl_ptr.cpu().numpy()) - 1
+    g0, g1, staged, cycles = records(tiles)
+    span = g1.max() - g0.min()
+    ghz = cycles.sum() / (g1 - g0).sum()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    deep = int(np.argmax(levels))
+    a0, a1, a_staged, a_cycles = records(tile_range(tiles, deep, deep + 1))
+    print(f"  where the sweep's time goes (one traced launch at cap {tiles.cap}): span "
+          f"{span / 1e3:.2f} us on the global clock, {(g1 - g0).sum() / (span * n_sm):.2f} blocks "
+          f"resident per SM on average, a block {(g1 - g0).mean() / 1e3:.2f} us on average "
+          f"({staged.sum() / cycles.sum():.3f} of its cycles staging, {staged.mean() / ghz / 1e3:.2f} "
+          f"us), {((cycles - staged).sum() / levels.sum()):.0f} cycles per level at {ghz:.3f} GHz, "
+          f"{levels.sum()} levels in {levels.size} tiles; the tile with the most levels "
+          f"({levels[deep]}, {int(tiles.count[deep])} positions) takes "
+          f"{(g1[deep] - g0[deep]) / 1e3:.2f} us in the launch and {(a1[0] - a0[0]) / 1e3:.2f} us "
+          f"launched alone ({a_staged[0] / ghz / 1e3:.2f} us staging, "
+          f"{(a_cycles[0] - a_staged[0]) / levels[deep]:.0f} cycles per level)", flush=True)
 
 
 def phase_catchment(torch, ks, card, root):
@@ -835,8 +900,7 @@ def phase_catchment(torch, ks, card, root):
     print(f"  step built and moved to the card in {time.perf_counter() - t0:.1f} s; channel "
           f"schedule {kin.ps.n_chunks} chunks of {kin.ps.chunk}, window {kin.ps.window}; "
           f"overland schedule {tochan.ps.n_chunks} chunks of {tochan.ps.chunk}, window "
-          f"{tochan.ps.window}, {edges} edges, {tochan.ups.shape[0]} upstream rows, "
-          f"{tochan.deps.shape[1]} dependencies per chunk at most", flush=True)
+          f"{tochan.ps.window}, {edges} edges, {tochan.ups.shape[0]} upstream rows", flush=True)
     assert edges > 0 and not tochan.no_edges and kin.ps.chunk == 256
     s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sweeps=STEPS_RUN)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
@@ -851,23 +915,33 @@ def phase_catchment(torch, ks, card, root):
 
     print("  K5, the overland sweep, at the catchment's shape (float32):", flush=True)
     beta = float(p["Beta"])
+    tiles = tochan.sweep_tiles()
+    print(f"  overland forest: {tiles.stats['trees']} trees, the largest {tiles.stats['largest_tree']} "
+          f"cells, {tiles.stats['levels']} levels at most in a tile; tile tables at cap "
+          f"{tiles.cap} built in {tiles.stats['seconds']:.2f} s on the host with the step",
+          flush=True)
     ops = sweep_operands(multi.step, s, forcing[0])
     q5, plan, absd, plain_ms = sweep_held(torch, kp, tochan, ops, beta, 1e-5,
                                           "1200x1000 catchment")
-    scan = {g: cuda_ms(torch, lambda: kp._launch_sweep(*ops, tochan.ups, tochan.deps, beta,
-                                                       blocks=g), N_REP)
-            for g in SWEEP_BLOCKS if g <= plan["limit"]}
-    sweep_ms = cuda_ms(torch, lambda: kp.kinwave_sweep(*ops, tochan.ups, tochan.deps, beta), N_REP)
+    by_cap = {}
+    for cap in (tiles.cap, *SWEEP_CAPS):
+        t = tochan.sweep_tiles(cap)
+        by_cap[cap] = (cuda_ms(torch, lambda: kp.kinwave_sweep(*ops, t, beta), N_REP),
+                       t.stats["seconds"])
+    sweep_ms = by_cap[tiles.cap][0]
     bound_ms, bound_by = sweep_bound(ops, q5, edges)
-    print(f"  sweep kernel {sweep_ms:.4f} ms/launch (mean of {N_REP}), by blocks: {scan_text(scan)}; "
-          f"launches per step 1 ({launches} steps); bound {bound_ms:.4f} ms ({bound_by}); "
+    print(f"  sweep kernel {sweep_ms:.4f} ms/launch (mean of {N_REP}); by cap (ms, tables' host s): "
+          + ", ".join(f"{c}: {m:.4f}, {b:.2f}" for c, (m, b) in sorted(by_cap.items()))
+          + f"; launches per step 1 ({launches} steps); bound {bound_ms:.4f} ms ({bound_by}); "
           f"plain version {plain_ms:.1f} ms; card {card}", flush=True)
-    sweep = {"ms": sweep_ms, "bound_ms": bound_ms, "bound_by": bound_by, "blocks": plan["blocks"],
-             "ms_one_block": scan[1], "launches": STEPS_RUN, "plain_ms": plain_ms,
+    sweep_where(torch, kp, ops, tiles, beta)
+    sweep = {"ms": sweep_ms, "bound_ms": bound_ms, "bound_by": bound_by, "tiles": plan["tiles"],
+             "cap": plan["cap"], "launches": STEPS_RUN, "plain_ms": plain_ms,
              "max_abs_err": absd, "plain_shape": "1200x1000 catchment, overland, float32"}
     del ops, q5
 
-    # the float64 sweep at 240x200
+    # the float64 sweep at 240x200, also with a cap below its largest tree so
+    # that tiles keep q in global memory
     with tempfile.TemporaryDirectory() as tmp:
         st = load_settings(write_catchment(tmp, 240, 200, seed=1, n_steps=1, nc_format="classic"))
         cfg_m, params_m, state_m, aux_m = build_model(st)
@@ -875,7 +949,12 @@ def phase_catchment(torch, ks, card, root):
     step_m, _ = build_step(cfg_m, params_m, aux_m, dtype=torch.float64, device="cuda")
     ops_m = sweep_operands(step_m, step_m.prepare_state(state_m),
                            to_device(f_m, "cuda", torch.float64))
-    sweep_held(torch, kp, step_m.routers["tochan"], ops_m, beta, 1e-12, "240x200 catchment, float64")
+    tochan_m = step_m.routers["tochan"]
+    small = max(tochan_m.sweep_tiles().stats["largest_tree"] // 2, 1)
+    sweep_held(torch, kp, tochan_m, ops_m, beta, 1e-12, "240x200 catchment, float64",
+               caps=(small, *SWEEP_CAPS))
+    kp.kinwave_sweep(*ops_m, tochan_m.sweep_tiles(small), beta)
+    assert kp.kinwave_sweep.last_plan["global_tiles"] > 0, kp.kinwave_sweep.last_plan
     del step_m, ops_m
 
     print("  the sub-step kernel at chunk 256 on this path:", flush=True)

@@ -1,9 +1,9 @@
-// Device helpers shared by the port's wavefront kernels, kinwave_substep.cu
-// (the channel-routing sub-steps) and kinwave_sweep.cu (the overland sweep):
-// the kinematic-wave Newton solves of ops/kinwave_packed.py and the progress
-// flags through which persistent blocks meet (a release store after a
-// barrier publishes a chunk; one thread polls with acquire loads, then a
-// barrier, before the block reads what the flag guards).
+// Device helpers shared by the port's kernels, kinwave_substep.cu (the
+// channel-routing sub-steps) and kinwave_sweep.cu (the overland sweep): the
+// kinematic-wave Newton solves of ops/kinwave_packed.py, and, for the sub-step
+// kernel's persistent blocks, the progress flags through which they meet (a
+// release store after a barrier publishes a chunk; one thread polls with
+// acquire loads, then a barrier, before the block reads what the flag guards).
 #pragma once
 
 #include <cuda_runtime.h>

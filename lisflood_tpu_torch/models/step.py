@@ -104,8 +104,13 @@ def build_routers(cfg, aux, device):
     if cfg.routing_kernel != "packed":
         raise NotImplementedError(
             f"routing_kernel={cfg.routing_kernel!r}: the port has the packed router only")
-    return {"kin": PackedRouter(aux["schedule_kin"], device),
-            "tochan": PackedRouter(aux["schedule_tochan"], device)}
+    routers = {"kin": PackedRouter(aux["schedule_kin"], device),
+               "tochan": PackedRouter(aux["schedule_tochan"], device)}
+    if not routers["tochan"].no_edges:
+        # the overland router sweeps: its tile tables are built with the step,
+        # so that its first step does not pay for them
+        routers["tochan"].sweep_tiles()
+    return routers
 
 
 def packed_routing_params(cfg, params_np, ps):

@@ -10,23 +10,27 @@ transcendental-free polynomial v^5 + a*v^3 = c.
 The JAX package's `_sweep` (an XLA scan that scatters each chunk's discharge
 into a rolling window with a one-hot matrix product) is `kinwave_sweep`
 here: the CUDA kernel csrc/kinwave_sweep.cu on a CUDA device, and its plain
-PyTorch version `_sweep` on the CPU. Both gather every position's upstream
-inflow from its sources in ascending order (ops/wavefront.upstream_table), so
-they agree to rounding and have the same bits in every run. The sweep serves
-overland routing on schedules with edges (every catchment built from maps);
-an edge-free schedule (the synthetic model marks every cell a channel) solves
+PyTorch version `_sweep` on the CPU. The plain version runs chunk by chunk;
+the kernel runs tiles of whole trees of the overland forest, level by level
+(the tables of ops/wavefront.sweep_tiles, which the overland router builds
+with the step). Both sum every position's upstream inflow from its sources in
+ascending order (ops/wavefront.upstream_table), so they agree to rounding
+and have the same bits in every run. The sweep serves overland routing on
+schedules with edges (every catchment built from maps); an edge-free
+schedule (the synthetic model marks every cell a channel) solves
 elementwise with `newton_solve`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .wavefront import upstream_table, wavefront_tables
+from .wavefront import SWEEP_CAP, TILE_ALIGN, sweep_tiles, upstream_table
 
 NEWTON_TOL = 1e-12
 # 6 masked q-space iterations reach <=1e-12 over the adversarial sweep in
@@ -199,11 +203,61 @@ def _sweep(const_p, adx_p, ups, beta):
     return qs
 
 
+@dataclass(frozen=True)
+class SweepTiles:
+    """The overland sweep's tables on one device: the tile tables of
+    ops/wavefront.sweep_tiles, which the kernel reads, and the source table
+    `ups` (K, p_pad), which the plain version reads. `count` and `padded`
+    are the tiles' entry counts on the host; `stats` the host function's
+    counts and the build's host seconds."""
+
+    ups: torch.Tensor
+    tile_ptr: torch.Tensor
+    pos: torch.Tensor
+    slots: torch.Tensor
+    lvl_ptr: torch.Tensor
+    lvl_off: torch.Tensor
+    cap: int
+    count: np.ndarray
+    padded: np.ndarray
+    stats: dict
+
+    @property
+    def n_tiles(self):
+        return self.count.size
+
+    def n_smem(self, n_fit):
+        """The largest padded tile within the cap that `n_fit` entries of
+        shared memory hold: tiles up to it keep q in shared memory."""
+        ok = (self.count <= self.cap) & (self.padded <= n_fit)
+        return int(self.padded[ok].max()) if ok.any() else 0
+
+
+def sweep_tables(down_pos, ups, cap=SWEEP_CAP):
+    """SweepTiles of a packed schedule's graph, from its down_pos (p_pad,)
+    and its source table `ups`, a (K, p_pad) int32 tensor: on ups's device,
+    tiles of at most `cap` positions."""
+    t0 = time.perf_counter()
+    device = ups.device
+    tab = sweep_tiles(down_pos, ups.cpu().numpy(), ups.shape[1], cap)
+    tile_ptr = tab["tile_ptr"].astype(np.int64)
+    lvl_end = tab["lvl_off"][tab["lvl_ptr"][1:] - 1]
+    dev = lambda k: torch.as_tensor(tab[k], device=device)
+    stats = {k: tab[k] for k in ("trees", "largest_tree", "levels", "largest_tile")}
+    stats["seconds"] = time.perf_counter() - t0
+    return SweepTiles(ups=ups, tile_ptr=dev("tile_ptr"),
+                      pos=dev("pos"), slots=dev("slots"), lvl_ptr=dev("lvl_ptr"),
+                      lvl_off=dev("lvl_off"), cap=int(cap), count=lvl_end.astype(np.int64),
+                      padded=np.diff(tile_ptr), stats=stats)
+
+
 class _SweepArgs(ctypes.Structure):
     """Mirror of struct SweepArgs in csrc/kinwave_sweep.cu."""
-    _fields_ = ([(k, ctypes.c_int) for k in ("n_chunks", "chunk", "lanes", "K", "D", "blocks")]
+    _fields_ = ([(k, ctypes.c_int) for k in ("n_tiles", "chunk", "lanes", "K", "n_smem",
+                                             "threads")]
                 + [("beta", ctypes.c_double)]
-                + [(k, ctypes.c_void_p) for k in ("cst", "adx", "q", "ups", "deps", "ctrl")])
+                + [(k, ctypes.c_void_p) for k in ("cst", "adx", "q", "tile_ptr", "pos", "slots",
+                                                  "lvl_ptr", "lvl_off", "trace")])
 
 
 @functools.cache
@@ -211,11 +265,10 @@ def _sweep_library():
     from . import _build
     lib = _build.load("kinwave_sweep")
     int_p = ctypes.POINTER(ctypes.c_int)
-    lib.kinwave_sweep_plan.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_int, ctypes.c_int,
-                                       int_p, int_p]
-    lib.kinwave_sweep_plan.restype = ctypes.c_int
+    lib.kinwave_sweep_smem.argtypes = [ctypes.c_int, int_p, int_p]
+    lib.kinwave_sweep_smem.restype = ctypes.c_int
     lib.kinwave_sweep_launch.argtypes = [ctypes.POINTER(_SweepArgs), ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p]
+                                         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.kinwave_sweep_launch.restype = ctypes.c_int
     lib.kinwave_sweep_error_string.argtypes = [ctypes.c_int]
     lib.kinwave_sweep_error_string.restype = ctypes.c_char_p
@@ -228,79 +281,123 @@ def _sweep_check(lib, rc, what):
                            + lib.kinwave_sweep_error_string(rc).decode())
 
 
+def sweep_fit(optin, static_bytes, L, K, itemsize):
+    """The padded entries (a multiple of TILE_ALIGN) of the largest tile
+    whose q and tables fit a block's shared memory: `optin` bytes a block
+    can have, less the kernel's `static_bytes`, over the bytes of an entry
+    (const/q and adx of L lanes, K source slots rounded up to 4 or 8 rows,
+    one offset; as entry_bytes in csrc/kinwave_sweep.cu)."""
+    entry = 2 * L * itemsize + 4 * (4 if K <= 4 else 8) + 4
+    return max(optin - static_bytes, 0) // entry // TILE_ALIGN * TILE_ALIGN
+
+
 @functools.cache
-def _sweep_plan(device_index, n_chunks, C, L, K, D, is_double, poly):
-    """(blocks, co-resident limit) of the launcher's rule for one shape and
-    element type, asked of the library once."""
+def _sweep_smem(device_index, is_double):
+    """(opt-in shared bytes of a block, the kernel's static shared bytes) on
+    one device, asked of the library once."""
     lib = _sweep_library()
-    args = _SweepArgs(n_chunks=n_chunks, chunk=C, lanes=L, K=K, D=D)
-    planned, limit = ctypes.c_int(0), ctypes.c_int(0)
+    optin, static = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _sweep_check(lib, lib.kinwave_sweep_plan(ctypes.byref(args), is_double, poly,
-                                                 ctypes.byref(planned), ctypes.byref(limit)),
-                     "plan")
-    return planned.value, limit.value
+        _sweep_check(lib, lib.kinwave_sweep_smem(is_double, ctypes.byref(optin),
+                                                 ctypes.byref(static)), "shared memory query")
+    return optin.value, static.value
 
 
-def _launch_sweep(const_p, adx_p, ups, deps, beta, blocks=None):
-    """One launch of csrc/kinwave_sweep.cu on the current stream, with the
-    launcher's number of blocks (`blocks` overrides it: a diagnostic,
-    refused above the co-resident limit). The plan is left in
-    `kinwave_sweep.last_plan`."""
+# threads per block of the sweep kernel: four blocks of 512 fill an SM's 2,048
+# threads, and most levels of a tile of SWEEP_CAP positions fit one round
+SWEEP_THREADS = 512
+
+
+def _launch_sweep(const_p, adx_p, tiles, beta, trace=None):
+    """One launch of csrc/kinwave_sweep.cu on the current stream, one block
+    per tile. The plan is left in `kinwave_sweep.last_plan`. `trace`, an
+    int64 (n_tiles, 5) tensor on the card, gets each block's record (see
+    sweep_trace)."""
     n_chunks, L, C = const_p.shape
     lib = _sweep_library()
     dev = const_p.device
+    K = tiles.ups.shape[0]
     is_double = int(const_p.dtype == torch.float64)
     poly = int(const_p.dtype == torch.float32 and abs(float(beta) - 0.6) < 1e-9)
-    planned, limit = _sweep_plan(dev.index, n_chunks, C, L, ups.shape[0], deps.shape[1],
-                                 is_double, poly)
+    n_smem = tiles.n_smem(sweep_fit(*_sweep_smem(dev.index, is_double), L, K,
+                                    const_p.element_size()))
     q = torch.empty_like(const_p)
-    ctrl = torch.zeros(n_chunks + 1, dtype=torch.int32, device=dev)
-    args = _SweepArgs(n_chunks=n_chunks, chunk=C, lanes=L, K=ups.shape[0], D=deps.shape[1],
-                      blocks=planned if blocks is None else int(blocks),
+    args = _SweepArgs(n_tiles=tiles.n_tiles, chunk=C, lanes=L, K=K, n_smem=n_smem,
+                      threads=SWEEP_THREADS,
                       beta=float(beta), cst=const_p.data_ptr(), adx=adx_p.data_ptr(),
-                      q=q.data_ptr(), ups=ups.data_ptr(), deps=deps.data_ptr(),
-                      ctrl=ctrl.data_ptr())
+                      q=q.data_ptr(), tile_ptr=tiles.tile_ptr.data_ptr(),
+                      pos=tiles.pos.data_ptr(), slots=tiles.slots.data_ptr(),
+                      lvl_ptr=tiles.lvl_ptr.data_ptr(), lvl_off=tiles.lvl_off.data_ptr(),
+                      trace=None if trace is None else trace.data_ptr())
+    smem = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _sweep_check(lib, lib.kinwave_sweep_launch(ctypes.byref(args), is_double, poly,
-                                                   ctypes.c_void_p(stream)), "launch")
+                                                   ctypes.c_void_p(stream), ctypes.byref(smem)),
+                     "launch")
     kinwave_sweep.launches += 1
-    kinwave_sweep.last_plan = {"blocks": args.blocks, "limit": limit}
+    kinwave_sweep.last_plan = {"tiles": tiles.n_tiles, "cap": tiles.cap,
+                               "threads": SWEEP_THREADS,
+                               "smem_bytes": smem.value,
+                               "global_tiles": int((tiles.padded > n_smem).sum())}
     return q
 
 
-def _check_sweep(const_p, adx_p, ups, deps):
-    """Device, dtype, shape and contiguity of the sweep's operands."""
+def _check_sweep(const_p, adx_p, tiles):
+    """Device, dtype, shape and contiguity of the sweep's operands and
+    tables."""
     n_chunks, L, C = const_p.shape
+    if const_p.numel() >= 2 ** 31:
+        raise ValueError(f"const: {const_p.numel()} elements, the kernel indexes with int32")
     if const_p.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"const: dtype {const_p.dtype}")
     if tuple(adx_p.shape) != tuple(const_p.shape) or adx_p.dtype != const_p.dtype:
         raise ValueError(f"adx: {tuple(adx_p.shape)} {adx_p.dtype}, want const's")
+    ups = tiles.ups
     if ups.dim() != 2 or ups.shape[1] != n_chunks * C or not 1 <= ups.shape[0] <= 8:
         raise ValueError(f"ups: shape {tuple(ups.shape)}, want (1..8, {n_chunks * C})")
-    if deps.dim() != 2 or deps.shape[0] != n_chunks:
-        raise ValueError(f"deps: shape {tuple(deps.shape)}, want ({n_chunks}, D)")
-    for name, v in (("const", const_p), ("adx", adx_p), ("ups", ups), ("deps", deps)):
+    n_tiles, N = tiles.n_tiles, int(tiles.padded.sum())
+    want = {"tile_ptr": n_tiles + 1, "lvl_ptr": n_tiles + 1, "pos": N,
+            "slots": ups.shape[0] * N, "lvl_off": None}
+    for name, size in want.items():
+        v = getattr(tiles, name)
+        if v.dim() != 1 or (size is not None and v.shape[0] != size):
+            raise ValueError(f"{name}: shape {tuple(v.shape)}, want ({size},)")
+    for name, v in (("const", const_p), ("adx", adx_p), ("ups", ups),
+                    *((k, getattr(tiles, k)) for k in want)):
         if v.device != const_p.device or not v.is_contiguous():
             raise ValueError(f"{name}: not contiguous on {const_p.device}")
+        if name not in ("const", "adx") and v.dtype != torch.int32:
+            raise TypeError(f"{name}: dtype {v.dtype}, want int32")
 
 
-def kinwave_sweep(const_p, adx_p, ups, deps, beta):
+def kinwave_sweep(const_p, adx_p, tiles, beta):
     """One kinematic-wave time step over a packed schedule: const_p / adx_p
-    (n_chunks, L, C), ups (K, n_chunks * C) int32 and deps (n_chunks, D)
-    int32 from ops/wavefront. A CUDA tensor launches the kernel (and counts
-    the launch in `kinwave_sweep.launches`), a CPU tensor runs the plain
-    version `_sweep`; any other device raises. Returns q (n_chunks, L, C)."""
-    _check_sweep(const_p, adx_p, ups, deps)
+    (n_chunks, L, C) and the SweepTiles of its graph (sweep_tables). A CUDA
+    tensor launches the kernel (and counts the launch in
+    `kinwave_sweep.launches`), a CPU tensor runs the plain version `_sweep`;
+    any other device raises. Returns q (n_chunks, L, C)."""
+    _check_sweep(const_p, adx_p, tiles)
     kind = const_p.device.type
     if kind == "cuda":
-        if ups.dtype != torch.int32 or deps.dtype != torch.int32:
-            raise TypeError("ups and deps: int32 on the card")
-        return _launch_sweep(const_p, adx_p, ups, deps, beta)
+        return _launch_sweep(const_p, adx_p, tiles, beta)
     if kind == "cpu":
-        return _sweep(const_p, adx_p, ups.long(), beta)
+        return _sweep(const_p, adx_p, tiles.ups.long(), beta)
     raise RuntimeError(f"no sweep kernel for device {kind!r}")
+
+
+def sweep_trace(const_p, adx_p, tiles, beta):
+    """One launch of the sweep kernel on CUDA tensors with each block's
+    record, as a NumPy (n_tiles, 5) int64 array: the block's SM, the global
+    nanosecond clock at its start and at its end, and its SM's cycles from
+    its start to the end of its staging and to its end. Returns (q,
+    records). The launch is counted as any other."""
+    _check_sweep(const_p, adx_p, tiles)
+    if const_p.device.type != "cuda":
+        raise RuntimeError("sweep_trace: the records come from the kernel, on a CUDA device")
+    trace = torch.zeros(tiles.n_tiles, 5, dtype=torch.int64, device=const_p.device)
+    q = _launch_sweep(const_p, adx_p, tiles, beta, trace=trace)
+    return q, trace.cpu().numpy()
 
 
 kinwave_sweep.launches = 0
@@ -322,14 +419,24 @@ class PackedRouter:
         self.perm = torch.as_tensor(
             np.where(ps.perm < ps.num_pixels, ps.perm, ps.num_pixels), device=self.device)
         self.inv_perm = torch.as_tensor(ps.inv_perm, device=self.device)
-        if not self.no_edges:
-            # the sweep's tables: every position's sources, ascending, and the
-            # chunks each chunk gathers from
-            has_down = ps.down_pos < ps.p_pad
-            ups = upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down], ps.p_pad)
-            deps = wavefront_tables(ps.n_chunks, ps.chunk, ps.window, ups)["wf_deps"]
-            self.ups = torch.as_tensor(ups, device=self.device)
-            self.deps = torch.as_tensor(deps, device=self.device)
+        self._tiles = {}
+
+    @functools.cached_property
+    def ups(self):
+        """(K, p_pad) int32: every position's sources, ascending, -1 = none."""
+        ps = self.ps
+        has_down = ps.down_pos < ps.p_pad
+        return torch.as_tensor(
+            upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down], ps.p_pad),
+            device=self.device)
+
+    def sweep_tiles(self, cap=SWEEP_CAP):
+        """The sweep's SweepTiles at `cap`, built at first use, once per
+        cap: only the router that sweeps, the overland one, pays for them
+        (models/step.build_routers builds them with the step)."""
+        if cap not in self._tiles:
+            self._tiles[cap] = sweep_tables(self.ps.down_pos, self.ups, cap)
+        return self._tiles[cap]
 
     def pack(self, x, fill=0.0):
         """Natural (..., P) -> packed (..., p_pad) reorder on the device."""
@@ -356,7 +463,7 @@ class PackedRouter:
             constant = a_dx_div_dt * discharge ** beta + lateral_inflow
             return newton_solve(constant, a_dx_div_dt, float(beta))
         qs = kinwave_sweep(*self.sweep_operands(discharge, lateral_inflow, a_dx_div_dt, beta),
-                           self.ups, self.deps, float(beta))
+                           self.sweep_tiles(), float(beta))
         return self.unpack(qs.transpose(0, 1).reshape(discharge.shape[0], self.ps.p_pad))
 
     def route(self, discharge, lateral_inflow, a_dx_div_dt, beta):

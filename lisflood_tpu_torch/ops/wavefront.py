@@ -1,7 +1,8 @@
-"""Host-built tables of the port's wavefront kernels (csrc/kinwave_substep.cu
-and csrc/kinwave_sweep.cu): the upstream sources of every schedule position
-in the order the kernels sum them, and the per-chunk lists of the flag
-protocol through which their persistent blocks meet."""
+"""Host-built tables of the port's kernels (csrc/kinwave_substep.cu and
+csrc/kinwave_sweep.cu): the upstream sources of every schedule position in
+the order the kernels sum them; the per-chunk lists of the flag protocol
+through which the sub-step kernel's persistent blocks meet; and the overland
+sweep's tiles of whole trees."""
 from __future__ import annotations
 
 import numpy as np
@@ -103,3 +104,116 @@ def wavefront_tables(n_chunks, C, W, ups, ev_ups=None, lk_pos=None, lk_fee=None,
     if not pos.size:
         out["wf_fee_ord"] = np.full((1, FEEDERS), -1, np.int32)
     return out
+
+
+# the overland sweep's tile size: positions of whole trees per block
+# (csrc/kinwave_sweep.cu); 1024 was the fastest of 256-4096 on an H100 at the
+# 1200x1000 overland graph (chip_smoke.py phase 8)
+SWEEP_CAP = 1024
+# entries of a tile's tables are padded to a multiple of this, so that every
+# tile's tables start on a 16-byte boundary (the kernel's cp.async copies)
+TILE_ALIGN = 8
+
+
+def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
+    """The overland sweep's tile tables, as NumPy arrays, from the
+    downstream position of every schedule position (p_pad = none) and its
+    source table `ups` (K, p_pad) (upstream_table, ascending).
+
+    Every position belongs to one tree, rooted at the position that has no
+    downstream; padding positions are single-cell trees. Tiles hold whole
+    trees, up to `cap` positions; a tree larger than `cap` has a tile of its
+    own. Trees are packed by depth class (ceil(log2(depth + 1)), deepest
+    first), in the order of their roots' positions within a class: a tile
+    runs as many levels as its deepest tree, so trees of like depth share
+    tiles, while root order keeps a tile's positions close together. A
+    position's level in its tile is the tile's greatest depth less its own
+    depth below its root, so every source lies one level below its target,
+    and a level is one band of equal distance to the pits, which a schedule
+    ordered by that distance (graph/ldd.build_schedule) keeps contiguous.
+    Per tile, its entries are sorted by (level, position) and padded to a
+    multiple of TILE_ALIGN:
+
+      tile_ptr (n_tiles + 1,): the first entry of each tile;
+      pos (N,): each entry's schedule position, -1 on the padding;
+      slots (K * N,): tile t's block of K rows of n_pad (its padded entry
+          count) from K * tile_ptr[t]: each entry's sources as entries of
+          its tile, in the order of `ups`, -1 where none;
+      lvl_ptr (n_tiles + 1,), lvl_off: tile t's level offsets
+          lvl_off[lvl_ptr[t]:lvl_ptr[t + 1]], from 0 to its entry count.
+
+    Also returns counts for the reports: trees, the largest tree, the most
+    levels of a tile, the largest tile."""
+    if cap < 1:
+        raise ValueError(f"sweep_tiles: cap {cap} < 1")
+    down = np.asarray(down_pos, np.int64)
+    ups = np.asarray(ups, np.int64)
+    K = ups.shape[0]
+    idx = np.arange(p_pad)
+
+    # depth below the root and the root, from the roots up through `ups`
+    depth = np.full(p_pad, -1, np.int64)
+    root = np.full(p_pad, -1, np.int64)
+    front = np.flatnonzero(down >= p_pad)
+    root[front] = front
+    d = 0
+    while front.size:
+        depth[front] = d
+        src = ups[:, front]
+        on = src >= 0
+        root[src[on]] = np.broadcast_to(root[front], src.shape)[on]
+        front = src[on]
+        d += 1
+    if (depth < 0).any():
+        raise ValueError("sweep_tiles: the graph has a cycle")
+
+    # trees by depth class, deepest first, in the order of their roots within
+    # a class, packed whole into tiles of <= cap
+    roots, tree_of, size = np.unique(root, return_inverse=True, return_counts=True)
+    height = np.zeros(roots.size, np.int64)
+    np.maximum.at(height, tree_of, depth)
+    rank = np.lexsort((roots, -np.ceil(np.log2(height + 1))))
+    cum = np.cumsum(size[rank])
+    first = []
+    i = 0
+    while i < roots.size:
+        first.append(i)
+        base = cum[i - 1] if i else 0
+        i = max(int(np.searchsorted(cum, base + cap, side="right")), i + 1)
+    opens = np.zeros(roots.size, np.int64)
+    opens[first[1:]] = 1
+    tile_of_tree = np.empty(roots.size, np.int64)
+    tile_of_tree[rank] = np.cumsum(opens)
+    tile = tile_of_tree[tree_of]
+    n_tiles = len(first)
+    levels = np.zeros(n_tiles, np.int64)
+    np.maximum.at(levels, tile, depth + 1)
+    level = levels[tile] - 1 - depth
+    order = np.lexsort((idx, level, tile))
+    count = np.bincount(tile, minlength=n_tiles)
+    padded = -(-count // TILE_ALIGN) * TILE_ALIGN
+    tile_ptr = np.r_[0, np.cumsum(padded)]
+    start = np.r_[0, np.cumsum(count)][:-1]
+    t_sorted = tile[order]
+    local = np.arange(p_pad) - start[t_sorted]
+    slot = np.empty(p_pad, np.int64)
+    slot[order] = local
+    N = int(tile_ptr[-1])
+    pos = np.full(N, -1, np.int32)
+    pos[tile_ptr[t_sorted] + local] = order
+
+    slots = np.full(K * N, -1, np.int32)
+    base = K * tile_ptr[t_sorted] + local
+    for k in range(K):
+        src = ups[k, order]
+        on = src >= 0
+        slots[base[on] + k * padded[t_sorted[on]]] = slot[src[on]]
+
+    lvl_ptr = np.r_[0, np.cumsum(levels + 1)]
+    at_level = np.bincount(lvl_ptr[tile] + 1 + level, minlength=int(lvl_ptr[-1]))
+    run = np.cumsum(at_level)
+    lvl_off = run - np.repeat(run[lvl_ptr[:-1]], levels + 1)
+    return {"tile_ptr": tile_ptr.astype(np.int32), "pos": pos, "slots": slots,
+            "lvl_ptr": lvl_ptr.astype(np.int32), "lvl_off": lvl_off.astype(np.int32),
+            "trees": int(roots.size), "largest_tree": int(size.max()),
+            "levels": int(levels.max()), "largest_tile": int(count.max())}

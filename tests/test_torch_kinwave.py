@@ -134,30 +134,39 @@ def test_sweep_overland_graph(dtype, tol):
 
 def test_sweep_tables_and_repeatability():
     """The sweep's tables: every position's sources ascending (-1 after
-    them) and pointing to earlier chunks, every dependency a lower chunk
-    within the window W, and a chunk depends on exactly the chunks its
-    sources lie in. The plain version gives the same bits in two runs."""
+    them) and pointing to earlier chunks; the tile tables hold every
+    position once, and every source in its target's tile, earlier in the
+    tile's (level, position) order. The plain version gives the same bits
+    in two runs."""
     router = K.PackedRouter(_overland_schedule(), "cpu")
     ps = router.ps
-    ups, deps = router.ups.numpy(), router.deps.numpy()
+    tiles = router.sweep_tiles()
+    ups = router.ups.numpy()
     C = ps.chunk
-    assert ups.dtype == np.int32 and deps.dtype == np.int32 and ups.shape[0] <= 8
+    assert ups.dtype == np.int32 and ups.shape[0] <= 8
     for pos in range(ps.p_pad):
         col = ups[:, pos]
         src = col[col >= 0]
         assert (col[src.size:] == -1).all() and (np.diff(src) > 0).all()
         assert (ps.down_pos[src] == pos).all() and (src // C < pos // C).all()
     assert ((ps.down_pos < ps.p_pad).sum()) == (ups >= 0).sum()
-    for c in range(ps.n_chunks):
-        d = deps[c][deps[c] >= 0]
-        assert ((d < c) & (d >= c - ps.window)).all()
-        want = np.unique(ups[:, c * C:(c + 1) * C][ups[:, c * C:(c + 1) * C] >= 0] // C)
-        np.testing.assert_array_equal(np.sort(d), want)
+    tile_ptr, pos, slots = (getattr(tiles, k).numpy() for k in ("tile_ptr", "pos", "slots"))
+    assert all(getattr(tiles, k).dtype == torch.int32
+               for k in ("tile_ptr", "pos", "slots", "lvl_ptr", "lvl_off"))
+    np.testing.assert_array_equal(np.sort(pos[pos >= 0]), np.arange(ps.p_pad))
+    Kr = ups.shape[0]
+    for t in range(tiles.n_tiles):
+        b, n_pad = tile_ptr[t], tile_ptr[t + 1] - tile_ptr[t]
+        sl = slots[Kr * b:Kr * (b + n_pad)].reshape(Kr, n_pad)
+        for e in range(tiles.count[t]):
+            s = sl[:, e][sl[:, e] >= 0]
+            assert (s < e).all()
+            np.testing.assert_array_equal(pos[b + s], ups[:s.size, pos[b + e]])
     rng = np.random.default_rng(2)
     shape = (ps.n_chunks, 3, C)
     const = torch.as_tensor(rng.uniform(0, 1, shape), dtype=torch.float32)
     adx = torch.as_tensor(rng.uniform(0.1, 10, shape), dtype=torch.float32)
-    a = K.kinwave_sweep(const, adx, router.ups, router.deps, 0.6)
-    b = K.kinwave_sweep(const, adx, router.ups, router.deps, 0.6)
+    a = K.kinwave_sweep(const, adx, tiles, 0.6)
+    b = K.kinwave_sweep(const, adx, tiles, 0.6)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert K.kinwave_sweep.launches == 0      # the CPU runs the plain version

@@ -108,7 +108,26 @@ script exits non-zero:
      reckoned device memory, the sub-step kernel's ring included, does not
      fit 90% of the card), one filter step, per-member PCRaster outputs: ms
      per member-day, the ring's bytes, one launch of each kernel per
-     ensemble day, every member's files present and finite.
+     ensemble day, every member's files present and finite;
+ 10. RoutingKernel sharded (SHARDS = 4 logical shards) on phase 8's
+     catchment, float32: the host seconds of catchment_partition, of both
+     sharded schedules (channel and overland) and of their routers, with
+     each schedule's chunks, window, K and cut edges (cut edges required on
+     the overland graph); the step through build_multi_step, one warm-up
+     day and a timed batch of SHARDED_DAYS, with NoRoutSteps + 1 launches of
+     K6 (csrc/kinwave_sharded.cu) a step and none of the sub-step kernel or
+     K5, every state entry finite, one profiled step; K6 against its plain
+     version on the land phase's overland operands and on one channel
+     sub-step's operands (float32 within 1e-5 of each lane's max, whether
+     bitwise equal printed, the same bits in two runs), its time on both
+     and its bound; the float32 sharded state after SHARDED_DAYS days
+     against phase 8's packed state after the same days from the same
+     start (printed only: the two paths sum in other orders); lisfloodexe
+     with RoutingKernel sharded over SHARDED_DAYS days, its seconds per
+     simulated day and launches; K6 in float64 on the synthetic 240x200
+     channel graph (48 cut edges) within 1e-12; the float64 sharded step
+     on the card against the CPU on a 96x80 catchment (overland cut edges),
+     SHARDED_DAYS days, within 1e-10 of each field's max.
 The operands on which the kernel is held to its plain version are drawn with
 fixed-order sums (fixed_order_sums), so that every run compares on the same
 numbers.
@@ -116,7 +135,8 @@ Run as `python3 chip_smoke.py --side-flag-ab` it only times the main path's
 kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
 The line before the last but one is a JSON object of per-kernel figures (the
-sub-step kernel on its five paths, and kinwave_sweep); then the card's name
+sub-step kernel on its five paths, kinwave_sweep and kinwave_sharded); then
+the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
 """
@@ -475,6 +495,22 @@ def stack_forcing(torch, fs):
     return {k: torch.stack([f[k] for f in fs]) for k in fs[0]}
 
 
+def reset_launches():
+    """Sets every kernel wrapper's launch count to 0."""
+    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep
+    kinwave_substep.kinwave_substep.launches = 0
+    kinwave_packed.kinwave_sweep.launches = 0
+    kinwave_sharded.kinwave_sharded_sweep.launches = 0
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel."""
+    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep
+    return {"kinwave_substep": kinwave_substep.kinwave_substep.launches,
+            "kinwave_sweep": kinwave_packed.kinwave_sweep.launches,
+            "kinwave_sharded": kinwave_sharded.kinwave_sharded_sweep.launches}
+
+
 def timed_batches(torch, ks, run, forcing):
     """One warm-up step `run(forcing stack)`, then two batches of five timed
     steps, with every kernel's launch count set to 0 just before and read
@@ -484,8 +520,7 @@ def timed_batches(torch, ks, run, forcing):
     columns relax from their initial state, so their Courant sub-steps are
     more); the second is the steady state. Returns (the last batch's result,
     the batches' milliseconds per step, launches by kernel)."""
-    from lisflood_tpu_torch.ops.kinwave_packed import kinwave_sweep
-    ks.kinwave_substep.launches = kinwave_sweep.launches = 0
+    reset_launches()
     run(stack_forcing(torch, forcing[:1]))
     torch.cuda.synchronize()
     batches = [forcing[1:6], forcing[6:11]] if len(forcing) >= 11 else [forcing[1:6]] * 2
@@ -495,8 +530,7 @@ def timed_batches(torch, ks, run, forcing):
         out = run(stack_forcing(torch, batch))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) / 5 * 1e3)
-    return out, ms, {"kinwave_substep": ks.kinwave_substep.launches,
-                     "kinwave_sweep": kinwave_sweep.launches}
+    return out, ms, launch_counts()
 
 
 def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0):
@@ -515,7 +549,8 @@ def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0):
     print(f"  batches of 5 steps after the warm-up: {', '.join(f'{t:.1f}' for t in ms)} ms/step; "
           f"the last = {cells / ms[-1] * 1e3:.4g} cells*steps/s on {card}", flush=True)
     print(f"  launches for {STEPS_RUN} steps: {launches}", flush=True)
-    assert launches == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": sweeps}, launches
+    assert launches == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": sweeps,
+                        "kinwave_sharded": 0}, launches
     return s, outs, ms[-1], launches["kinwave_substep"]
 
 
@@ -663,7 +698,7 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
           f"{M * P / step_ms * 1e3:.4g} cells*steps/s on {card}; kinwave_substep launches "
           f"{launches} for {STEPS_RUN} ensemble steps of {M} members; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    assert counts == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": 0}, (
+    assert counts == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": 0, "kinwave_sharded": 0}, (
         counts, "one launch per ensemble step")
     # the evaporation stencil is chosen by the member's grid, as for one model
     print(f"  evaporation stencil on the card: single model {cfg.use_eva_stencil('cuda')}, "
@@ -1019,7 +1054,6 @@ def phase_driver(torch, ks, card, ctx, tmp):
     from lisflood_tpu_torch.models.driver import (lisfloodexe, output_var_fields, resolve_output,
                                                   to_host)
     from lisflood_tpu_torch.models.synthetic import write_catchment
-    from lisflood_tpu_torch.ops.kinwave_packed import kinwave_sweep
     path, (cfg, params, state, aux), step = ctx["path"], ctx["model"], ctx["step"]
     days = STEPS_RUN
 
@@ -1030,13 +1064,12 @@ def phase_driver(torch, ks, card, ctx, tmp):
                              vars_to_set={"Precision": "single", "PathOut": out})
     torch.cuda.reset_peak_memory_stats()
     with fixed_order_sums(torch):
-        ks.kinwave_substep.launches = kinwave_sweep.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         runner = lisfloodexe(settings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"kinwave_substep": ks.kinwave_substep.launches,
-                    "kinwave_sweep": kinwave_sweep.launches}
+        launches = launch_counts()
     per_model = torch.cuda.max_memory_allocated()
     sec = runner.seconds
     run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
@@ -1051,7 +1084,8 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"{len(runner.outputs.tss_writers)} TSS; peak device memory "
           f"{per_model / 2**30:.2f} GiB", flush=True)
     print(f"  launches in the run: {launches} for {days} days", flush=True)
-    assert launches == {"kinwave_substep": days, "kinwave_sweep": days}, launches
+    assert launches == {"kinwave_substep": days, "kinwave_sweep": days,
+                        "kinwave_sharded": 0}, launches
     assert runner.dtype == torch.float32 and runner.device.type == "cuda"
     names = sorted(os.listdir(out))
     assert {"dis.tss", "mbErrorMM.tss", "chanqend.map", "lzend.map",
@@ -1156,13 +1190,12 @@ def phase_driver(torch, ks, card, ctx, tmp):
                                           "LZState": ""})
     assert settings.ens_members == M and settings.filter_steps == [DRIVER_FILTER_STEP]
     torch.cuda.reset_peak_memory_stats()
-    ks.kinwave_substep.launches = kinwave_sweep.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     runner = lisfloodexe(settings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"kinwave_substep": ks.kinwave_substep.launches,
-                "kinwave_sweep": kinwave_sweep.launches}
+    launches = launch_counts()
     ens = runner.ensemble
     ring = ks.kinwave_substep.last_plan["ring"]
     es = ens.seconds
@@ -1173,7 +1206,8 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"ring {ring} slots, {ring_mib(ring):.0f} MiB; launches {launches} for {days} "
           f"ensemble days; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
-    assert launches == {"kinwave_substep": days, "kinwave_sweep": days}, launches
+    assert launches == {"kinwave_substep": days, "kinwave_sweep": days,
+                        "kinwave_sharded": 0}, launches
     assert ens.n == M and ring > spec.window * M, (ens.n, ring, spec.window)
     top = sorted(os.listdir(ens_out))
     assert top == [str(m) for m in range(1, M + 1)] + ["stateVar"], top
@@ -1194,6 +1228,262 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"{DRIVER_FILTER_STEP}", flush=True)
     del runner, ens
     torch.cuda.empty_cache()
+
+
+# logical shards of phase 10 (the JAX package's RoutingShards default)
+SHARDS = 4
+# days phase 10 runs the sharded step and lisfloodexe
+SHARDED_DAYS = 3
+
+
+def sharded_bound(ps, L, dtype, n_edges):
+    """(bound_ms, bound_by) of one sweep of the sharded schedule `ps` with L
+    lanes, counted over its num_pixels real positions as sweep_bound counts
+    K5: `const` and `adx` read once, `q` written once and the graph at its
+    least, one int32 downstream index per position, over the HBM rate,
+    against the Newton solve of every lane-row and position (FLOPS_SWEEP in
+    float32 at beta = 3/5, the q-space row and its `pow`s in float64) and one
+    add per edge and lane over the peak of the type. The schedule's padding
+    positions, its tables and the kernel's source table are not the
+    function's inputs and are not counted; the padding's share of p_pad is
+    printed as a property of the schedule."""
+    name = str(dtype).replace("torch.", "")
+    item = 4 if name == "float32" else 8
+    P = ps.num_pixels
+    nbytes = 3 * L * P * item + 4 * P
+    if name == "float32":
+        per_row = FLOPS_SWEEP
+    else:
+        plain, pows = QSPACE_ROW(QSPACE_ITERS[name])
+        per_row = 1 + plain + pows * POW_FLOPS[name]
+    flops = L * P * per_row + L * n_edges
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    print(f"  bound over {P} positions: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms; "
+          f"{flops / 1e9:.3f} GFLOP ({name}) -> {t_ops:.4f} ms; the schedule's padding "
+          f"{1 - P / ps.p_pad:.3f} of its {ps.p_pad} positions", flush=True)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sharded_held(torch, kss, router, ops, beta, tol, what):
+    """K6 on the packed operands `ops` of `router` against its plain version:
+    within `tol` of each lane-row's max, whether bitwise equal, the same bits
+    in two runs. Returns (max abs err, the plain version's milliseconds)."""
+    ps = router.ps
+    args = (*ops, router.ups, ps.n_chunks, ps.n_shards, ps.chunk, beta)
+    q = kss.kinwave_sharded_sweep(*args)
+    twice = same_bits({"q": q}, {"q": kss.kinwave_sharded_sweep(*args)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = kss._sweep_sharded(*ops, router.ups.long(), ps.n_chunks, ps.n_shards, ps.chunk, beta)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diff = (q.double() - ref.double()).abs()
+    rel = float((diff.amax(1) / ref.double().abs().amax(1).clamp_min(1e-300)).max())
+    absd = float(diff.max())
+    bitwise = same_bits({"q": q}, {"q": ref})
+    print(f"  {what}: K6 vs plain max rel err {rel:.3e} of each lane's max (tol {tol:g}), max abs "
+          f"{absd:.3e}, bitwise equal: {bitwise} ({int((q != ref).sum())} of {q.numel()} values "
+          f"differ); the same bits in two runs: {twice}; {ps.n_chunks} chunks of {ps.n_shards} x "
+          f"{ps.chunk} positions, {kss.kinwave_sharded_sweep.last_plan['threads']} threads; "
+          f"plain version {plain_ms:.1f} ms (one run)", flush=True)
+    assert rel <= tol, f"K6 disagrees with its plain version: {rel}"
+    assert twice
+    return absd, plain_ms
+
+
+def schedule_text(ps):
+    cuts = int((ps.cut_src != ps.n_shards * ps.chunk).sum())
+    return (f"{ps.n_chunks} chunks of {ps.n_shards} x {ps.chunk}, window {ps.window}, K "
+            f"{ps.cut_src.shape[1]}, {cuts} cut edges")
+
+
+def phase_sharded(torch, ks, card, ctx, tmp):
+    """Phase 10: RoutingKernel sharded on phase 8's catchment; see the module
+    docstring. `ctx` is phase 8's context, `tmp` a scratch directory."""
+    import dataclasses
+
+    import numpy as np
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
+    from lisflood_tpu_torch.models.step import build_multi_step, build_step
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, write_catchment
+    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    from lisflood_tpu_torch.ops.routing_ops import overland_operands
+    from lisflood_tpu_torch.parallel.partition import catchment_partition
+    path, (cfg, params, state, aux) = ctx["path"], ctx["model"]
+    forcing = ctx["forcing"]
+    days = SHARDED_DAYS
+    T = cfg.no_rout_steps
+    cfg_s = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=SHARDS)
+
+    # the step (build_routers records the host seconds of its parts): one
+    # warm-up day and one timed batch
+    t0 = time.perf_counter()
+    multi, p = build_multi_step(cfg_s, params, aux, output_keys=("ChanQAvg",),
+                                dtype=torch.float32, device="cuda")
+    s = multi.prepare_state(state)
+    torch.cuda.synchronize()
+    kin, tochan = multi.routers["kin"], multi.routers["tochan"]
+    sec, stats = multi.routers["seconds"], multi.routers["partition_stats"]
+    print(f"  sharded step built and moved to the card in {time.perf_counter() - t0:.1f} s; "
+          f"pipeline {multi.step.pipeline}; host seconds: catchment_partition "
+          f"{sec['partition']:.2f} ({len(stats['cut_edges'])} cut edges on the channel graph, "
+          f"shard sizes {stats['shard_sizes'].tolist()}); "
+          + "; ".join(f"{n}: schedule {sec['schedule_' + k]:.2f}, router {sec['router_' + k]:.2f} "
+                      f"({schedule_text(r.ps)})"
+                      for n, k, r in (("channel", "kin", kin), ("overland", "tochan", tochan))),
+          flush=True)
+    assert multi.step.pipeline == "substeps" and tochan.has_cuts and not tochan.no_edges
+    reset_launches()
+    s, _ = multi(s, stack_forcing(torch, forcing[:1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, outs = multi(s, stack_forcing(torch, forcing[1:1 + days]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / days * 1e3
+    launches = launch_counts()
+    print(f"  one warm-up step and a batch of {days}: {step_ms:.1f} ms/step = "
+          f"{cfg.num_pixels / step_ms * 1e3:.4g} cells*steps/s on {card}; launches for "
+          f"{days + 1} steps: {launches} (NoRoutSteps + 1 = {T + 1} of K6 a step)", flush=True)
+    assert launches == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                        "kinwave_sharded": (days + 1) * (T + 1)}, launches
+    bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    q = outs["ChanQAvg"]
+    assert q.shape == (days, cfg.num_pixels) and bool(torch.isfinite(q).all())
+    print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
+          f"{float(q.mean()):.4g} m3/s", flush=True)
+    profile_step(torch, multi.step, s, forcing[0], step_ms)
+
+    # K6 on the land phase's overland operands and on one channel sub-step's
+    beta = float(p["Beta"])
+    pp = multi.step.step_params(forcing[0])
+    d = multi.step.land_phase(s, forcing[0], pp)
+    _, q0, lat, adx = overland_operands(cfg_s, pp, s, d)
+    ops_o = tochan.sweep_operands(q0, lat, adx, beta)
+    captured = []
+    real = kss.kinwave_sharded_sweep
+
+    def capture(*args):
+        if not captured and args[0].shape[0] == 2:
+            captured.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args[:2]))
+        return real(*args)
+    capture.launches, capture.last_plan = 0, None
+    kss.kinwave_sharded_sweep = capture
+    try:
+        multi.step(s, forcing[0])
+    finally:
+        kss.kinwave_sharded_sweep = real
+    ops_c = captured[0]
+    absd_o, plain_o = sharded_held(torch, kss, tochan, ops_o, beta, 1e-5,
+                                   "overland, 3 lanes, float32")
+    absd_c, plain_c = sharded_held(torch, kss, kin, ops_c, beta, 1e-5,
+                                   "channel sub-step, 2 lanes, float32")
+    ms = {}
+    for name, router, ops in (("channel", kin, ops_c), ("overland", tochan, ops_o)):
+        ps = router.ps
+        ms[name] = cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(
+            *ops, router.ups, ps.n_chunks, ps.n_shards, ps.chunk, beta), N_REP)
+    edges = lambda r: int((r.ps.down_pos < r.ps.p_pad).sum())
+    bound_c = sharded_bound(kin.ps, 2, torch.float32, edges(kin))
+    bound_o = sharded_bound(tochan.ps, 3, torch.float32, edges(tochan))
+    print(f"  K6 {ms['channel']:.3f} ms a channel launch ({ms['channel'] / kin.ps.n_chunks * 1e3:.2f} "
+          f"us a chunk step), {ms['overland']:.3f} ms an overland launch "
+          f"({ms['overland'] / tochan.ps.n_chunks * 1e3:.2f} us a chunk step) (mean of {N_REP}); "
+          f"bounds {bound_c[0]:.4f} ms ({bound_c[1]}) and {bound_o[0]:.4f} ms ({bound_o[1]}); "
+          f"{T * ms['channel'] + ms['overland']:.1f} ms of K6 a step; card {card}", flush=True)
+    del ops_o, ops_c, captured, d
+
+    # the float32 sharded state after `days` days against phase 8's packed
+    # step's after the same days from the same start (printed only)
+    runs = {}
+    for name, step in (("sharded", multi.step), ("packed", ctx["step"])):
+        st = step.prepare_state(state)
+        for f in forcing[:days]:
+            st, _ = step(st, f)
+        runs[name] = step.natural_state(st)
+    diffs = sorted(((float((runs["sharded"][k].double() - v.double()).abs().max())
+                     / max(float(v.double().abs().max()), 1e-30), k)
+                    for k, v in runs["packed"].items() if v.is_floating_point()), reverse=True)
+    print(f"  float32, {days} days from the same start, sharded against phase 8's packed "
+          f"state, largest difference of each field's max: "
+          + ", ".join(f"{k} {e:.3e}" for e, k in diffs[:5]), flush=True)
+    del runs, multi, p, s
+    torch.cuda.empty_cache()
+
+    # lisfloodexe over the same days with RoutingKernel sharded
+    out = os.path.join(tmp, "sharded")
+    os.makedirs(out)
+    settings = load_settings(path, sys_args=["-v"], vars_to_set={
+        "Precision": "single", "PathOut": out, "RoutingKernel": "sharded",
+        "RoutingShards": str(SHARDS), "StepEnd": f"{days:02d}/01/2000 00:00"})
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = lisfloodexe(settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_d = launch_counts()
+    sec = runner.seconds
+    run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
+    print(f"  lisfloodexe with RoutingKernel sharded, {days} days at float32: {wall:.1f} s in all; "
+          f"host seconds: build_model {sec['build_model']:.1f}, step built (partition, schedules, "
+          f"routers) and state moved {sec['to_device']:.1f}; the run {run_s:.2f} (forcing "
+          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, copies to the host "
+          f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
+          f"{run_s / days * 1e3:.1f} ms per simulated day; launches {launches_d}", flush=True)
+    assert runner.config.routing_kernel == "sharded" and runner.config.num_shards == SHARDS
+    assert launches_d == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                          "kinwave_sharded": days * (T + 1)}, launches_d
+    assert all(bool(torch.isfinite(v).all()) for v in runner.state.values()
+               if v.is_floating_point())
+    assert "dis.tss" in os.listdir(out)
+    del runner
+    torch.cuda.empty_cache()
+
+    # float64 at synthetic 240x200 (cut edges on the channel graph)
+    mid = build_synthetic_model(240, 200)
+    graph = mid[3]["graph_kin"]
+    router = kss.ShardedRouter(graph, catchment_partition(graph, SHARDS)[0], device="cuda")
+    rng = np.random.default_rng(0)
+    lanes = [torch.as_tensor(rng.uniform(lo, hi, (2, graph.num_pixels)), device="cuda")
+             for lo, hi in ((0, 100), (0, 5), (1e-3, 1e3))]
+    ops64 = router.sweep_operands(*lanes, beta)
+    print(f"  synthetic 240x200, float64: {schedule_text(router.ps)}", flush=True)
+    assert router.has_cuts
+    sharded_held(torch, kss, router, ops64, beta, 1e-12, "synthetic 240x200, 2 lanes, float64")
+    del router, ops64, lanes
+
+    # the float64 sharded step on the card against the CPU, 96x80 catchment
+    small = load_settings(write_catchment(os.path.join(tmp, "sharded_small"), 96, 80, seed=0,
+                                          n_steps=days, nc_format="classic"),
+                          vars_to_set={"RoutingKernel": "sharded",
+                                       "RoutingShards": str(SHARDS)})
+    cfg_m, params_m, state_m, aux_m = build_model(small)
+    f_m = meteo_forcing(small, cfg_m, aux_m)[:days]
+    ends = {}
+    for dev in ("cuda", "cpu"):
+        step, _ = build_step(cfg_m, params_m, aux_m, dtype=torch.float64, device=dev)
+        st = step.prepare_state(state_m)
+        for f in f_m:
+            st, _ = step(st, to_device(f, dev, torch.float64))
+        ends[dev] = {k: v.cpu() for k, v in step.natural_state(st).items()}
+    assert step.routers["tochan"].has_cuts
+    worst = max((field_gate(k, v, ends["cuda"][k], ends["cpu"]), k)
+                for k, v in ends["cpu"].items() if v.is_floating_point())
+    print(f"  96x80 catchment, float64, {days} sharded steps on the card against the CPU: worst "
+          f"{worst[0]:.3e} ({worst[1]}) of each field's max (tol 1e-10); overland "
+          f"{schedule_text(step.routers['tochan'].ps)}", flush=True)
+    assert worst[0] <= 1e-10, worst
+    return {"ms": ms["channel"], "bound_ms": bound_c[0], "bound_by": bound_c[1],
+            "launches": launches["kinwave_sharded"], "plain_ms": plain_c,
+            "max_abs_err": max(absd_c, absd_o), "ms_overland": ms["overland"],
+            "bound_ms_overland": bound_o[0], "plain_ms_overland": plain_o,
+            "step_ms": step_ms,
+            "plain_shape": "1200x1000 catchment, one channel sub-step (and the overland sweep), "
+                           "float32"}
 
 
 def profile_step(torch, step, s, f, step_ms):
@@ -1466,6 +1756,9 @@ def main():
         torch.cuda.empty_cache()
         print("phase 9: the settings-driven run (lisfloodexe) on phase 8's catchment", flush=True)
         phase_driver(torch, ks, card, context, tmp)
+        print(f"phase 10: RoutingKernel sharded on phase 8's catchment, {SHARDS} shards, C=256, "
+              "float32", flush=True)
+        sharded = phase_sharded(torch, ks, card, context, tmp)
         del context
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
@@ -1489,6 +1782,14 @@ def main():
         {"name": "kinwave_sweep", "route": "cuda",
          "source": "lisflood_tpu_torch/csrc/kinwave_sweep.cu",
          "replaces": "lisflood_tpu/ops/kinwave_packed.py:211", "library_ms": None, **sweep})
+    # K6: ms, bound and plain_ms of a channel sub-step's launch (and of the
+    # overland launch, *_overland); launches of both in phase 10's run; no
+    # PyTorch call computes it either
+    figures["kernels"].append(
+        {"name": "kinwave_sharded", "route": "cuda",
+         "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
+         "replaces": "lisflood_tpu/ops/kinwave_sharded.py:164", "library_ms": None,
+         **{k: v for k, v in sharded.items() if k != "step_ms"}})
     print(json.dumps(figures))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

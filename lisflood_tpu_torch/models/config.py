@@ -3,9 +3,11 @@ lisflood_tpu/models/config.py.
 
 Every boolean here selects a physics path inside the step function, mirroring
 the reference's option-gated module dispatch (Lisflood_dynamic.py:38-268).
-The port has a single sub-step pipeline (the chunk-major routing kernel and
-its plain PyTorch version) and one device, so the JAX package's
-`routing_pipeline` and `num_shards` fields have no counterpart here.
+`routing_kernel` picks the router and with it the sub-step loop: 'packed'
+runs the chunk-major sub-step kernel, 'sharded' (on `num_shards` logical
+shards) the sequential loop around the sharded sweep. The JAX package's
+`routing_pipeline`, a choice among XLA schedules of the loop, has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -43,8 +45,12 @@ class ModelConfig:
     rep_average_dis: bool = False
     rep_total_water_storage: bool = False
     rep_water_use: bool = False
-    # kinematic-wave implementation; the port has 'packed' only
+    # kinematic-wave implementation: 'packed' (default) or 'sharded'
+    # (subcatchment-partitioned sweep); the JAX package's 'scan' is not ported
     routing_kernel: str = "packed"
+    # logical shard count for routing_kernel='sharded' (fixed independently
+    # of the number of devices, so that results do not depend on it)
+    num_shards: int = 1
     # open-water evaporation formulation outside the routing kernel: the
     # 2-D LDD stencil or the segment-sum scatter ('auto', True or False)
     eva_stencil: object = "auto"
@@ -110,10 +116,11 @@ class ModelConfig:
     def from_settings(cls, settings, **overrides):
         """The configuration the settings' options and bindings select, as the
         JAX package's ModelConfig.from_settings; `overrides` are the counts
-        build_model works out. The JAX package's RoutingPipeline and
-        RoutingShards bindings choose among XLA schedules and device meshes,
-        which the port does not have: they are not read. A RoutingKernel
-        other than 'packed' is kept, and building the step refuses it."""
+        build_model works out. RoutingShards (default 4) is read for
+        RoutingKernel sharded, as the JAX package reads it; a RoutingKernel
+        the port does not have is kept, and building the step refuses it.
+        The JAX package's RoutingPipeline chooses among XLA schedules, which
+        the port does not have: it is not read."""
         o = settings.options
         dt_sec = float(settings.binding["DtSec"])
         dt_sec_channel = float(settings.binding["DtSecChannel"])
@@ -148,6 +155,9 @@ class ModelConfig:
             rep_total_water_storage=bool(o.get("repTotalWaterStorageMaps")),
             rep_water_use=bool(o.get("repWaterUse")),
             routing_kernel=str(settings.binding.get("RoutingKernel", "packed")),
+            num_shards=int(settings.binding.get("RoutingShards", 4)
+                           if str(settings.binding.get("RoutingKernel", "packed")) == "sharded"
+                           else 1),
             eva_stencil={"True": True, "False": False}.get(
                 str(settings.binding.get("EvaStencil", "auto")), "auto"),
             no_rout_steps=no_rout,

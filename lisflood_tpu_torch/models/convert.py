@@ -2,9 +2,11 @@
 
 `from_reference` reads the JAX package's (cfg, params, state, aux) — NumPy
 arrays and plain objects from `build_synthetic_model` or `build_model` — by
-duck typing: dataclass fields of the config, and `chunks` / `downstream` /
-`num_pixels` / `chunk_size` of the schedules. It imports nothing of the JAX
-package. The tests use it to feed both packages identical inputs.
+duck typing: dataclass fields of the config, `chunks` / `downstream` /
+`num_pixels` / `chunk_size` of the schedules, and `downstream` / `ldd` /
+`num_pixels` of the channel and overland graphs that the sharded router
+partitions. It imports nothing of the JAX package. The tests use it to feed
+both packages identical inputs.
 """
 from __future__ import annotations
 
@@ -13,14 +15,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..graph.ldd import RoutingSchedule
+from ..graph.ldd import FlowGraph, RoutingSchedule
 from .config import ModelConfig
 from .step import build_step
 
 
-# JAX-config fields that choose among XLA schedules and device meshes; the
-# port has one sub-step pipeline on one device and ignores them
-_SCHEDULE_FIELDS = ("routing_pipeline", "num_shards")
+# the JAX-config field that chooses among XLA schedules of the sub-step
+# loop; the port ignores it
+_SCHEDULE_FIELDS = ("routing_pipeline",)
 
 
 def config_from_reference(cfg):
@@ -44,12 +46,19 @@ def schedule_from_reference(schedule):
                            chunk_size=int(schedule.chunk_size))
 
 
+def graph_from_reference(graph):
+    return FlowGraph(downstream=np.asarray(graph.downstream), ldd=np.asarray(graph.ldd),
+                     num_pixels=int(graph.num_pixels))
+
+
 def from_reference(cfg, params_np, state_np, aux, device=None, dtype=torch.float64):
-    """Returns the port's (ModelConfig, device parameters, prepared packed
-    state, routers); `models.step.Step(cfg, params, routers, device)` runs
+    """Returns the port's (ModelConfig, device parameters, prepared state,
+    routers); `models.step.Step(cfg, params, routers, device)` runs
     them. The model reaches the device as a model of the port's own does,
     through models.step.build_step."""
     cfg_t = config_from_reference(cfg)
     aux_t = {k: schedule_from_reference(aux[k]) for k in ("schedule_kin", "schedule_tochan")}
+    aux_t.update({k: graph_from_reference(aux[k]) for k in ("graph_kin", "graph_tochan")
+                  if k in aux})
     step, params = build_step(cfg_t, params_np, aux_t, dtype, device)
     return cfg_t, params, step.prepare_state(state_np), step.routers

@@ -93,6 +93,11 @@ def ensemble_model(cfg, params, aux, M):
     replicated (replicate_schedule)."""
     if cfg.members != 1:
         raise ValueError("ensemble_model takes a single model")
+    if cfg.routing_kernel != "packed":
+        raise ValueError(
+            f"routing_kernel={cfg.routing_kernel!r}: the folded ensemble replicates the packed "
+            "schedules; folding the sharded router's partition and schedules is not ported yet "
+            "(ROADMAP.md, Queue 1)")
     P = cfg.num_pixels
     counts = {P, cfg.num_lakes or -1, cfg.num_reservoirs or -1}
     grid = cfg.grid_rows * cfg.grid_cols

@@ -15,10 +15,15 @@ reference's per-timestep order (Lisflood_dynamic.py:38-268):
   [water level] -> [polder level] -> [water balance] -> [indicators]
 
 The InitLisflood prerun routes a single lane with no lake, reservoir or
-polder. The channel-routing state lives in schedule-packed position space
-across steps ('pk$' state keys).
+polder. With the packed router (RoutingKernel packed, the default) the
+channel-routing state lives in schedule-packed position space across steps
+('pk$' state keys) and the sub-step kernel runs the loop; with the sharded
+router (RoutingKernel sharded) the state is natural and the sequential
+sub-step loop runs around the sharded sweep.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -28,8 +33,11 @@ from ..ops import physics as ph
 from ..ops.indicators import (groundwater_smooth, indicator_keys, indicator_state_zero,
                               indicator_step)
 from ..ops.kinwave_packed import PackedRouter
-from ..ops.routing_ops import channel_routing_kernel, resolve_pipeline, surface_routing_step
+from ..ops.kinwave_sharded import ShardedRouter, ShardedSchedule, build_sharded_schedule
+from ..ops.routing_ops import (channel_routing_kernel, channel_routing_substeps, resolve_pipeline,
+                               surface_routing_step)
 from ..ops.wavefront import upstream_table, wavefront_tables
+from ..parallel.partition import catchment_partition
 
 STATE_KEYS_BASE = [
     "SnowCoverS", "FrostIndex", "CumInterception", "CumInterSealed",
@@ -99,11 +107,32 @@ def state_keys(cfg):
 
 def build_routers(cfg, aux, device):
     """Kinematic-wave routers for the channel and the overland (to-channel)
-    schedules. The schedules may be the port's or the JAX package's: they
-    are read by their `chunks`, `downstream` and `num_pixels` fields."""
+    graphs, as `cfg.routing_kernel` selects: 'packed' reads the schedules
+    (`aux["schedule_kin"]`, `["schedule_tochan"]`, the port's or the JAX
+    package's, by their `chunks`, `downstream` and `num_pixels` fields);
+    'sharded' partitions the channel graph `aux["graph_kin"]` into
+    `cfg.num_shards` shards and builds both routers on that partition (the
+    overland graph `aux["graph_tochan"]` shares the pixel space), and also
+    returns `shard_of` and `partition_stats`, as the JAX package does, and
+    the host seconds of its parts in `seconds` (partition, then each graph's
+    schedule and router)."""
+    if cfg.routing_kernel == "sharded":
+        t0 = time.perf_counter()
+        shard_of, stats = catchment_partition(aux["graph_kin"], cfg.num_shards)
+        seconds = {"partition": time.perf_counter() - t0}
+        out = {"shard_of": shard_of, "partition_stats": stats, "seconds": seconds}
+        for key, graph in (("kin", "graph_kin"), ("tochan", "graph_tochan")):
+            t0 = time.perf_counter()
+            ps = build_sharded_schedule(aux[graph], shard_of)
+            seconds[f"schedule_{key}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out[key] = ShardedRouter(ps, device=device)
+            seconds[f"router_{key}"] = time.perf_counter() - t0
+        return out
     if cfg.routing_kernel != "packed":
         raise NotImplementedError(
-            f"routing_kernel={cfg.routing_kernel!r}: the port has the packed router only")
+            f"routing_kernel={cfg.routing_kernel!r}: the port has the packed and the sharded "
+            "router; 'scan' is left to port (ROADMAP.md, Queue 1)")
     routers = {"kin": PackedRouter(aux["schedule_kin"], device),
                "tochan": PackedRouter(aux["schedule_tochan"], device)}
     if not routers["tochan"].no_edges:
@@ -116,14 +145,21 @@ def build_routers(cfg, aux, device):
 def packed_routing_params(cfg, params_np, ps):
     """Host-side schedule-order reorder of the per-pixel params the sub-step
     loop touches (p['kinp$...']), with padding fills that keep padded lanes
-    inert, plus the routing kernel's tables.
+    inert. For a PackedSchedule also the sub-step kernel's tables; for a
+    ShardedSchedule only what the sequential loop reads (with the mass
+    balance the catchment of every position, padding in the extra segment
+    num_catchments).
 
     Returns (params, feeders_earlier, eva_window_ok): whether every structure
     cell lies in a strictly later chunk than all of its feeders, and whether
     the evaporation graph's edges fit the schedule window — the two
-    conditions the kernel's structure and evaporation chains rely on."""
+    conditions the kernel's structure and evaporation chains rely on (False
+    for a ShardedSchedule, whose loop runs the chain outside)."""
     out = {}
     feeders_earlier = True
+    sharded = isinstance(ps, ShardedSchedule)
+    # a position's chunk (shard-major in a ShardedSchedule)
+    chunk_of = lambda pos: pos % (ps.n_chunks * ps.chunk) // ps.chunk
 
     def pk(name, fill=0.0):
         out["kinp$" + name] = ps.pack_np(np.asarray(params_np[name], np.float64), fill)
@@ -132,7 +168,8 @@ def packed_routing_params(cfg, params_np, ps):
     pk("ChannelAlpha", 1.0)
     out["kinp$IsChannelKinematic"] = ps.pack_np(
         np.asarray(params_np["IsChannelKinematic"], bool), False)
-    out["kinp$AtLastPointC"] = ps.pack_np(np.asarray(params_np["AtLastPointC"], bool), False)
+    if not sharded:
+        out["kinp$AtLastPointC"] = ps.pack_np(np.asarray(params_np["AtLastPointC"], bool), False)
     if cfg.split:
         pk("ChannelAlpha2", 1.0)
         pk("QLimit", 0.0)
@@ -145,14 +182,20 @@ def packed_routing_params(cfg, params_np, ps):
         pk("TransPower2", 1.0)
         pk("TransSub", 0.0)
 
+    if sharded and cfg.rep_mbts:
+        out["kinp$Catchments"] = ps.pack_np(np.asarray(params_np["Catchments"], np.int64),
+                                            cfg.num_catchments)
+
     P = ps.num_pixels
     p_pad = ps.p_pad
     real = ps.perm < P
     pos = np.flatnonzero(real)
     pix = ps.perm[real]
-    # the kernel's hand-over of discharge, by the (structure-cut) routing graph
-    has_down = ps.down_pos < p_pad
-    out["kinp$UpsTable"] = upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down], p_pad)
+    if not sharded:
+        # the kernel's hand-over of discharge, by the (structure-cut) routing graph
+        has_down = ps.down_pos < p_pad
+        out["kinp$UpsTable"] = upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down],
+                                              p_pad)
 
     # structure inflow comes from the ORIGINAL (pre-cut) downstruct: the
     # pixel upstream of a lake is a routing pit but still feeds the lake
@@ -171,7 +214,7 @@ def packed_routing_params(cfg, params_np, ps):
             if ups.size > 8:
                 raise ValueError(f"structure cell {px} has {ups.size} upstream pixels")
             upos = ps.inv_perm[ups]
-            if not (upos // ps.chunk < ps.inv_perm[px] // ps.chunk).all():
+            if not (chunk_of(upos) < chunk_of(ps.inv_perm[px])).all():
                 feeders_earlier = False
             idx[i, :upos.size] = upos
             w[i, :upos.size] = 1.0
@@ -197,6 +240,8 @@ def packed_routing_params(cfg, params_np, ps):
     # InitLisflood prerun): its transfers follow downEva, whose edges must
     # land 1..W chunks later
     eva_window_ok = False
+    if sharded:
+        return out, feeders_earlier, eva_window_ok
     if cfg.open_water_evapo and not cfg.init_lisflood and "downEva" in params_np:
         down_eva = np.asarray(params_np["downEva"], np.int64)     # (P,), P = pit
         tgt = down_eva[pix]
@@ -299,6 +344,11 @@ class Step:
     def natural_state(self, state):
         return natural_state(self.cfg, self.routers, state)
 
+    def _natural(self, s, key):
+        """State entry `key` in natural space, from its pk$ form where the
+        state is packed."""
+        return self.routers["kin"].unpack(s["pk$" + key]) if "pk$" + key in s else s[key]
+
     def step_params(self, f):
         """The parameters of the step with forcing `f`: with transient land
         use a copy whose six fractions are the forcing's `<key>_t` and whose
@@ -360,8 +410,8 @@ class Step:
         if cfg.water_use:
             # natural-space views of the packed channel state
             wa_state = dict(s)
-            wa_state["ChanM3Kin"] = d["ChanM3Kin"] = routers["kin"].unpack(s["pk$ChanM3Kin"])
-            d["ChanQ"] = routers["kin"].unpack(s["pk$ChanQ"])
+            wa_state["ChanM3Kin"] = d["ChanM3Kin"] = self._natural(s, "ChanM3Kin")
+            d["ChanQ"] = self._natural(s, "ChanQ")
             d.update(ph.water_abstraction_step(cfg, p, wa_state, d))
             if cfg.groundwater_smooth:
                 d["LZ"] = groundwater_smooth(cfg, p, d["LZ"], p["LandRows"], p["LandCols"],
@@ -377,13 +427,14 @@ class Step:
                 # returns the chain's result
                 d["EvaUpstream0"] = d["EWRef"] * p["MMtoM3"] * d["WaterFraction"]
             else:
-                kin = routers["kin"]
                 eva_d = dict(d)
-                eva_d["ChanM3Kin"] = kin.unpack(s["pk$ChanM3Kin"])
+                eva_d["ChanM3Kin"] = self._natural(s, "ChanM3Kin")
                 s_eva = dict(s)
-                s_eva["EvaCumM3"] = kin.unpack(s["pk$EvaCumM3"])
+                s_eva["EvaCumM3"] = self._natural(s, "EvaCumM3")
                 out_eva = ph.evapowater_step(cfg, p, s_eva, eva_d)
-                out_eva["pk$EvaCumM3"] = s["pk$EvaCumM3"] + kin.pack(out_eva["EvaAddM3"])
+                if "pk$EvaCumM3" in s:
+                    out_eva["pk$EvaCumM3"] = (s["pk$EvaCumM3"]
+                                              + routers["kin"].pack(out_eva["EvaAddM3"]))
                 d.update(out_eva)
 
         d.update(surface_routing_step(cfg, p, s, d, routers))
@@ -401,7 +452,9 @@ class Step:
         for k in ("LakeStorageM3CC", "ReservoirStorageM3CC", "LakeStorageM3", "ReservoirStorageM3"):
             if k in d:
                 route_state[k] = d[k]
-        d.update(channel_routing_kernel(cfg, p, route_state, d, self.routers))
+        routing = (channel_routing_substeps if self.pipeline == "substeps"
+                   else channel_routing_kernel)
+        d.update(routing(cfg, p, route_state, d, self.routers))
 
         if cfg.simulate_water_levels:
             d.update(ph.waterlevel_step(cfg, p, s, d))

@@ -1,0 +1,360 @@
+"""Shard-local packed kinematic-wave sweep — the port of
+lisflood_tpu/ops/kinwave_sharded.py.
+
+Pixels are partitioned into S shards along subtree boundaries
+(parallel/partition.py) and renumbered into (shard, chunk, lane) positions,
+shard-major: pos = s * n_chunks * C + c * C + l, p_pad = S * n_chunks * C.
+The chunks close in GLOBAL topological lockstep (a chunk closes for all
+shards at once), so every edge, within a shard or cut between two, targets
+a strictly later chunk, and one sweep over the chunks in order routes every
+pixel after all of its sources.
+
+The JAX package's `_sweep_sharded` (an XLA scan: a one-hot product scatters
+each shard's discharge into its window, a dense (L, K) x (K, S*W*C) product
+carries the cut edges) is `kinwave_sharded_sweep` here: the CUDA kernel
+csrc/kinwave_sharded.cu (K6) on a CUDA device, and its plain PyTorch version
+`_sweep_sharded` on the CPU. Both GATHER each position's sources, local and
+cut edges alike, from an upstream table (upstream_positions) instead of
+scattering into windows. The table lists a pixel's sources by ascending
+natural pixel index, so the sum order of a pixel's inflow depends neither on
+S nor on how the shards are spread over processes: the sweep gives the same
+bits for every shard count. The kernel and its plain version agree bit for
+bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..parallel.partition import graph_levels
+from .kinwave_packed import PackedRouter, PackedSchedule, newton_solve
+from .wavefront import upstream_table
+
+
+@dataclass
+class ShardedSchedule:
+    """Host-side renumbering into (shard, chunk, lane) positions.
+
+    Flat position space is shard-major: pos = s*(n_chunks*C) + c*C + l,
+    p_pad = S*n_chunks*C; padding positions map to pixel index P."""
+
+    perm: np.ndarray         # (p_pad,) position -> natural pixel (P = pad)
+    inv_perm: np.ndarray     # (P,) natural pixel -> position
+    down_local: np.ndarray   # (n_chunks, S, C) int32 window offset; W*C = none
+    down_pos: np.ndarray     # (p_pad,) int32 downstream position; p_pad = pit
+    cut_src: np.ndarray      # (n_chunks, K) int32 lane in (S*C); S*C = pad
+    cut_dst: np.ndarray      # (n_chunks, K) int32 index in (S*W*C); pad slot 0
+    n_chunks: int
+    n_shards: int
+    chunk: int
+    window: int
+    num_pixels: int
+
+    @property
+    def p_pad(self):
+        return self.n_shards * self.n_chunks * self.chunk
+
+    pack_np = PackedSchedule.pack_np
+
+
+def _rank_in_group(keys, n_keys):
+    """For each entry, the number of earlier entries with the same key."""
+    order = np.argsort(keys, kind="stable")
+    start = np.zeros(n_keys + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=n_keys), out=start[1:])
+    rank = np.empty(keys.size, np.int64)
+    rank[order] = np.arange(keys.size) - start[keys[order]]
+    return rank
+
+
+def build_sharded_schedule(graph, shard_of, chunk_size=256) -> ShardedSchedule:
+    """Chunk the graph in global topological lockstep with per-shard lane
+    capacity: iterating headwaters -> outlets (by hop distance to the pit,
+    then pixel index), a pixel joins the current chunk unless one of its
+    upstreams is already in it or its shard's lanes are full — then the
+    chunk closes for ALL shards. The JAX package's arrays, bit for bit.
+
+    The JAX package walks the pixels one by one; here a level (one hop
+    distance) is a few array passes: its pixels' upstreams all lie in the
+    level before, so only the level's first pixels can meet one in the open
+    chunk, and once a chunk closes within the level the next ones close on
+    lane capacity alone, at the first shard to reach C lanes."""
+    P = graph.num_pixels
+    shard_of = np.asarray(shard_of, np.int32)
+    S = int(shard_of.max()) + 1
+    C = int(chunk_size)
+    down = np.asarray(graph.downstream, np.int64)
+
+    chunk_of = np.full(P, -1, np.int64)
+    lane_of = np.full(P, -1, np.int64)
+    counts = np.zeros(S, np.int64)      # lanes of each shard in the open chunk
+    nc = 0                              # the open chunk
+    prev = np.zeros(0, np.int64)
+    mark = np.zeros(P, bool)
+    for lv in reversed(graph_levels(down)):
+        sh = shard_of[lv].astype(np.int64)
+        occ = _rank_in_group(sh, S)
+        tails = down[prev[chunk_of[prev] == nc]]
+        mark[tails] = True
+        conflict = mark[lv]
+        mark[tails] = False
+        stop = np.flatnonzero(conflict | (counts[sh] + occ >= C))
+        a = int(stop[0]) if stop.size else lv.size
+        chunk_of[lv[:a]] = nc
+        lane_of[lv[:a]] = counts[sh[:a]] + occ[:a]
+        counts += np.bincount(sh[:a], minlength=S)
+        if a < lv.size:
+            where = [np.flatnonzero(sh == s) for s in range(S)]
+            while a < lv.size:
+                nc += 1
+                base = np.array([np.searchsorted(w, a) for w in where])
+                ends = [w[b + C] for w, b in zip(where, base) if b + C < w.size]
+                end = int(min(ends)) if ends else lv.size
+                chunk_of[lv[a:end]] = nc
+                lane_of[lv[a:end]] = occ[a:end] - base[sh[a:end]]
+                counts = np.bincount(sh[a:end], minlength=S)
+                a = end
+        prev = lv
+    n_chunks = nc + 1 if P else 0
+
+    # perm / inv_perm (shard-major flat layout)
+    B = n_chunks * C
+    p_pad = S * B
+    perm = np.full(p_pad, P, np.int64)
+    pos = shard_of.astype(np.int64) * B + chunk_of * C + lane_of
+    perm[pos] = np.arange(P)
+    inv_perm = pos
+
+    # edges (a dependency-free graph, e.g. the synthetic model's all-pit
+    # overland graph, has none; the router then solves elementwise)
+    src_valid = np.flatnonzero(down >= 0)
+    dst = down[src_valid]
+    if src_valid.size:
+        delta = chunk_of[dst] - chunk_of[src_valid]
+        if delta.min() < 1:
+            raise ValueError("sharded schedule: a downstream pixel is not in a later chunk")
+        W = int(max(1, delta.max()))
+    else:
+        W = 1
+
+    down_local = np.full((n_chunks, S, C), W * C, np.int32)
+    down_pos = np.full(p_pad, p_pad, np.int32)
+    same = shard_of[src_valid] == shard_of[dst]
+    ls, ld = src_valid[same], dst[same]
+    down_local[chunk_of[ls], shard_of[ls], lane_of[ls]] = (
+        (chunk_of[ld] - chunk_of[ls] - 1) * C + lane_of[ld]).astype(np.int32)
+    down_pos[pos[src_valid]] = pos[dst].astype(np.int32)
+
+    # cut edges, grouped by source chunk in source pixel order
+    cs, cd = src_valid[~same], dst[~same]
+    K = int(np.bincount(chunk_of[cs]).max()) if cs.size else 0
+    cut_src = np.full((n_chunks, max(K, 1)), S * C, np.int32)
+    cut_dst = np.zeros((n_chunks, max(K, 1)), np.int32)
+    if cs.size:
+        c = chunk_of[cs]
+        j = _rank_in_group(c, n_chunks)
+        cut_src[c, j] = shard_of[cs].astype(np.int64) * C + lane_of[cs]
+        cut_dst[c, j] = (shard_of[cd].astype(np.int64) * (W * C)
+                         + (chunk_of[cd] - c - 1) * C + lane_of[cd])
+    return ShardedSchedule(perm=perm, inv_perm=inv_perm, down_local=down_local,
+                           down_pos=down_pos, cut_src=cut_src, cut_dst=cut_dst,
+                           n_chunks=n_chunks, n_shards=S, chunk=C, window=W,
+                           num_pixels=P)
+
+
+def upstream_positions(ps):
+    """(K, p_pad) int32: the source positions of every position, -1 where
+    there are fewer than K, each position's sources in ascending order of
+    their natural pixel index (so the same for every partition)."""
+    P, p_pad = ps.num_pixels, ps.p_pad
+    has_down = ps.down_pos < p_pad
+    nat = upstream_table(ps.perm[has_down], ps.perm[ps.down_pos[has_down]], P).astype(np.int64)
+    real = ps.perm < P
+    table = np.full((nat.shape[0], p_pad), -1, np.int32)
+    table[:, real] = np.where(nat >= 0, ps.inv_perm[nat], -1)[:, ps.perm[real]]
+    return table
+
+
+# ---------------------------------------------------------------------------
+# the sweep: plain version, kernel wrapper
+
+
+def _chunk_positions(n_chunks, n_shards, chunk, device):
+    """(S*C,) int64: the positions of chunk 0, shard by shard; chunk c's are
+    these + c*C."""
+    B = n_chunks * chunk
+    lanes = torch.arange(chunk, device=device)
+    return (torch.arange(n_shards, device=device)[:, None] * B + lanes).reshape(-1)
+
+
+def _sweep_sharded(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
+    """The plain version of the sweep, one lockstep chunk at a time.
+
+    const_p/adx_p: (L, p_pad) in the schedule's position space; ups:
+    (K, p_pad) int64 source positions of every position (upstream_positions),
+    -1 = none. Returns q (L, p_pad). Each chunk's S*C positions sum their
+    sources' discharges in the table's order (every source lies in an
+    earlier chunk), add const and solve."""
+    L = const_p.shape[0]
+    base = _chunk_positions(n_chunks, n_shards, chunk, const_p.device)
+    q = torch.zeros_like(const_p)
+    for c in range(n_chunks):
+        idx = base + c * chunk
+        src = ups[:, idx]                                     # (K, S*C)
+        valid = src >= 0
+        vals = q[:, src.clamp_min(0)]                         # (L, K, S*C)
+        inflow = const_p.new_zeros(L, idx.numel())
+        for k in range(src.shape[0]):
+            inflow = inflow + torch.where(valid[k], vals[:, k], 0.0)
+        q[:, idx] = newton_solve(inflow + const_p[:, idx], adx_p[:, idx], beta)
+    return q
+
+
+class _ShardedArgs(ctypes.Structure):
+    """Mirror of struct ShardedArgs in csrc/kinwave_sharded.cu."""
+    _fields_ = ([(k, ctypes.c_int) for k in ("n_chunks", "shards", "chunk", "lanes", "K",
+                                             "threads")]
+                + [("beta", ctypes.c_double)]
+                + [(k, ctypes.c_void_p) for k in ("cst", "adx", "q", "ups")])
+
+
+@functools.cache
+def _library():
+    from . import _build
+    lib = _build.load("kinwave_sharded")
+    lib.kinwave_sharded_launch.argtypes = [ctypes.POINTER(_ShardedArgs), ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    lib.kinwave_sharded_launch.restype = ctypes.c_int
+    lib.kinwave_sharded_error_string.argtypes = [ctypes.c_int]
+    lib.kinwave_sharded_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# threads of the kernel's one block: S*C positions of a chunk, at most 1024
+MAX_THREADS = 1024
+
+
+def _launch(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
+    """One launch of csrc/kinwave_sharded.cu on the current stream."""
+    lib = _library()
+    dev = const_p.device
+    q = torch.empty_like(const_p)
+    threads = min(MAX_THREADS, -(-n_shards * chunk // 32) * 32)
+    args = _ShardedArgs(n_chunks=n_chunks, shards=n_shards, chunk=chunk,
+                        lanes=const_p.shape[0], K=ups.shape[0], threads=threads,
+                        beta=float(beta), cst=const_p.data_ptr(), adx=adx_p.data_ptr(),
+                        q=q.data_ptr(), ups=ups.data_ptr())
+    is_double = int(const_p.dtype == torch.float64)
+    poly = int(const_p.dtype == torch.float32 and abs(float(beta) - 0.6) < 1e-9)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.kinwave_sharded_launch(ctypes.byref(args), is_double, poly,
+                                        ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("kinwave_sharded launch failed: "
+                           + lib.kinwave_sharded_error_string(rc).decode())
+    kinwave_sharded_sweep.launches += 1
+    kinwave_sharded_sweep.last_plan = {"blocks": 1, "threads": threads}
+    return q
+
+
+def _check(const_p, adx_p, ups, n_chunks, n_shards, chunk):
+    """Device, dtype, shape and contiguity of the sweep's operands."""
+    p_pad = n_shards * n_chunks * chunk
+    if const_p.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"const: dtype {const_p.dtype}")
+    if const_p.dim() != 2 or const_p.shape[1] != p_pad or not 1 <= const_p.shape[0] <= 8:
+        raise ValueError(f"const: shape {tuple(const_p.shape)}, want (1..8, {p_pad})")
+    if const_p.numel() >= 2 ** 31:
+        raise ValueError(f"const: {const_p.numel()} elements, the kernel indexes with int32")
+    if tuple(adx_p.shape) != tuple(const_p.shape) or adx_p.dtype != const_p.dtype:
+        raise ValueError(f"adx: {tuple(adx_p.shape)} {adx_p.dtype}, want const's")
+    if ups.dim() != 2 or ups.shape[1] != p_pad or not 1 <= ups.shape[0] <= 8:
+        raise ValueError(f"ups: shape {tuple(ups.shape)}, want (1..8, {p_pad})")
+    if ups.dtype != torch.int32:
+        raise TypeError(f"ups: dtype {ups.dtype}, want int32")
+    for name, v in (("const", const_p), ("adx", adx_p), ("ups", ups)):
+        if v.device != const_p.device or not v.is_contiguous():
+            raise ValueError(f"{name}: not contiguous on {const_p.device}")
+
+
+def kinwave_sharded_sweep(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
+    """One kinematic-wave time step over a sharded schedule: const_p / adx_p
+    (L, p_pad) in its position space, ups (K, p_pad) int32 its upstream
+    table. A CUDA tensor launches the kernel (and counts the launch in
+    `kinwave_sharded_sweep.launches`), a CPU tensor runs the plain version
+    `_sweep_sharded`; any other device raises. Returns q (L, p_pad)."""
+    _check(const_p, adx_p, ups, n_chunks, n_shards, chunk)
+    kind = const_p.device.type
+    if kind == "cuda":
+        return _launch(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta)
+    if kind == "cpu":
+        return _sweep_sharded(const_p, adx_p, ups.long(), n_chunks, n_shards, chunk, beta)
+    raise RuntimeError(f"no sharded sweep kernel for device {kind!r}")
+
+
+kinwave_sharded_sweep.launches = 0
+kinwave_sharded_sweep.last_plan = None
+
+
+class ShardedRouter:
+    """Router over a subcatchment-sharded schedule, with the interface of
+    ops/kinwave_packed.PackedRouter (pack / unpack / route_packed /
+    route_batched / route and the position space `ps`). An edge-free graph
+    solves elementwise."""
+
+    def __init__(self, schedule_or_graph, shard_of=None, chunk_size=256, device=None):
+        if isinstance(schedule_or_graph, ShardedSchedule):
+            ps = schedule_or_graph
+        else:
+            ps = build_sharded_schedule(schedule_or_graph, shard_of, chunk_size)
+        self.ps = ps
+        self.device = resolve_device(device)
+        pad = ps.n_shards * ps.chunk
+        self.no_edges = bool((ps.down_local == ps.window * ps.chunk).all()
+                             and (ps.cut_src == pad).all())
+        self.has_cuts = bool((ps.cut_src != pad).any())
+        self.perm = torch.as_tensor(np.where(ps.perm < ps.num_pixels, ps.perm, ps.num_pixels),
+                                    device=self.device)
+        self.inv_perm = torch.as_tensor(ps.inv_perm, device=self.device)
+        self.ups = torch.as_tensor(upstream_positions(ps), device=self.device)
+
+    pack = PackedRouter.pack
+    unpack = PackedRouter.unpack
+
+    def sweep(self, constant, a_dx_div_dt, beta):
+        """The sweep on packed (L, p_pad) operands."""
+        ps = self.ps
+        adx = a_dx_div_dt.expand_as(constant).contiguous()
+        return kinwave_sharded_sweep(constant.contiguous(), adx, self.ups, ps.n_chunks,
+                                     ps.n_shards, ps.chunk, float(beta))
+
+    def sweep_operands(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """(L, P) natural-order lanes -> the sweep's packed (const, adx)."""
+        constant = a_dx_div_dt * discharge ** beta + lateral_inflow
+        return self.pack(constant), self.pack(a_dx_div_dt.expand_as(constant), 1.0)
+
+    def route_packed(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """(L, p_pad) packed operands -> (L, p_pad) routed discharge."""
+        constant = a_dx_div_dt * discharge ** beta + lateral_inflow
+        if self.no_edges:
+            return newton_solve(constant, a_dx_div_dt, float(beta))
+        return self.sweep(constant, a_dx_div_dt, beta)
+
+    def route_batched(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """(L, P) natural-order operands -> (L, P) routed discharge."""
+        if self.no_edges:
+            constant = a_dx_div_dt * discharge ** beta + lateral_inflow
+            return newton_solve(constant, a_dx_div_dt, float(beta))
+        return self.unpack(self.sweep(*self.sweep_operands(discharge, lateral_inflow,
+                                                           a_dx_div_dt, beta), beta))
+
+    def route(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """Single-lane convenience wrapper."""
+        return self.route_batched(discharge[None], lateral_inflow[None],
+                                  a_dx_div_dt[None], beta)[0]

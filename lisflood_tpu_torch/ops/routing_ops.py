@@ -3,18 +3,26 @@ lisflood_tpu/ops/routing_ops.py (surface_routing.py:115-213,
 routing.py:435-706, lakes.py:199-298, reservoir.py:173-323,
 transmission.py:67-89, Lisflood_dynamic.py:176-230).
 
-The port has one sub-step pipeline: the chunk-major loop of
-ops/kinwave_substep.py, as the CUDA kernel on a CUDA device and as its plain
-PyTorch version on the CPU. The JAX package's XLA formulations of the same
-loop (the sequential scan and the chunk-major `channel_routing_pipelined`)
-are schedules for XLA that the kernel replaces, and have no counterpart here.
+Two sub-step loops, chosen by the channel router (resolve_pipeline):
+  - the packed router's: the chunk-major loop of ops/kinwave_substep.py, the
+    whole NoRoutSteps x chunks loop of a step in one launch of the CUDA
+    kernel on a CUDA device, its plain PyTorch version on the CPU
+    (channel_routing_kernel);
+  - the sharded router's: the sequential loop of the JAX package's
+    `channel_routing` (channel_routing_substeps), one sub-step after the
+    other, each routing the whole graph with one sweep of
+    ops/kinwave_sharded.py (the K6 kernel on a CUDA device).
+The JAX package's chunk-major XLA loop (`channel_routing_pipelined`) is a
+schedule for XLA that the kernel replaces and has no counterpart here.
 """
 from __future__ import annotations
 
 import torch
 
 from .kinwave_packed import PackedRouter
-from .kinwave_substep import WAVEFRONT_TABLES, SubstepSpec, kinwave_substep
+from .kinwave_sharded import ShardedRouter
+from .kinwave_substep import (WAVEFRONT_TABLES, SubstepSpec, _lake_step, _reservoir_step,
+                              kinwave_substep)
 from .physics import segment_spread
 
 
@@ -73,24 +81,220 @@ def surface_routing_step(cfg, p, s, d, routers):
 
 
 def resolve_pipeline(cfg, routers, device):
-    """Which implementation runs the sub-step loop: 'cuda' (the kernel) for
-    a CUDA device, 'reference' (its plain PyTorch version) for the CPU, in
-    float32 and float64 alike. Raises for a configuration the loop cannot
-    take."""
+    """Which implementation runs the sub-step loop: for the packed router
+    'cuda' (the kernel) on a CUDA device and 'reference' (its plain PyTorch
+    version) on the CPU, in float32 and float64 alike; for the sharded
+    router 'substeps', the sequential loop (channel_routing_substeps), on
+    any device. Raises for a configuration no loop takes."""
     kin = routers["kin"]
+    if isinstance(kin, ShardedRouter):
+        return "substeps"
     if not isinstance(kin, PackedRouter):
-        raise NotImplementedError("the sub-step loop needs the packed router")
+        raise NotImplementedError("the sub-step loops take the packed or the sharded router")
     structs = cfg.lakes or cfg.reservoirs
     if structs and not kin.struct_feeders_earlier:
         raise NotImplementedError(
-            "a lake or reservoir is not chunked after all of its feeders; the "
-            "sequential sub-step loop that serves such schedules is not ported")
+            "a lake or reservoir is not chunked after all of its feeders: the sub-step "
+            "kernel needs them earlier; the sequential loop runs with the sharded router "
+            "(RoutingKernel sharded)")
     kind = torch.device(device).type
     if kind == "cuda":
         return "cuda"
     if kind == "cpu":
         return "reference"
     raise RuntimeError(f"no sub-step pipeline for device {kind!r}")
+
+
+# the lake and reservoir state of the sub-step loops' structure steps
+# (ops/kinwave_substep._lake_step, _reservoir_step) and its state keys
+STRUCTURE_CARRY = {
+    "lk_st": "LakeStorageM3CC", "lk_inold": "LakeInflowOldCC", "lk_in": "LakeInflowCC",
+    "lk_out": "LakeOutflowCC", "lk_bal": "LakeStorageM3BalanceCC", "lk_level": "LakeLevelCC",
+    "lk_sumin": "sumLakeInCC", "lk_sumout": "sumLakeOutCC",
+    "rs_st": "ReservoirStorageM3CC", "rs_fill": "ReservoirFillCC",
+    "rs_sumin": "sumResInCC", "rs_sumout": "sumResOutCC",
+}
+
+
+def structure_params(cfg, p):
+    """The lake and reservoir parameters of the structure steps, by their
+    operand names."""
+    out = {}
+    if cfg.lakes:
+        out.update({"lk_factor": p["LakeFactor"], "lk_factorsqr": p["LakeFactorSqr"],
+                    "lk_area": p["LakeAreaCC"]})
+    if cfg.reservoirs:
+        out.update({
+            "rs_tot": p["TotalReservoirStorageM3CC"],
+            "rs_cons": p["ConservativeStorageLimitCC"],
+            "rs_norm": p["NormalStorageLimitCC"],
+            "rs_flood": p["FloodStorageLimitCC"],
+            "rs_nfl": p["Normal_FloodStorageLimitCC"],
+            "rs_nondam": p["NonDamagingReservoirOutflowCC"],
+            "rs_normout": p["NormalReservoirOutflowCC"],
+            "rs_minout": p["MinReservoirOutflowCC"],
+            "rs_do": p["DeltaO"], "rs_dln": p["DeltaLN"], "rs_dnfl": p["DeltaNFL"],
+        })
+    return out
+
+
+def channel_routing_substeps(cfg, p, s, d, routers):
+    """The NoRoutSteps sub-step loop, one sub-step after the other, in the
+    channel router's position space (lisflood_tpu/ops/routing_ops.py:
+    channel_routing, :185-414): each sub-step runs the lakes and
+    reservoirs on the previous sub-step's discharge, assembles the
+    sideflow, and routes single or split (two lanes in one sweep); the
+    catchment totals of the mass balance are taken in the loop. The state is
+    natural across steps; the result goes through _post_routing."""
+    kin = routers["kin"]
+    pk = lambda name: p["kinp$" + name]
+    pack, unpack = kin.pack, kin.unpack
+    T = cfg.no_rout_steps
+    dt_r = cfg.dt_routing
+    dtype = s["ChanQKin"].dtype
+    beta = p["Beta"]
+    dx = pk("ChanLength")
+    inv_dx = 1.0 / dx
+    adx1 = pk("ChannelAlpha") * dx / dt_r
+    inv_alpha1 = 1.0 / pk("ChannelAlpha")
+    if cfg.split:
+        adx2 = pk("ChannelAlpha2") * dx / dt_r
+        inv_alpha2 = 1.0 / pk("ChannelAlpha2")
+
+    # per-step inputs of the loop, in position space
+    to_chan = pack(d["ToChanM3RunoffDt"])
+    if cfg.open_water_evapo:
+        eva_dt = pack(d["EvaAddM3Dt"])
+    if cfg.water_use:
+        wuse_add = (pack(d["withdrawal_CH_actual_M3_routStep"])
+                    - pack(d["returnflow_GwAbs2Channel_M3_routStep"]))
+    if cfg.inflow:
+        qin_old, qdelta = pack(d["QInM3OldLoop"]), pack(d["QDelta"])
+
+    zero = torch.zeros_like(to_chan)
+    c = {"ChanQKin": pack(s["ChanQKin"]), "ChanM3Kin": pack(s["ChanM3Kin"]),
+         "ChanQ": pack(s["ChanQ"]), "sumDisDay": zero}
+    if cfg.split:
+        for k in ("Chan2QKin", "Chan2M3Kin", "CrossSection2Area", "Sideflow1Chan"):
+            c[k] = pack(s[k])
+    if cfg.trans_loss:
+        c["TransCum"] = pack(s["TransCum"])
+    if cfg.inflow:
+        c["QinADDEDM3"] = zero
+    # lakes and reservoirs: their state, advanced in place by the structure
+    # steps, and the positions of their feeders
+    xs = structure_params(cfg, p)
+    ys = {}
+    if cfg.lakes:
+        lake_zero = torch.zeros(cfg.num_lakes, dtype=dtype, device=zero.device)
+        ys.update({"lk_st": s["LakeStorageM3CC"], "lk_inold": s["LakeInflowOldCC"],
+                   "lk_in": lake_zero, "lk_out": s["LakeOutflowCC"],
+                   "lk_bal": s["LakeStorageM3BalanceCC"], "lk_level": s["LakeLevelCC"],
+                   "lk_sumin": lake_zero, "lk_sumout": lake_zero})
+    if cfg.reservoirs:
+        res_zero = torch.zeros(cfg.num_reservoirs, dtype=dtype, device=zero.device)
+        ys.update({"rs_st": s["ReservoirStorageM3CC"], "rs_fill": s["ReservoirFillCC"],
+                   "rs_sumin": res_zero, "rs_sumout": res_zero})
+    ys = {k: v.clone() for k, v in ys.items()}
+    every = slice(None)
+
+    def structure_out(name, step):
+        """The structures' outflow volumes, placed at their positions, from
+        their inflow: the previous sub-step's discharge of their feeders."""
+        inflow = (c["ChanQ"][pk(name + "UpsIdx")] * pk(name + "UpsW")).sum(1)
+        q_out = step(xs, ys, every, inflow, dt_r)
+        return torch.zeros_like(zero).index_copy_(0, pk(name + "Pos").long(), q_out)
+
+    if cfg.rep_mbts:
+        # in-loop catchment totals: padded positions carry the extra segment
+        # num_catchments, so they never add to a real total. The totals of
+        # the terms that do not change over the sub-steps are taken once.
+        catch = pk("Catchments").long()
+        ct = lambda x: segment_spread(x, catch, cfg.num_catchments + 1)
+        c["AddedTRUN"] = zero
+        added_const = ct(to_chan)
+        if cfg.open_water_evapo:
+            eva_total = ct(eva_dt)
+        if cfg.water_use:
+            wuse_total = ct(wuse_add)
+
+    for n in range(T):
+        if cfg.lakes:
+            q_lake_out = structure_out("Lake", _lake_step)
+        if cfg.reservoirs:
+            q_res_out = structure_out("Res", _reservoir_step)
+        if cfg.inflow:
+            q_in_dt = (qin_old + float(n + 1) * qdelta) / T
+            c["QinADDEDM3"] = c["QinADDEDM3"] + q_in_dt
+        if cfg.trans_loss:
+            chan_q = c["ChanQ"]
+            trans_out = torch.where(
+                pk("UpTrans"), (chan_q ** pk("TransPower2") - pk("TransSub")) ** pk("TransPower1"),
+                chan_q)
+            trans_loss_m3 = (chan_q - trans_out) * dt_r
+            c["TransCum"] = c["TransCum"] + trans_loss_m3
+
+        # sideflow assembly (routing.py:462-478)
+        sideflow_m3 = to_chan
+        if cfg.open_water_evapo:
+            sideflow_m3 = sideflow_m3 - eva_dt
+        if cfg.water_use:
+            sideflow_m3 = sideflow_m3 - wuse_add
+        if cfg.inflow:
+            sideflow_m3 = sideflow_m3 + q_in_dt
+        if cfg.trans_loss:
+            sideflow_m3 = sideflow_m3 - trans_loss_m3
+        if cfg.lakes:
+            sideflow_m3 = sideflow_m3 + q_lake_out
+        if cfg.reservoirs:
+            sideflow_m3 = sideflow_m3 + q_res_out
+
+        if cfg.rep_mbts:
+            added = added_const
+            if cfg.inflow:
+                added = added + ct(q_in_dt)
+            if cfg.open_water_evapo:
+                added = added - eva_total
+            if cfg.water_use:
+                added = added - wuse_total
+            c["AddedTRUN"] = c["AddedTRUN"] + added
+
+        sideflow = torch.where(pk("IsChannelKinematic"), sideflow_m3 * inv_dx / dt_r, 0.0)
+        sideflow = torch.where(torch.isnan(sideflow), 0.0, sideflow)
+
+        if not cfg.split:
+            # single routing (routing.py:518-541)
+            q = kin.route_packed(c["ChanQKin"][None], (sideflow * dx)[None], adx1[None], beta)[0]
+            m3 = torch.clamp_min(dx * pk("ChannelAlpha") * q ** beta, 0.0)
+            q = (m3 * inv_dx * inv_alpha1) ** (1 / beta)
+            c.update(ChanQKin=q, ChanM3Kin=m3, ChanQ=q, sumDisDay=c["sumDisDay"] + q)
+        else:
+            # double routing (routing.py:543-604)
+            m3_1, m3_2 = c["ChanM3Kin"], c["Chan2M3Kin"]
+            ratio_den = m3_1 + m3_2
+            sideflow_ratio = torch.where(
+                ratio_den > 0, m3_1 / torch.where(ratio_den > 0, ratio_den, 1.0), 0.0)
+            over_limit = (m3_1 + m3_2 - pk("Chan2M3Start")) > pk("M3Limit")
+            sideflow1 = torch.where(over_limit, sideflow_ratio * sideflow, sideflow)
+            sideflow1 = torch.where(sideflow.abs() < 1e-7, sideflow, sideflow1)
+            sideflow2 = sideflow - sideflow1 + pk("Chan2QStart") * inv_dx
+            # main channel and floodplain in one sweep
+            q12 = kin.route_packed(torch.stack([c["ChanQKin"], c["Chan2QKin"]]),
+                                   torch.stack([sideflow1, sideflow2]) * dx,
+                                   torch.stack([adx1, adx2]), beta)
+            m31 = torch.clamp_min(dx * pk("ChannelAlpha") * q12[0] ** beta, 0.0)
+            q1 = (m31 * inv_dx * inv_alpha1) ** (1 / beta)
+            m32 = dx * pk("ChannelAlpha2") * q12[1] ** beta
+            m32 = torch.where(m32 - pk("Chan2M3Start") < 0.0, pk("Chan2M3Start"), m32)
+            q2 = (m32 * inv_dx * inv_alpha2) ** (1 / beta)
+            chan_q = torch.clamp_min(q1 + q2 - pk("QLimit"), 0.0)
+            c.update(ChanQKin=q1, ChanM3Kin=m31, Chan2QKin=q2, Chan2M3Kin=m32,
+                     CrossSection2Area=(m32 - pk("Chan2M3Start")) * inv_dx,
+                     Sideflow1Chan=sideflow1, ChanQ=chan_q, sumDisDay=c["sumDisDay"] + chan_q)
+
+    carry = {k: unpack(v) for k, v in c.items()}
+    carry.update({STRUCTURE_CARRY[k]: v for k, v in ys.items()})
+    return _post_routing(cfg, p, s, d, carry, dtype)
 
 
 def kernel_operands(cfg, p, s, d, routers):
@@ -151,11 +355,10 @@ def kernel_operands(cfg, p, s, d, routers):
     # structure inflow at the start of the step: the previous sub-step's
     # discharge of its <=8 feeders (pre-cut graph)
     buf0 = lambda name: (spk("ChanQ")[pk(name + "UpsIdx")] * pk(name + "UpsW")).sum(1)
+    xs.update(structure_params(cfg, p))
     if cfg.lakes:
         xs.update({
             "lk_pos": pk("LakePos"), "lk_fee": pk("LakeFee"), "lk_fee_w": pk("LakeUpsW"),
-            "lk_factor": p["LakeFactor"], "lk_factorsqr": p["LakeFactorSqr"],
-            "lk_area": p["LakeAreaCC"],
             "lk_st0": s["LakeStorageM3CC"], "lk_inold0": s["LakeInflowOldCC"],
             "lk_out0": s["LakeOutflowCC"], "lk_bal0": s["LakeStorageM3BalanceCC"],
             "lk_buf0": buf0("Lake"),
@@ -163,15 +366,6 @@ def kernel_operands(cfg, p, s, d, routers):
     if cfg.reservoirs:
         xs.update({
             "rs_pos": pk("ResPos"), "rs_fee": pk("ResFee"), "rs_fee_w": pk("ResUpsW"),
-            "rs_tot": p["TotalReservoirStorageM3CC"],
-            "rs_cons": p["ConservativeStorageLimitCC"],
-            "rs_norm": p["NormalStorageLimitCC"],
-            "rs_flood": p["FloodStorageLimitCC"],
-            "rs_nfl": p["Normal_FloodStorageLimitCC"],
-            "rs_nondam": p["NonDamagingReservoirOutflowCC"],
-            "rs_normout": p["NormalReservoirOutflowCC"],
-            "rs_minout": p["MinReservoirOutflowCC"],
-            "rs_do": p["DeltaO"], "rs_dln": p["DeltaLN"], "rs_dnfl": p["DeltaNFL"],
             "rs_st0": s["ReservoirStorageM3CC"], "rs_fill0": s["ReservoirFillCC"],
             "rs_buf0": buf0("Res"),
         })
@@ -219,16 +413,7 @@ def channel_routing_kernel(cfg, p, s, d, routers):
             added = added - T * ct(d["withdrawal_CH_actual_M3_routStep"]
                                    - d["returnflow_GwAbs2Channel_M3_routStep"])
         natural["AddedTRUN"] = added
-    if "lk_pos" in xs:
-        carry.update({
-            "LakeStorageM3CC": ys["lk_st"], "LakeInflowOldCC": ys["lk_inold"],
-            "LakeInflowCC": ys["lk_in"], "LakeOutflowCC": ys["lk_out"],
-            "LakeStorageM3BalanceCC": ys["lk_bal"], "LakeLevelCC": ys["lk_level"],
-            "sumLakeInCC": ys["lk_sumin"], "sumLakeOutCC": ys["lk_sumout"]})
-    if "rs_pos" in xs:
-        carry.update({
-            "ReservoirStorageM3CC": ys["rs_st"], "ReservoirFillCC": ys["rs_fill"],
-            "sumResInCC": ys["rs_sumin"], "sumResOutCC": ys["rs_sumout"]})
+    carry.update({STRUCTURE_CARRY[k]: v for k, v in ys.items() if k in STRUCTURE_CARRY})
     out = _post_routing_packed(cfg, p, s, d, carry, routers, natural)
     if spec.E:
         eva_p = flat("ev_add")

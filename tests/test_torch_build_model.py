@@ -112,15 +112,15 @@ def test_build_model_option_inputs(tmp_path, case):
 
 def test_build_model_config_and_schedules(models):
     """The ModelConfig fields the two packages share are equal (the JAX
-    package's schedule choices routing_pipeline and num_shards have no
-    counterpart, the port's ensemble fold `members` is 1); the channel and
+    package's schedule choice routing_pipeline has no counterpart, the
+    port's ensemble fold `members` is 1); the channel and
     overland schedules are equal in chunks and downstream, at chunk 256;
     the overland graph has edges, so the step runs the sweep."""
     path, (jc, _, _, ja), (tc, _, _, ta), _ = models
     port = dataclasses.asdict(tc)
     assert port.pop("members") == 1
     ref = {k: v for k, v in dataclasses.asdict(jc).items()
-           if k not in ("routing_pipeline", "num_shards")}
+           if k != "routing_pipeline"}
     assert ref == port
     assert tc.init_lisflood == (path == "prerun") and tc.no_rout_steps == (1 if path == "prerun" else 24)
     for k in ("schedule_kin", "schedule_tochan"):

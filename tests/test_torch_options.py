@@ -258,7 +258,8 @@ def test_mass_balance_closes(which):
 
 def test_config_from_reference_refuses_lost_fields():
     """A JAX configuration field without a counterpart raises when set; the
-    XLA schedule fields are ignored; every shared field is carried."""
+    XLA schedule field routing_pipeline is ignored; every shared field is
+    carried."""
     jcfg = JaxConfig(water_use=True, groundwater_smooth=True, rep_water_use=True,
                      num_wregions=3, routing_pipeline="substeps", num_shards=4)
     cfg = config_from_reference(jcfg)

@@ -173,7 +173,7 @@ def test_unported_options_refused():
     """The step's last four options build (tests/test_torch_prerun_options.py
     holds them to the JAX package), InitLisflood without the water-balance
     reports and the indicators, which it refuses as the JAX step fails on
-    them; a router the port does not have is refused."""
+    them; a router the port does not have (`scan`) is refused."""
     cfg, params, state, aux = port_synthetic.with_options(
         port_synthetic.build_synthetic_model(**SIZE))
     prerun_off = dict(rep_total_water_storage=False, rep_mbts=False, indicator=False)
@@ -186,7 +186,7 @@ def test_unported_options_refused():
     with pytest.raises(ValueError, match="InitLisflood"):
         build_step(dataclasses.replace(cfg, init_lisflood=True), params, aux, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_step(dataclasses.replace(cfg, routing_kernel="sharded"), params, aux, device="cpu")
+        build_step(dataclasses.replace(cfg, routing_kernel="scan"), params, aux, device="cpu")
 
 
 def test_default_device_needs_cuda(monkeypatch):

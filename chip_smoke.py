@@ -111,23 +111,29 @@ script exits non-zero:
      ensemble day, every member's files present and finite;
  10. RoutingKernel sharded (SHARDS = 4 logical shards) on phase 8's
      catchment, float32: the host seconds of catchment_partition, of both
-     sharded schedules (channel and overland) and of their routers, with
-     each schedule's chunks, window, K and cut edges (cut edges required on
-     the overland graph); the step through build_multi_step, one warm-up
-     day and a timed batch of SHARDED_DAYS, with NoRoutSteps + 1 launches of
-     K6 (csrc/kinwave_sharded.cu) a step and none of the sub-step kernel or
-     K5, every state entry finite, one profiled step; K6 against its plain
-     version on the land phase's overland operands and on one channel
-     sub-step's operands (float32 within 1e-5 of each lane's max, whether
-     bitwise equal printed, the same bits in two runs), its time on both
-     and its bound; the float32 sharded state after SHARDED_DAYS days
+     sharded schedules (channel and overland) and of their routers (with
+     K6's tile tables), with each schedule's chunks, window, K and cut edges
+     (cut edges required on the overland graph); the step through
+     build_multi_step, one warm-up day and a timed batch of SHARDED_DAYS,
+     with NoRoutSteps + 1 launches of K6 (csrc/kinwave_sharded.cu) a step
+     and none of the sub-step kernel or K5, every state entry finite, one
+     profiled step; K6's tables (trees, the largest, levels, host seconds);
+     K6 against its plain version on the land phase's overland operands and
+     on one channel sub-step's operands (float32 within 1e-5 of each lane's
+     max and bitwise equal, the same bits in two runs and at the caps of
+     SHARDED_CAPS), its plan (tiles, ring tiles, global tiles, padding
+     blocks, threads, shared bytes), its time on both at each cap and its
+     bound; where its time goes (sharded_where: one traced launch, the tile
+     with the most levels in the launch and alone, its cycles a level and
+     the chain floor); the float32 sharded state after SHARDED_DAYS days
      against phase 8's packed state after the same days from the same
      start (printed only: the two paths sum in other orders); lisfloodexe
      with RoutingKernel sharded over SHARDED_DAYS days, its seconds per
      simulated day and launches; K6 in float64 on the synthetic 240x200
-     channel graph (48 cut edges) within 1e-12; the float64 sharded step
-     on the card against the CPU on a 96x80 catchment (overland cut edges),
-     SHARDED_DAYS days, within 1e-10 of each field's max.
+     channel graph (48 cut edges) within 1e-12 and bitwise equal, at the
+     caps too; the float64 sharded step on the card against the CPU on a
+     96x80 catchment (overland cut edges), SHARDED_DAYS days, within 1e-10
+     of each field's max.
 The operands on which the kernel is held to its plain version are drawn with
 fixed-order sums (fixed_order_sums), so that every run compares on the same
 numbers.
@@ -1265,14 +1271,33 @@ def sharded_bound(ps, L, dtype, n_edges):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sharded_held(torch, kss, router, ops, beta, tol, what):
-    """K6 on the packed operands `ops` of `router` against its plain version:
-    within `tol` of each lane-row's max, whether bitwise equal, the same bits
-    in two runs. Returns (max abs err, the plain version's milliseconds)."""
+# tile caps at which phase 10 checks K6's bits and times it, besides its
+# default (ops/wavefront.SWEEP_CAP)
+SHARDED_CAPS = (256, 4096)
+
+
+def sharded_plan_text(plan):
+    return (f"{plan['tiles']} tiles of at most {plan['cap']} positions ({plan['ring_tiles']} "
+            f"through the ring, {plan['ring_w']} wide, {plan['global_tiles']} in global memory), "
+            f"{plan['pad_blocks']} padding blocks for {plan['n_pad']} positions, {plan['threads']} "
+            f"threads and {plan['smem_bytes']} shared bytes a block")
+
+
+def sharded_held(torch, kss, router, ops, beta, tol, what, caps=SHARDED_CAPS):
+    """K6 on the packed operands `ops` of `router` at its default tile cap
+    against its plain version: within `tol` of each lane-row's max and bitwise
+    equal, the same bits in two runs and at every cap of `caps`. Returns (max
+    abs err, the plain version's milliseconds, the launch's plan)."""
     ps = router.ps
-    args = (*ops, router.ups, ps.n_chunks, ps.n_shards, ps.chunk, beta)
-    q = kss.kinwave_sharded_sweep(*args)
-    twice = same_bits({"q": q}, {"q": kss.kinwave_sharded_sweep(*args)})
+    tiles = router.sweep_tiles()
+    q = kss.kinwave_sharded_sweep(*ops, tiles, beta)
+    plan = dict(kss.kinwave_sharded_sweep.last_plan)
+    twice = same_bits({"q": q}, {"q": kss.kinwave_sharded_sweep(*ops, tiles, beta)})
+    by_cap = {}
+    for cap in caps:
+        again = kss.kinwave_sharded_sweep(*ops, router.sweep_tiles(cap), beta)
+        ok = same_bits({"q": q}, {"q": again})
+        by_cap[cap] = (ok, dict(kss.kinwave_sharded_sweep.last_plan))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = kss._sweep_sharded(*ops, router.ups.long(), ps.n_chunks, ps.n_shards, ps.chunk, beta)
@@ -1284,12 +1309,66 @@ def sharded_held(torch, kss, router, ops, beta, tol, what):
     bitwise = same_bits({"q": q}, {"q": ref})
     print(f"  {what}: K6 vs plain max rel err {rel:.3e} of each lane's max (tol {tol:g}), max abs "
           f"{absd:.3e}, bitwise equal: {bitwise} ({int((q != ref).sum())} of {q.numel()} values "
-          f"differ); the same bits in two runs: {twice}; {ps.n_chunks} chunks of {ps.n_shards} x "
-          f"{ps.chunk} positions, {kss.kinwave_sharded_sweep.last_plan['threads']} threads; "
-          f"plain version {plain_ms:.1f} ms (one run)", flush=True)
+          f"differ); the same bits in two runs: {twice}, at caps "
+          + ", ".join(f"{c}: {ok}" for c, (ok, _) in by_cap.items())
+          + f"; {sharded_plan_text(plan)}; at caps "
+          + "; ".join(f"{c}: {sharded_plan_text(p)}" for c, (_, p) in by_cap.items())
+          + f"; schedule {ps.n_chunks} chunks of {ps.n_shards} x {ps.chunk}; plain version "
+          f"{plain_ms:.1f} ms (one run)", flush=True)
     assert rel <= tol, f"K6 disagrees with its plain version: {rel}"
-    assert twice
-    return absd, plain_ms
+    assert bitwise and twice and all(ok for ok, _ in by_cap.values()), (bitwise, twice, by_cap)
+    return absd, plain_ms, plan
+
+
+def sharded_tile_range(tiles, a, b):
+    """The ShardedTiles of tiles a..b-1 of `tiles` alone, without the
+    padding (a diagnostic)."""
+    import dataclasses
+    tp = tiles.tile_ptr.cpu()
+    R = tiles.ring.numel() // tiles.pos.numel()
+    return dataclasses.replace(tile_range(tiles, a, b), width=tiles.width[a:b].contiguous(),
+                               ring=tiles.ring[R * int(tp[a]):R * int(tp[b])].contiguous(),
+                               pad=tiles.pad[:0], widths=tiles.widths[a:b],
+                               levels=tiles.levels[a:b])
+
+
+def sharded_where(torch, kss, ops, tiles, beta, what):
+    """Where one launch of K6 spends its time, from its blocks' records
+    (kinwave_sharded.sharded_trace): the launch's span on the global clock,
+    the shallow tiles' and the padding blocks' time, and the tile with the
+    most levels, in the launch and launched alone (its time by cuda_ms too):
+    its cycles to its first level and a level, and the chain floor, its
+    levels times its cycles a level at the clock the records give. Returns
+    (the tile alone in ms, the chain floor in ms, cycles a level)."""
+    import numpy as np
+
+    def records(t):
+        rec = kss.sharded_trace(*ops, t, beta)[1].astype(np.float64)
+        return rec[:, 1], rec[:, 2], rec[:, 3], rec[:, 4]
+    g0, g1, staged, cycles = records(tiles)
+    span = g1.max() - g0.min()
+    ghz = cycles.sum() / (g1 - g0).sum()
+    n = tiles.n_tiles
+    deep = int(np.argmax(tiles.levels))
+    levels = int(tiles.levels[deep])
+    one = sharded_tile_range(tiles, deep, deep + 1)
+    a0, a1, a_staged, a_cycles = records(one)
+    per_level = (a_cycles[0] - a_staged[0]) / levels
+    floor_ms = float(levels * per_level / ghz / 1e6)
+    alone_ms = cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(*ops, one, beta), N_REP)
+    others = np.arange(n) != deep
+    print(f"  where K6's time goes ({what}, one traced launch at cap {tiles.cap}): span "
+          f"{span / 1e3:.2f} us on the global clock at {ghz:.3f} GHz; {n} tile blocks, "
+          f"{g1.size - n} padding blocks; the other tiles end "
+          f"{((g1[:n][others].max() if others.any() else g0.min()) - g0.min()) / 1e3:.2f} us and "
+          f"the padding {((g1[n:].max() if g1.size > n else g0.min()) - g0.min()) / 1e3:.2f} us "
+          f"into the launch; the tile with the most levels ({levels} levels, widest "
+          f"{int(tiles.widths[deep])}, {int(tiles.count[deep])} positions) takes "
+          f"{(g1[deep] - g0[deep]) / 1e3:.2f} us in the launch and {(a1[0] - a0[0]) / 1e3:.2f} us "
+          f"launched alone ({a_staged[0] / ghz / 1e3:.2f} us to its first level, {per_level:.0f} "
+          f"cycles a level), {alone_ms:.4f} ms alone by CUDA events; chain floor {levels} levels "
+          f"x {per_level:.0f} cycles = {floor_ms:.4f} ms", flush=True)
+    return alone_ms, floor_ms, per_level
 
 
 def schedule_text(ps):
@@ -1378,23 +1457,36 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     finally:
         kss.kinwave_sharded_sweep = real
     ops_c = captured[0]
-    absd_o, plain_o = sharded_held(torch, kss, tochan, ops_o, beta, 1e-5,
-                                   "overland, 3 lanes, float32")
-    absd_c, plain_c = sharded_held(torch, kss, kin, ops_c, beta, 1e-5,
-                                   "channel sub-step, 2 lanes, float32")
-    ms = {}
+    for name, router in (("channel", kin), ("overland", tochan)):
+        st = router.sweep_tiles().stats
+        print(f"  K6 {name} tables at cap {router.sweep_tiles().cap}: {st['trees']} trees, the "
+              f"largest {st['largest_tree']} cells, {st['levels']} levels at most in a tile; built "
+              f"in {st['seconds']:.2f} s on the host with the step", flush=True)
+    absd_o, plain_o, plan_o = sharded_held(torch, kss, tochan, ops_o, beta, 1e-5,
+                                           "overland, 3 lanes, float32")
+    absd_c, plain_c, plan_c = sharded_held(torch, kss, kin, ops_c, beta, 1e-5,
+                                           "channel sub-step, 2 lanes, float32")
+    ms, by_cap = {}, {}
     for name, router, ops in (("channel", kin, ops_c), ("overland", tochan, ops_o)):
-        ps = router.ps
-        ms[name] = cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(
-            *ops, router.ups, ps.n_chunks, ps.n_shards, ps.chunk, beta), N_REP)
+        for cap in (router.sweep_tiles().cap, *SHARDED_CAPS):
+            t = router.sweep_tiles(cap)
+            by_cap[name, cap] = cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(*ops, t, beta),
+                                        N_REP)
+        ms[name] = by_cap[name, router.sweep_tiles().cap]
+    deep_ms, floor_ms, per_level = sharded_where(torch, kss, ops_c, kin.sweep_tiles(), beta,
+                                                 "channel")
+    deep_o, floor_o, _ = sharded_where(torch, kss, ops_o, tochan.sweep_tiles(), beta, "overland")
     edges = lambda r: int((r.ps.down_pos < r.ps.p_pad).sum())
     bound_c = sharded_bound(kin.ps, 2, torch.float32, edges(kin))
     bound_o = sharded_bound(tochan.ps, 3, torch.float32, edges(tochan))
-    print(f"  K6 {ms['channel']:.3f} ms a channel launch ({ms['channel'] / kin.ps.n_chunks * 1e3:.2f} "
-          f"us a chunk step), {ms['overland']:.3f} ms an overland launch "
-          f"({ms['overland'] / tochan.ps.n_chunks * 1e3:.2f} us a chunk step) (mean of {N_REP}); "
-          f"bounds {bound_c[0]:.4f} ms ({bound_c[1]}) and {bound_o[0]:.4f} ms ({bound_o[1]}); "
-          f"{T * ms['channel'] + ms['overland']:.1f} ms of K6 a step; card {card}", flush=True)
+    print(f"  K6 {ms['channel']:.4f} ms a channel launch, {ms['overland']:.4f} ms an overland "
+          f"launch (mean of {N_REP}); by cap (channel, overland): "
+          + ", ".join(f"{c}: {by_cap['channel', c]:.4f}, {by_cap['overland', c]:.4f}"
+                      for c in (kin.sweep_tiles().cap, *SHARDED_CAPS))
+          + f"; bounds {bound_c[0]:.4f} ms ({bound_c[1]}) and {bound_o[0]:.4f} ms ({bound_o[1]}); "
+          f"chain floors {floor_ms:.4f} and {floor_o:.4f} ms; "
+          f"{T * ms['channel'] + ms['overland']:.1f} ms of K6 a step in {T + 1} launches; card {card}",
+          flush=True)
     del ops_o, ops_c, captured, d
 
     # the float32 sharded state after `days` days against phase 8's packed
@@ -1481,6 +1573,10 @@ def phase_sharded(torch, ks, card, ctx, tmp):
             "launches": launches["kinwave_sharded"], "plain_ms": plain_c,
             "max_abs_err": max(absd_c, absd_o), "ms_overland": ms["overland"],
             "bound_ms_overland": bound_o[0], "plain_ms_overland": plain_o,
+            "chain_floor_ms": floor_ms, "chain_floor_ms_overland": floor_o,
+            "deep_tile_ms": deep_ms, "deep_tile_ms_overland": deep_o,
+            "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
+            "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
             "step_ms": step_ms,
             "plain_shape": "1200x1000 catchment, one channel sub-step (and the overland sweep), "
                            "float32"}

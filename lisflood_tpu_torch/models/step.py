@@ -115,7 +115,8 @@ def build_routers(cfg, aux, device):
     overland graph `aux["graph_tochan"]` shares the pixel space), and also
     returns `shard_of` and `partition_stats`, as the JAX package does, and
     the host seconds of its parts in `seconds` (partition, then each graph's
-    schedule and router)."""
+    schedule and router, the router's with K6's tile tables where it
+    sweeps)."""
     if cfg.routing_kernel == "sharded":
         t0 = time.perf_counter()
         shard_of, stats = catchment_partition(aux["graph_kin"], cfg.num_shards)
@@ -127,6 +128,8 @@ def build_routers(cfg, aux, device):
             seconds[f"schedule_{key}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             out[key] = ShardedRouter(ps, device=device)
+            if not out[key].no_edges:
+                out[key].sweep_tiles()
             seconds[f"router_{key}"] = time.perf_counter() - t0
         return out
     if cfg.routing_kernel != "packed":

@@ -18,13 +18,16 @@ cut edges alike, from an upstream table (upstream_positions) instead of
 scattering into windows. The table lists a pixel's sources by ascending
 natural pixel index, so the sum order of a pixel's inflow depends neither on
 S nor on how the shards are spread over processes: the sweep gives the same
-bits for every shard count. The kernel and its plain version agree bit for
-bit.
+bits for every shard count. The plain version walks the lockstep chunks in
+order; the kernel walks tiles of whole trees level by level (the tables of
+`sharded_tables`, built with the router's step, whose slots keep the
+table's order), so the two agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,8 +35,9 @@ import torch
 
 from ..device import resolve_device
 from ..parallel.partition import graph_levels
-from .kinwave_packed import PackedRouter, PackedSchedule, newton_solve
-from .wavefront import upstream_table
+from .kinwave_packed import (SWEEP_THREADS, PackedRouter, PackedSchedule, SweepTiles,
+                             newton_solve, sweep_fit)
+from .wavefront import SWEEP_CAP, sweep_tiles, upstream_table
 
 
 @dataclass
@@ -215,57 +219,187 @@ def _sweep_sharded(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
     return q
 
 
+@dataclass(frozen=True)
+class ShardedTiles(SweepTiles):
+    """K6's tables on one device: the SweepTiles of a sharded schedule's
+    real positions (ops/wavefront.sweep_tiles with the padding left out),
+    each tile's widest level (`width`; `widths` and `levels` on the host),
+    each entry's ring record (`ring`: its position and its sources' offsets
+    into the level below), the padding positions `pad`, and the schedule's
+    geometry, which the plain version reads with `ups`."""
+
+    width: torch.Tensor
+    ring: torch.Tensor
+    pad: torch.Tensor
+    widths: np.ndarray
+    levels: np.ndarray
+    n_chunks: int
+    n_shards: int
+    chunk: int
+
+
+def sharded_tables(ps, ups, cap=SWEEP_CAP):
+    """ShardedTiles of the sharded schedule `ps` from its source table `ups`
+    (K, p_pad) int32 (upstream_positions), on ups's device, tiles of at most
+    `cap` positions; `stats` holds the host seconds of the build."""
+    t0 = time.perf_counter()
+    device = ups.device
+    tab = sweep_tiles(ps.down_pos, ups.cpu().numpy(), ps.p_pad, cap, keep=ps.perm < ps.num_pixels,
+                      ring=True)
+    lvl_ptr = tab["lvl_ptr"].astype(np.int64)
+    dev = lambda k: torch.as_tensor(tab[k], device=device)
+    stats = {k: tab[k] for k in ("trees", "largest_tree", "levels", "largest_tile")}
+    stats["seconds"] = time.perf_counter() - t0
+    return ShardedTiles(ups=ups, tile_ptr=dev("tile_ptr"), pos=dev("pos"), slots=dev("slots"),
+                        lvl_ptr=dev("lvl_ptr"), lvl_off=dev("lvl_off"), cap=int(cap),
+                        count=tab["lvl_off"][lvl_ptr[1:] - 1].astype(np.int64),
+                        padded=np.diff(tab["tile_ptr"].astype(np.int64)), stats=stats,
+                        width=dev("width"), ring=dev("ring"), pad=dev("pad"),
+                        widths=tab["width"].astype(np.int64),
+                        levels=np.diff(lvl_ptr) - 1, n_chunks=ps.n_chunks,
+                        n_shards=ps.n_shards, chunk=ps.chunk)
+
+
+# the ring path's copy slots (csrc/kinwave_sharded.cu: kGatherSlots operand
+# slots of const and adx, kTableSlots slots of the entries' ring records),
+# and the ring's width rounded up to a multiple of RING_ALIGN
+GATHER_SLOTS, TABLE_SLOTS = 4, 7
+RING_ALIGN = 8
+# threads of a ring tile's block that copy ahead while the others run its
+# levels (at least; the block's threads beyond those that run a level copy)
+RING_COPY_THREADS = 128
+# padding positions a thread of the padding blocks solves: short blocks leave
+# a short tail after the tiles
+PAD_PER_THREAD = 1
+
+
+def ring_bytes(L, K, itemsize, ring_w, ring_levels):
+    """Shared bytes of the ring path (as smem_bytes in
+    csrc/kinwave_sharded.cu): the ring of two levels' q and the operand
+    slots, L lanes each, the record slots (a position and K offsets, rounded
+    up to a multiple of 4 int32), and the tile's level offsets."""
+    rec = 4 * -(-(K + 1) // 4)
+    return ((2 + 2 * GATHER_SLOTS) * L * ring_w * itemsize
+            + TABLE_SLOTS * rec * ring_w * 4 + 4 * (ring_levels + 1))
+
+
+def sharded_plan(tiles, optin, static_bytes, L, itemsize):
+    """How a launch runs each tile, from the shared memory a block can have
+    (`optin` bytes, less the kernel's `static_bytes`): n_smem, the padded
+    entries up to which a tile runs in shared memory (its q and tables,
+    kinwave_packed.sweep_fit); for the others, the ring's width (the widest
+    level, rounded up to RING_ALIGN, of the tiles whose ring fits) and its
+    levels (the most of a tile whose ring fits at that width); a tile that
+    fits neither reads q back from global memory. A ring tile's levels run
+    on ring_threads threads, one a (lane, entry) pair of its widest level
+    (at most 1024 - RING_COPY_THREADS), and the block's other threads, at
+    least RING_COPY_THREADS, copy ahead; the block has SWEEP_THREADS threads
+    or as many as that takes. Padding blocks of PAD_PER_THREAD positions a
+    thread. Returns a dict with the counts of ring and global tiles."""
+    K = tiles.ups.shape[0]
+    budget = optin - static_bytes
+    n_smem = tiles.n_smem(sweep_fit(optin, static_bytes, L, K, itemsize))
+    rest = tiles.padded > n_smem
+    w8 = -(-tiles.widths // RING_ALIGN) * RING_ALIGN
+    fits = rest & (ring_bytes(L, K, itemsize, w8, tiles.levels) <= budget)
+    ring_w = int(w8[fits].max()) if fits.any() else 0
+    fits &= ring_bytes(L, K, itemsize, ring_w, tiles.levels) <= budget
+    ring_levels = int(tiles.levels[fits].max()) if fits.any() else 0
+    ring = rest & (tiles.widths <= ring_w) & (tiles.levels <= ring_levels)
+    threads, ring_threads = SWEEP_THREADS, 0
+    if ring.any():
+        ring_threads = min(-(-L * ring_w // 32) * 32, 1024 - RING_COPY_THREADS)
+        threads = max(threads, ring_threads + RING_COPY_THREADS)
+    n_pad = tiles.pad.numel()
+    return {"n_smem": n_smem, "ring_w": ring_w, "ring_levels": ring_levels, "threads": threads,
+            "ring_threads": ring_threads,
+            "pad_blocks": -(-n_pad // (threads * PAD_PER_THREAD)), "n_pad": n_pad,
+            "ring_tiles": int(ring.sum()), "global_tiles": int((rest & ~ring).sum())}
+
+
 class _ShardedArgs(ctypes.Structure):
     """Mirror of struct ShardedArgs in csrc/kinwave_sharded.cu."""
-    _fields_ = ([(k, ctypes.c_int) for k in ("n_chunks", "shards", "chunk", "lanes", "K",
-                                             "threads")]
+    _fields_ = ([(k, ctypes.c_int) for k in ("n_tiles", "pad_blocks", "lanes", "K", "p_pad",
+                                             "threads", "n_smem", "ring_w", "ring_levels",
+                                             "ring_threads", "n_pad")]
                 + [("beta", ctypes.c_double)]
-                + [(k, ctypes.c_void_p) for k in ("cst", "adx", "q", "ups")])
+                + [(k, ctypes.c_void_p) for k in ("cst", "adx", "q", "tile_ptr", "pos", "slots",
+                                                  "lvl_ptr", "lvl_off", "width", "ring", "pad",
+                                                  "trace")])
 
 
 @functools.cache
 def _library():
     from . import _build
     lib = _build.load("kinwave_sharded")
+    int_p = ctypes.POINTER(ctypes.c_int)
+    lib.kinwave_sharded_smem.argtypes = [ctypes.c_int, int_p, int_p]
+    lib.kinwave_sharded_smem.restype = ctypes.c_int
     lib.kinwave_sharded_launch.argtypes = [ctypes.POINTER(_ShardedArgs), ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p, int_p]
     lib.kinwave_sharded_launch.restype = ctypes.c_int
     lib.kinwave_sharded_error_string.argtypes = [ctypes.c_int]
     lib.kinwave_sharded_error_string.restype = ctypes.c_char_p
     return lib
 
 
-# threads of the kernel's one block: S*C positions of a chunk, at most 1024
-MAX_THREADS = 1024
+def _lib_check(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"kinwave_sharded {what} failed: "
+                           + lib.kinwave_sharded_error_string(rc).decode())
 
 
-def _launch(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
-    """One launch of csrc/kinwave_sharded.cu on the current stream."""
+@functools.cache
+def _smem(device_index, is_double):
+    """(opt-in shared bytes of a block, the kernel's static shared bytes) on
+    one device, asked of the library once."""
+    lib = _library()
+    optin, static = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _lib_check(lib, lib.kinwave_sharded_smem(is_double, ctypes.byref(optin),
+                                                 ctypes.byref(static)), "shared memory query")
+    return optin.value, static.value
+
+
+def _launch(const_p, adx_p, tiles, beta, trace=None):
+    """One launch of csrc/kinwave_sharded.cu on the current stream, one
+    block per tile and the padding blocks. The plan is left in
+    `kinwave_sharded_sweep.last_plan`. `trace`, an int64 (blocks, 5) tensor
+    on the card, gets each block's record (see sharded_trace)."""
     lib = _library()
     dev = const_p.device
-    q = torch.empty_like(const_p)
-    threads = min(MAX_THREADS, -(-n_shards * chunk // 32) * 32)
-    args = _ShardedArgs(n_chunks=n_chunks, shards=n_shards, chunk=chunk,
-                        lanes=const_p.shape[0], K=ups.shape[0], threads=threads,
-                        beta=float(beta), cst=const_p.data_ptr(), adx=adx_p.data_ptr(),
-                        q=q.data_ptr(), ups=ups.data_ptr())
+    L = const_p.shape[0]
     is_double = int(const_p.dtype == torch.float64)
     poly = int(const_p.dtype == torch.float32 and abs(float(beta) - 0.6) < 1e-9)
+    plan = sharded_plan(tiles, *_smem(dev.index, is_double), L, const_p.element_size())
+    q = torch.empty_like(const_p)
+    ptr = lambda v: v.data_ptr()
+    args = _ShardedArgs(n_tiles=tiles.n_tiles, pad_blocks=plan["pad_blocks"], lanes=L,
+                        K=tiles.ups.shape[0], p_pad=const_p.shape[1], threads=plan["threads"],
+                        n_smem=plan["n_smem"], ring_w=plan["ring_w"],
+                        ring_levels=plan["ring_levels"], ring_threads=plan["ring_threads"],
+                        n_pad=plan["n_pad"], beta=float(beta),
+                        cst=ptr(const_p), adx=ptr(adx_p), q=ptr(q),
+                        **{k: ptr(getattr(tiles, k)) for k in ("tile_ptr", "pos", "slots",
+                                                               "lvl_ptr", "lvl_off", "width",
+                                                               "ring", "pad")},
+                        trace=None if trace is None else ptr(trace))
+    smem = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.kinwave_sharded_launch(ctypes.byref(args), is_double, poly,
-                                        ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("kinwave_sharded launch failed: "
-                           + lib.kinwave_sharded_error_string(rc).decode())
+        _lib_check(lib, lib.kinwave_sharded_launch(ctypes.byref(args), is_double, poly,
+                                                   ctypes.c_void_p(stream), ctypes.byref(smem)),
+                   "launch")
     kinwave_sharded_sweep.launches += 1
-    kinwave_sharded_sweep.last_plan = {"blocks": 1, "threads": threads}
+    kinwave_sharded_sweep.last_plan = {"tiles": tiles.n_tiles, "cap": tiles.cap,
+                                       "smem_bytes": smem.value, **plan}
     return q
 
 
-def _check(const_p, adx_p, ups, n_chunks, n_shards, chunk):
-    """Device, dtype, shape and contiguity of the sweep's operands."""
-    p_pad = n_shards * n_chunks * chunk
+def _check(const_p, adx_p, tiles):
+    """Device, dtype, shape and contiguity of the sweep's operands and
+    tables."""
+    p_pad = tiles.n_shards * tiles.n_chunks * tiles.chunk
     if const_p.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"const: dtype {const_p.dtype}")
     if const_p.dim() != 2 or const_p.shape[1] != p_pad or not 1 <= const_p.shape[0] <= 8:
@@ -274,28 +408,57 @@ def _check(const_p, adx_p, ups, n_chunks, n_shards, chunk):
         raise ValueError(f"const: {const_p.numel()} elements, the kernel indexes with int32")
     if tuple(adx_p.shape) != tuple(const_p.shape) or adx_p.dtype != const_p.dtype:
         raise ValueError(f"adx: {tuple(adx_p.shape)} {adx_p.dtype}, want const's")
+    ups = tiles.ups
     if ups.dim() != 2 or ups.shape[1] != p_pad or not 1 <= ups.shape[0] <= 8:
         raise ValueError(f"ups: shape {tuple(ups.shape)}, want (1..8, {p_pad})")
-    if ups.dtype != torch.int32:
-        raise TypeError(f"ups: dtype {ups.dtype}, want int32")
-    for name, v in (("const", const_p), ("adx", adx_p), ("ups", ups)):
+    n_tiles, N, K = tiles.n_tiles, int(tiles.padded.sum()), ups.shape[0]
+    want = {"tile_ptr": n_tiles + 1, "lvl_ptr": n_tiles + 1, "pos": N, "slots": K * N,
+            "width": n_tiles, "ring": 4 * -(-(K + 1) // 4) * N, "lvl_off": None, "pad": None}
+    for name, size in want.items():
+        v = getattr(tiles, name)
+        if v.dim() != 1 or (size is not None and v.shape[0] != size):
+            raise ValueError(f"{name}: shape {tuple(v.shape)}, want ({size},)")
+    for name, v in (("const", const_p), ("adx", adx_p), ("ups", ups),
+                    *((k, getattr(tiles, k)) for k in want)):
         if v.device != const_p.device or not v.is_contiguous():
             raise ValueError(f"{name}: not contiguous on {const_p.device}")
+        if name not in ("const", "adx") and v.dtype != torch.int32:
+            raise TypeError(f"{name}: dtype {v.dtype}, want int32")
 
 
-def kinwave_sharded_sweep(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
+def kinwave_sharded_sweep(const_p, adx_p, tiles, beta):
     """One kinematic-wave time step over a sharded schedule: const_p / adx_p
-    (L, p_pad) in its position space, ups (K, p_pad) int32 its upstream
-    table. A CUDA tensor launches the kernel (and counts the launch in
-    `kinwave_sharded_sweep.launches`), a CPU tensor runs the plain version
-    `_sweep_sharded`; any other device raises. Returns q (L, p_pad)."""
-    _check(const_p, adx_p, ups, n_chunks, n_shards, chunk)
+    (L, p_pad) in its position space and the ShardedTiles of its graph
+    (sharded_tables). A CUDA tensor launches the kernel (and counts the
+    launch in `kinwave_sharded_sweep.launches`), a CPU tensor runs the plain
+    version `_sweep_sharded`; any other device raises. Returns q
+    (L, p_pad)."""
+    _check(const_p, adx_p, tiles)
     kind = const_p.device.type
     if kind == "cuda":
-        return _launch(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta)
+        return _launch(const_p, adx_p, tiles, beta)
     if kind == "cpu":
-        return _sweep_sharded(const_p, adx_p, ups.long(), n_chunks, n_shards, chunk, beta)
+        return _sweep_sharded(const_p, adx_p, tiles.ups.long(), tiles.n_chunks, tiles.n_shards,
+                              tiles.chunk, beta)
     raise RuntimeError(f"no sharded sweep kernel for device {kind!r}")
+
+
+def sharded_trace(const_p, adx_p, tiles, beta):
+    """One launch of K6 on CUDA tensors with each block's record, as a NumPy
+    (blocks, 5) int64 array, the tiles' blocks first, then the padding
+    blocks: the block's SM, the global nanosecond clock at its start and at
+    its end, and its SM's cycles from its start to the end of its staging (a
+    ring tile: to its first level) and to its end. Returns (q, records). The
+    launch is counted as any other."""
+    _check(const_p, adx_p, tiles)
+    if const_p.device.type != "cuda":
+        raise RuntimeError("sharded_trace: the records come from the kernel, on a CUDA device")
+    plan = sharded_plan(tiles, *_smem(const_p.device.index, int(const_p.dtype == torch.float64)),
+                        const_p.shape[0], const_p.element_size())
+    trace = torch.zeros(tiles.n_tiles + plan["pad_blocks"], 5, dtype=torch.int64,
+                        device=const_p.device)
+    q = _launch(const_p, adx_p, tiles, beta, trace=trace)
+    return q, trace.cpu().numpy()
 
 
 kinwave_sharded_sweep.launches = 0
@@ -323,16 +486,22 @@ class ShardedRouter:
                                     device=self.device)
         self.inv_perm = torch.as_tensor(ps.inv_perm, device=self.device)
         self.ups = torch.as_tensor(upstream_positions(ps), device=self.device)
+        self._tiles = {}
+
+    def sweep_tiles(self, cap=SWEEP_CAP):
+        """K6's ShardedTiles at `cap`, built at first use, once per cap
+        (models/step.build_routers builds them with the step)."""
+        if cap not in self._tiles:
+            self._tiles[cap] = sharded_tables(self.ps, self.ups, cap)
+        return self._tiles[cap]
 
     pack = PackedRouter.pack
     unpack = PackedRouter.unpack
 
     def sweep(self, constant, a_dx_div_dt, beta):
         """The sweep on packed (L, p_pad) operands."""
-        ps = self.ps
         adx = a_dx_div_dt.expand_as(constant).contiguous()
-        return kinwave_sharded_sweep(constant.contiguous(), adx, self.ups, ps.n_chunks,
-                                     ps.n_shards, ps.chunk, float(beta))
+        return kinwave_sharded_sweep(constant.contiguous(), adx, self.sweep_tiles(), float(beta))
 
     def sweep_operands(self, discharge, lateral_inflow, a_dx_div_dt, beta):
         """(L, P) natural-order lanes -> the sweep's packed (const, adx)."""

@@ -1,8 +1,8 @@
-"""Host-built tables of the port's kernels (csrc/kinwave_substep.cu and
-csrc/kinwave_sweep.cu): the upstream sources of every schedule position in
-the order the kernels sum them; the per-chunk lists of the flag protocol
-through which the sub-step kernel's persistent blocks meet; and the overland
-sweep's tiles of whole trees."""
+"""Host-built tables of the port's kernels (csrc/kinwave_substep.cu,
+csrc/kinwave_sweep.cu and csrc/kinwave_sharded.cu): the upstream sources of
+every schedule position in the order the kernels sum them; the per-chunk
+lists of the flag protocol through which the sub-step kernel's persistent
+blocks meet; and the tiles of whole trees of the two sweeps."""
 from __future__ import annotations
 
 import numpy as np
@@ -115,21 +115,26 @@ SWEEP_CAP = 1024
 TILE_ALIGN = 8
 
 
-def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
-    """The overland sweep's tile tables, as NumPy arrays, from the
-    downstream position of every schedule position (p_pad = none) and its
-    source table `ups` (K, p_pad) (upstream_table, ascending).
+def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP, keep=None, ring=False):
+    """The tile tables of the tree-tiled sweeps (csrc/kinwave_sweep.cu,
+    csrc/kinwave_sharded.cu), as NumPy arrays, from the downstream position
+    of every schedule position (p_pad = none) and its source table `ups`
+    (K, p_pad) (ascending, or any fixed order: the slots keep it).
 
-    Every position belongs to one tree, rooted at the position that has no
-    downstream; padding positions are single-cell trees. Tiles hold whole
-    trees, up to `cap` positions; a tree larger than `cap` has a tile of its
-    own. Trees are packed by depth class (ceil(log2(depth + 1)), deepest
-    first), in the order of their roots' positions within a class: a tile
-    runs as many levels as its deepest tree, so trees of like depth share
-    tiles, while root order keeps a tile's positions close together. A
-    position's level in its tile is the tile's greatest depth less its own
-    depth below its root, so every source lies one level below its target,
-    and a level is one band of equal distance to the pits, which a schedule
+    `keep` (p_pad,) bool, all by default, names the positions to tile; the
+    others, which must have no edge (a sharded schedule's padding), lie in
+    no tile and are listed in `pad`. Every tiled position belongs to one
+    tree, rooted at the position that has no downstream; a tiled position
+    with no edge (the packed schedule's padding) is a single-cell tree.
+    Tiles hold whole trees, up to `cap` positions; a tree larger than `cap`
+    has a tile of its own. Trees are packed by depth class (ceil(log2(depth
+    + 1)), deepest first), in the order of their roots' positions within a
+    class: a tile runs as many
+    levels as its deepest tree, so trees of like depth share tiles, while
+    root order keeps a tile's positions close together. A position's level
+    in its tile is the tile's greatest depth less its own depth below its
+    root, so every source lies in the level just below its target, and a
+    level is one band of equal distance to the pits, which a schedule
     ordered by that distance (graph/ldd.build_schedule) keeps contiguous.
     Per tile, its entries are sorted by (level, position) and padded to a
     multiple of TILE_ALIGN:
@@ -140,7 +145,13 @@ def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
           count) from K * tile_ptr[t]: each entry's sources as entries of
           its tile, in the order of `ups`, -1 where none;
       lvl_ptr (n_tiles + 1,), lvl_off: tile t's level offsets
-          lvl_off[lvl_ptr[t]:lvl_ptr[t + 1]], from 0 to its entry count.
+          lvl_off[lvl_ptr[t]:lvl_ptr[t + 1]], from 0 to its entry count;
+      width (n_tiles,): the most entries of a level of each tile;
+      pad: the positions left out, ascending;
+      ring (R * N,), with `ring`: each entry's record of R = 4 * ceil((K +
+          1) / 4) int32 (16-byte aligned): its position, then its sources'
+          offsets into the level just below, in the order of `ups`, -1
+          where none (and on the padding).
 
     Also returns counts for the reports: trees, the largest tree, the most
     levels of a tile, the largest tile."""
@@ -149,12 +160,14 @@ def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
     down = np.asarray(down_pos, np.int64)
     ups = np.asarray(ups, np.int64)
     K = ups.shape[0]
-    idx = np.arange(p_pad)
+    keep = np.ones(p_pad, bool) if keep is None else np.asarray(keep, bool)
+    idx = np.flatnonzero(keep)
+    n = idx.size
 
     # depth below the root and the root, from the roots up through `ups`
     depth = np.full(p_pad, -1, np.int64)
     root = np.full(p_pad, -1, np.int64)
-    front = np.flatnonzero(down >= p_pad)
+    front = np.flatnonzero((down >= p_pad) & keep)
     root[front] = front
     d = 0
     while front.size:
@@ -164,14 +177,17 @@ def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
         root[src[on]] = np.broadcast_to(root[front], src.shape)[on]
         front = src[on]
         d += 1
-    if (depth < 0).any():
-        raise ValueError("sweep_tiles: the graph has a cycle")
+    if (depth[idx] < 0).any():
+        raise ValueError("sweep_tiles: the graph has a cycle, or an edge ends outside `keep`")
+    if (depth[~keep] >= 0).any() or (down[~keep] < p_pad).any():
+        raise ValueError("sweep_tiles: a position left out of `keep` has an edge")
 
     # trees by depth class, deepest first, in the order of their roots within
     # a class, packed whole into tiles of <= cap
-    roots, tree_of, size = np.unique(root, return_inverse=True, return_counts=True)
+    depth_k = depth[idx]
+    roots, tree_of, size = np.unique(root[idx], return_inverse=True, return_counts=True)
     height = np.zeros(roots.size, np.int64)
-    np.maximum.at(height, tree_of, depth)
+    np.maximum.at(height, tree_of, depth_k)
     rank = np.lexsort((roots, -np.ceil(np.log2(height + 1))))
     cum = np.cumsum(size[rank])
     first = []
@@ -187,25 +203,25 @@ def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
     tile = tile_of_tree[tree_of]
     n_tiles = len(first)
     levels = np.zeros(n_tiles, np.int64)
-    np.maximum.at(levels, tile, depth + 1)
-    level = levels[tile] - 1 - depth
+    np.maximum.at(levels, tile, depth_k + 1)
+    level = levels[tile] - 1 - depth_k
     order = np.lexsort((idx, level, tile))
     count = np.bincount(tile, minlength=n_tiles)
     padded = -(-count // TILE_ALIGN) * TILE_ALIGN
     tile_ptr = np.r_[0, np.cumsum(padded)]
     start = np.r_[0, np.cumsum(count)][:-1]
     t_sorted = tile[order]
-    local = np.arange(p_pad) - start[t_sorted]
+    local = np.arange(n) - start[t_sorted]
     slot = np.empty(p_pad, np.int64)
-    slot[order] = local
+    slot[idx[order]] = local
     N = int(tile_ptr[-1])
     pos = np.full(N, -1, np.int32)
-    pos[tile_ptr[t_sorted] + local] = order
+    pos[tile_ptr[t_sorted] + local] = idx[order]
 
     slots = np.full(K * N, -1, np.int32)
     base = K * tile_ptr[t_sorted] + local
     for k in range(K):
-        src = ups[k, order]
+        src = ups[k, idx[order]]
         on = src >= 0
         slots[base[on] + k * padded[t_sorted[on]]] = slot[src[on]]
 
@@ -213,7 +229,22 @@ def sweep_tiles(down_pos, ups, p_pad, cap=SWEEP_CAP):
     at_level = np.bincount(lvl_ptr[tile] + 1 + level, minlength=int(lvl_ptr[-1]))
     run = np.cumsum(at_level)
     lvl_off = run - np.repeat(run[lvl_ptr[:-1]], levels + 1)
-    return {"tile_ptr": tile_ptr.astype(np.int32), "pos": pos, "slots": slots,
-            "lvl_ptr": lvl_ptr.astype(np.int32), "lvl_off": lvl_off.astype(np.int32),
-            "trees": int(roots.size), "largest_tree": int(size.max()),
-            "levels": int(levels.max()), "largest_tile": int(count.max())}
+    out = {"tile_ptr": tile_ptr.astype(np.int32), "pos": pos, "slots": slots,
+           "lvl_ptr": lvl_ptr.astype(np.int32), "lvl_off": lvl_off.astype(np.int32),
+           "width": np.maximum.reduceat(at_level, lvl_ptr[:-1]).astype(np.int32),
+           "pad": np.flatnonzero(~keep).astype(np.int32),
+           "trees": int(roots.size), "largest_tree": int(size.max()),
+           "levels": int(levels.max()), "largest_tile": int(count.max())}
+    if ring:
+        R = 4 * -(-(K + 1) // 4)
+        entry = tile_ptr[t_sorted] + local
+        lev = level[order]
+        below = lvl_off[lvl_ptr[t_sorted] + np.maximum(lev - 1, 0)]
+        rec = np.full((N, R), -1, np.int32)
+        rec[entry, 0] = idx[order]
+        for k in range(K):
+            src = ups[k, idx[order]]
+            on = src >= 0
+            rec[entry[on], 1 + k] = slot[src[on]] - below[on]
+        out["ring"] = rec.reshape(-1)
+    return out

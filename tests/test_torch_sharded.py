@@ -160,22 +160,27 @@ def test_sweep_bits_do_not_depend_on_shards(graphs, dt):
 
 
 def test_sweep_wrapper_checks_and_devices(graphs):
-    """The wrapper counts no launch on the CPU, refuses operands of the
-    wrong shape or type, and raises on a device with no kernel."""
+    """The wrapper takes the router's tile tables, counts no launch on the
+    CPU, refuses operands of the wrong shape or type, and raises on a device
+    with no kernel."""
     graph = graphs["16x16"]
     router = ShardedRouter(graph, catchment_partition(graph, 4)[0], 64, device="cpu")
     ps = router.ps
     c, a = router.sweep_operands(*(torch.as_tensor(x) for x in _router_inputs(ps.num_pixels)), 0.6)
-    geometry = (ps.n_chunks, ps.n_shards, ps.chunk)
+    tiles = router.sweep_tiles()
+    assert (tiles.n_chunks, tiles.n_shards, tiles.chunk) == (ps.n_chunks, ps.n_shards, ps.chunk)
     before = kinwave_sharded_sweep.launches
-    q = kinwave_sharded_sweep(c, a, router.ups, *geometry, 0.6)
+    q = kinwave_sharded_sweep(c, a, tiles, 0.6)
     assert q.shape == c.shape and kinwave_sharded_sweep.launches == before
     with pytest.raises(ValueError):
-        kinwave_sharded_sweep(c[:, :-1], a, router.ups, *geometry, 0.6)
+        kinwave_sharded_sweep(c[:, :-1], a, tiles, 0.6)
     with pytest.raises(TypeError):
-        kinwave_sharded_sweep(c, a, router.ups.long(), *geometry, 0.6)
+        kinwave_sharded_sweep(c, a, dataclasses.replace(tiles, ups=tiles.ups.long()), 0.6)
+    meta = dataclasses.replace(tiles, **{f.name: getattr(tiles, f.name).to("meta")
+                                         for f in dataclasses.fields(tiles)
+                                         if torch.is_tensor(getattr(tiles, f.name))})
     with pytest.raises(RuntimeError):
-        kinwave_sharded_sweep(c.to("meta"), a.to("meta"), router.ups.to("meta"), *geometry, 0.6)
+        kinwave_sharded_sweep(c.to("meta"), a.to("meta"), meta, 0.6)
 
 
 # ---------------------------------------------------------------------------

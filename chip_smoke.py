@@ -99,7 +99,7 @@ script exits non-zero:
      simulated day against phase 8's step loop, one launch of each kernel a
      day; its end state and TSS rows held to phase 8's step loop over the
      same days (meteo_forcing, the TSS sampled from each series' field by
-     its GaugeSampler), both under fixed_order_sums, within 1e-5 of each
+     its GaugeSampler), within 1e-5 of each
      field's max; one host accuflux at the full size (the TSS `total`
      operation, a day's cost for each TSS that takes it); a 96x80 catchment
      through lisfloodexe with -l in float64 on the card and on the CPU: the
@@ -134,14 +134,40 @@ script exits non-zero:
      caps too; the float64 sharded step on the card against the CPU on a
      96x80 catchment (overland cut edges), SHARDED_DAYS days, within 1e-10
      of each field's max.
-The operands on which the kernel is held to its plain version are drawn with
-fixed-order sums (fixed_order_sums), so that every run compares on the same
-numbers.
+ 11. RoutingKernel scan on phase 8's catchment, float32: the host seconds of
+     build_routers (the two ScanRouters with K6's tables on the natural
+     graphs) and each graph's tables (trees, the largest, levels, tiles
+     through the ring); the step through build_multi_step, one warm-up day
+     and a timed batch of SCAN_DAYS, with NoRoutSteps + 1 launches of K6 a
+     step and none of the sub-step kernel or K5, every state entry finite,
+     one profiled step; K6 on the natural tables against its plain version
+     (kinwave._sweep_scan, which _route_batched runs) on the overland and one
+     channel sub-step's operands, bitwise, in two runs and at the caps 1024
+     and SCAN_CAPS, its time, bound and chain floor; the scan state after
+     SCAN_DAYS days against phase 8's packed state (printed only);
+     lisfloodexe with RoutingKernel scan over SCAN_DAYS days; the float64
+     scan step on the card against the CPU on a 96x80 catchment within
+     1e-10 of each field's max;
+ 12. K7, the fixed-order segment sum (csrc/segment_sum.cu), on phase 8's
+     catchment's Catchments, the sharded loop's kinp$Catchments, the
+     water-use regions write_catchment writes (west and east halves) and
+     downEva: segments, members, the largest segment, bitwise equal to its
+     plain version in two runs, its time, its bound by bytes, and the time
+     of index_add_ with the gather, atomic and under
+     torch.use_deterministic_algorithms (phase 5 does the same on the
+     continental all-options grid's Catchments, WUseRegionC, downstruct and
+     downEva, and counts K7's calls a step).
+Every sum of the step adds in a fixed order (K7), so every run computes the
+same numbers: the all-options (phase 5), prerun (6), catchment (8), sharded
+(10) and scan (11) steps run REPEAT_STEPS steps twice from the same state,
+and every state entry and report must have the same bits (repeat_bitwise),
+with no deterministic mode of PyTorch on.
 Run as `python3 chip_smoke.py --side-flag-ab` it only times the main path's
 kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
 The line before the last but one is a JSON object of per-kernel figures (the
-sub-step kernel on its five paths, kinwave_sweep and kinwave_sharded); then
+sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
+scan router's natural tables and segment_sum); then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
@@ -244,10 +270,9 @@ SCAN_BLOCKS = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 132)
 
 
 def same_bits(a, b):
-    """Whether two dicts of float tensors hold the same bits, NaNs included."""
+    """Whether two dicts of tensors hold the same bits, NaNs included."""
     import torch
-    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
-    return all(torch.equal(v.view(bits[v.dtype]), b[k].view(bits[v.dtype])) for k, v in a.items())
+    return all(tensor_bits_equal(torch, v, b[k]) for k, v in a.items())
 
 
 def blocks_bitwise(torch, ks, spec, xs):
@@ -330,22 +355,6 @@ def bound(xs, ys, spec):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-@contextlib.contextmanager
-def fixed_order_sums(torch):
-    """Within this context index_add_ sums in a fixed order. The land phase's
-    regional totals (water use) are atomic sums otherwise, whose last bit
-    changes from run to run; `trans`, a sum of differences of near-equal
-    discharges, amplifies such a bit, and the kernel's distance to the plain
-    version on it then moves between 1e-7 and 1e-5 from draw to draw. The
-    operands that the kernel is held to the plain version on are drawn in
-    this context, so that every run compares on the same numbers."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def kernel_inputs(model, device, dtype, seed=0):
     """A built step, its state and forcing, and the sub-step operands its
     land phase gives the routing kernel (the same in every run)."""
@@ -359,8 +368,7 @@ def kernel_inputs(model, device, dtype, seed=0):
     s = step.prepare_state(state)
     f = to_device({**synthetic_forcing(cfg.num_pixels, seed=seed),
                    **aux.get("forcing_options", {})}, device, dtype)
-    with fixed_order_sums(torch):
-        spec, xs = kernel_operands(cfg, p, s, step.land_phase(s, f), step.routers)
+    spec, xs = kernel_operands(cfg, p, s, step.land_phase(s, f), step.routers)
     return step, s, f, spec, xs
 
 
@@ -503,18 +511,25 @@ def stack_forcing(torch, fs):
 
 def reset_launches():
     """Sets every kernel wrapper's launch count to 0."""
-    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep
+    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep, segment_sum
     kinwave_substep.kinwave_substep.launches = 0
     kinwave_packed.kinwave_sweep.launches = 0
     kinwave_sharded.kinwave_sharded_sweep.launches = 0
+    segment_sum.segment_total.launches = 0
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel."""
-    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep
+    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep, segment_sum
     return {"kinwave_substep": kinwave_substep.kinwave_substep.launches,
             "kinwave_sweep": kinwave_packed.kinwave_sweep.launches,
-            "kinwave_sharded": kinwave_sharded.kinwave_sharded_sweep.launches}
+            "kinwave_sharded": kinwave_sharded.kinwave_sharded_sweep.launches,
+            "segment_sum": segment_sum.segment_total.launches}
+
+
+def routing_launches(launches):
+    """The routing kernels' launch counts of `launches` (K7's apart)."""
+    return {k: v for k, v in launches.items() if k != "segment_sum"}
 
 
 def timed_batches(torch, ks, run, forcing):
@@ -539,12 +554,13 @@ def timed_batches(torch, ks, run, forcing):
     return out, ms, launch_counts()
 
 
-def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0):
+def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0, sums=None):
     """timed_batches of the multi-step `multi` from state `s`; the sub-step
     kernel's launches must equal the steps, the overland sweep's `sweeps`
-    (one a step on an overland graph with edges, none without). Returns
-    (state, the last batch's outputs, its milliseconds per step, the
-    sub-step kernel's launches)."""
+    (one a step on an overland graph with edges, none without), K7's be
+    none where `sums` is False and some where it is True. Returns (state,
+    the last batch's outputs, its milliseconds per step, launches by
+    kernel)."""
     def run(stack):
         nonlocal s
         s, outs = multi(s, stack)
@@ -554,10 +570,13 @@ def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0):
     cells = next(iter(outs.values())).shape[1]
     print(f"  batches of 5 steps after the warm-up: {', '.join(f'{t:.1f}' for t in ms)} ms/step; "
           f"the last = {cells / ms[-1] * 1e3:.4g} cells*steps/s on {card}", flush=True)
-    print(f"  launches for {STEPS_RUN} steps: {launches}", flush=True)
-    assert launches == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": sweeps,
-                        "kinwave_sharded": 0}, launches
-    return s, outs, ms[-1], launches["kinwave_substep"]
+    print(f"  launches for {STEPS_RUN} steps: {launches} ({launches['segment_sum'] / STEPS_RUN:g} "
+          f"of K7, the segment sums, a step)", flush=True)
+    assert routing_launches(launches) == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": sweeps,
+                                          "kinwave_sharded": 0}, launches
+    if sums is not None:
+        assert (launches["segment_sum"] > 0) == sums, launches
+    return s, outs, ms[-1], launches
 
 
 N_REP = 20
@@ -607,10 +626,11 @@ def phase_prerun(torch, ks, model, card):
     assert not multi.step.eva_in_kernel
     forcing = [to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
                for i in range(6)]
-    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card)
+    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sums=True)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "prerun")
     assert "pk$Chan2QKin" not in s and "LakeStorageM3CC" not in s, sorted(s)
     assert torch.equal(s["pk$avgdis"], s["pk$CumQ"] / s["TimeSinceStart"]), "avgdis"
     print(f"  every state entry finite ({len(s)} entries, no floodplain, lake or reservoir "
@@ -635,8 +655,9 @@ def phase_prerun(torch, ks, model, card):
     _, _, _, spec_m, xs_m = kernel_inputs(mid, "cuda", torch.float64)
     assert not spec_m.split and "eva" in xs_m, spec_m
     held_to_plain(torch, ks, spec_m, xs_m, 1e-12, "240x200, InitLisflood prerun")
-    return {**fig, "launches": launches, "step_ms": step_ms, "plain_ms": plain_ms,
-            "max_abs_err": absd, "plain_shape": "1200x1000, InitLisflood, float32"}
+    return {**fig, "launches": launches["kinwave_substep"], "step_ms": step_ms,
+            "plain_ms": plain_ms, "max_abs_err": absd,
+            "plain_shape": "1200x1000, InitLisflood, float32"}
 
 
 def held_on_prefix(torch, ks, spec, xs, ys, n):
@@ -704,8 +725,8 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
           f"{M * P / step_ms * 1e3:.4g} cells*steps/s on {card}; kinwave_substep launches "
           f"{launches} for {STEPS_RUN} ensemble steps of {M} members; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    assert counts == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": 0, "kinwave_sharded": 0}, (
-        counts, "one launch per ensemble step")
+    assert routing_launches(counts) == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": 0,
+                                        "kinwave_sharded": 0}, (counts, "one a step")
     # the evaporation stencil is chosen by the member's grid, as for one model
     print(f"  evaporation stencil on the card: single model {cfg.use_eva_stencil('cuda')}, "
           f"{M}-member ensemble {runner.cfg.use_eva_stencil('cuda')}", flush=True)
@@ -716,9 +737,8 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     f0 = tile_forcing(forcing[0], M, P)
     profile_step(torch, runner.step, runner.state, f0, step_ms)
 
-    with fixed_order_sums(torch):
-        spec, xs = kernel_operands(runner.cfg, runner.params, runner.state,
-                                   runner.step.land_phase(runner.state, f0), runner.step.routers)
+    spec, xs = kernel_operands(runner.cfg, runner.params, runner.state,
+                               runner.step.land_phase(runner.state, f0), runner.step.routers)
     ys, fig = kernel_figures(torch, ks, spec, xs, f"ensemble launch, {M} members")
     n = M * PREFIX_PER_MEMBER
     rel, absd, plain_ms = held_on_prefix(torch, ks, spec, xs, ys, n)
@@ -731,13 +751,12 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     # every member against the single model's step on the same state
     C = kin.ps.chunk
     worst = []
-    with fixed_order_sums(torch):
-        after, _ = runner.step(runner.state, f0)
-        for m in range(M):
-            one, _ = single(member_state(runner.state, m, M, C), forcing[0])
-            mine = member_state(after, m, M, C)
-            worst.append(max((float((mine[k] - v).abs().max() / max(float(v.abs().max()), 1e-30)),
-                              k) for k, v in one.items()))
+    after, _ = runner.step(runner.state, f0)
+    for m in range(M):
+        one, _ = single(member_state(runner.state, m, M, C), forcing[0])
+        mine = member_state(after, m, M, C)
+        worst.append(max((float((mine[k] - v).abs().max() / max(float(v.abs().max()), 1e-30)),
+                          k) for k, v in one.items()))
     print(f"  members 0..{M - 1} of the ensemble step vs the single model's step, max rel err "
           f"by member: {', '.join(f'{e:.3e} ({k})' for e, k in worst)} (tol 1e-5)", flush=True)
     assert max(worst)[0] <= 1e-5, worst
@@ -943,7 +962,8 @@ def phase_catchment(torch, ks, card, root):
           f"overland schedule {tochan.ps.n_chunks} chunks of {tochan.ps.chunk}, window "
           f"{tochan.ps.window}, {edges} edges, {tochan.ups.shape[0]} upstream rows", flush=True)
     assert edges > 0 and not tochan.no_edges and kin.ps.chunk == 256
-    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sweeps=STEPS_RUN)
+    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sweeps=STEPS_RUN,
+                                             sums=True)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     q = outs["ChanQAvg"]
@@ -953,6 +973,7 @@ def phase_catchment(torch, ks, card, root):
           f"{float(torch.stack([s['OFQOther'], s['OFQForest'], s['OFQDirect']]).max()):.4g} m3/s",
           flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "catchment")
 
     print("  K5, the overland sweep, at the catchment's shape (float32):", flush=True)
     beta = float(p["Beta"])
@@ -999,8 +1020,7 @@ def phase_catchment(torch, ks, card, root):
     del step_m, ops_m
 
     print("  the sub-step kernel at chunk 256 on this path:", flush=True)
-    with fixed_order_sums(torch):
-        spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, forcing[0]), multi.routers)
+    spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, forcing[0]), multi.routers)
     assert spec.chunk == 256 and spec.split and "lk_pos" in xs and "rs_pos" in xs, spec
     ys, fig = kernel_figures(torch, ks, spec, xs, "catchment launch, chunk 256")
     n = CATCHMENT_PREFIX
@@ -1009,11 +1029,13 @@ def phase_catchment(torch, ks, card, root):
           f"max rel err {rel:.3e} (tol 1e-05), max abs err {absd_k:.3e}; plain version "
           f"{plain_k:.1f} ms (one run)", flush=True)
     assert rel <= 1e-5, f"the catchment launch disagrees with the plain version: {rel}"
-    substep = {**fig, "launches": launches, "plain_ms": plain_k, "max_abs_err": absd_k,
+    substep = {**fig, "launches": launches["kinwave_substep"], "plain_ms": plain_k,
+               "max_abs_err": absd_k,
                "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
     del xs, ys
     context = {"path": path, "model": (cfg, params, state, aux), "step": multi.step,
-               "forcing": forcing, "spec": spec, "step_ms": step_ms, "blocks": fig["blocks"]}
+               "forcing": forcing, "spec": spec, "step_ms": step_ms, "blocks": fig["blocks"],
+               "sums_per_step": launches["segment_sum"] / STEPS_RUN}
     return sweep, substep, context
 
 
@@ -1063,19 +1085,18 @@ def phase_driver(torch, ks, card, ctx, tmp):
     path, (cfg, params, state, aux), step = ctx["path"], ctx["model"], ctx["step"]
     days = STEPS_RUN
 
-    # the production run, float32, both sums in a fixed order
+    # the production run, float32
     out = os.path.join(tmp, "driver")
     os.makedirs(out)
     settings = load_settings(path, sys_args=["-v"],
                              vars_to_set={"Precision": "single", "PathOut": out})
     torch.cuda.reset_peak_memory_stats()
-    with fixed_order_sums(torch):
-        reset_launches()
-        t0 = time.perf_counter()
-        runner = lisfloodexe(settings)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = lisfloodexe(settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
     per_model = torch.cuda.max_memory_allocated()
     sec = runner.seconds
     run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
@@ -1090,8 +1111,9 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"{len(runner.outputs.tss_writers)} TSS; peak device memory "
           f"{per_model / 2**30:.2f} GiB", flush=True)
     print(f"  launches in the run: {launches} for {days} days", flush=True)
-    assert launches == {"kinwave_substep": days, "kinwave_sweep": days,
-                        "kinwave_sharded": 0}, launches
+    assert routing_launches(launches) == {"kinwave_substep": days, "kinwave_sweep": days,
+                                          "kinwave_sharded": 0}, launches
+    assert launches["segment_sum"] > 0, launches
     assert runner.dtype == torch.float32 and runner.device.type == "cuda"
     names = sorted(os.listdir(out))
     assert {"dis.tss", "mbErrorMM.tss", "chanqend.map", "lzend.map",
@@ -1103,18 +1125,17 @@ def phase_driver(torch, ks, card, ctx, tmp):
     keys = sorted({k for _, ts in tss.values() for k in output_var_fields(ts.output_var)
                    if k not in params})
     ref = {name: [] for name in tss}
-    with fixed_order_sums(torch):
-        s = step.prepare_state(state)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for f in ctx["forcing"][:days]:
-            s, d = step(s, f)
-            host = to_host({k: d[k] for k in keys})
-            for name, (sampler, ts) in tss.items():
-                ref[name].append(sampler.sample(np.asarray(resolve_output(host, ts.output_var),
-                                                           np.float64)))
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t0
+    s = step.prepare_state(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in ctx["forcing"][:days]:
+        s, d = step(s, f)
+        host = to_host({k: d[k] for k in keys})
+        for name, (sampler, ts) in tss.items():
+            ref[name].append(sampler.sample(np.asarray(resolve_output(host, ts.output_var),
+                                                       np.float64)))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
     worst = []
     for name, writer in runner.outputs.tss_writers.items():
         rows, steps = read_tss(writer.path)[1:]
@@ -1212,8 +1233,8 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"ring {ring} slots, {ring_mib(ring):.0f} MiB; launches {launches} for {days} "
           f"ensemble days; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
-    assert launches == {"kinwave_substep": days, "kinwave_sweep": days,
-                        "kinwave_sharded": 0}, launches
+    assert routing_launches(launches) == {"kinwave_substep": days, "kinwave_sweep": days,
+                                          "kinwave_sharded": 0}, launches
     assert ens.n == M and ring > spec.window * M, (ens.n, ring, spec.window)
     top = sorted(os.listdir(ens_out))
     assert top == [str(m) for m in range(1, M + 1)] + ["stateVar"], top
@@ -1284,10 +1305,13 @@ def sharded_plan_text(plan):
 
 
 def sharded_held(torch, kss, router, ops, beta, tol, what, caps=SHARDED_CAPS):
-    """K6 on the packed operands `ops` of `router` at its default tile cap
-    against its plain version: within `tol` of each lane-row's max and bitwise
-    equal, the same bits in two runs and at every cap of `caps`. Returns (max
-    abs err, the plain version's milliseconds, the launch's plan)."""
+    """K6 on the operands `ops` of `router` (sharded, or the scan router's
+    natural ones) at its default tile cap against its plain version (the
+    tiles' `reference`: kinwave_sharded._sweep_sharded, or kinwave._sweep_scan,
+    which _route_batched runs): within `tol` of each lane-row's max and
+    bitwise equal, the same bits in two runs and at every cap of `caps`.
+    Returns (max abs err, the plain version's milliseconds, the launch's
+    plan)."""
     ps = router.ps
     tiles = router.sweep_tiles()
     q = kss.kinwave_sharded_sweep(*ops, tiles, beta)
@@ -1300,7 +1324,7 @@ def sharded_held(torch, kss, router, ops, beta, tol, what, caps=SHARDED_CAPS):
         by_cap[cap] = (ok, dict(kss.kinwave_sharded_sweep.last_plan))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = kss._sweep_sharded(*ops, router.ups.long(), ps.n_chunks, ps.n_shards, ps.chunk, beta)
+    ref = tiles.reference(*ops, beta)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     diff = (q.double() - ref.double()).abs()
@@ -1313,7 +1337,8 @@ def sharded_held(torch, kss, router, ops, beta, tol, what, caps=SHARDED_CAPS):
           + ", ".join(f"{c}: {ok}" for c, (ok, _) in by_cap.items())
           + f"; {sharded_plan_text(plan)}; at caps "
           + "; ".join(f"{c}: {sharded_plan_text(p)}" for c, (_, p) in by_cap.items())
-          + f"; schedule {ps.n_chunks} chunks of {ps.n_shards} x {ps.chunk}; plain version "
+          + f"; schedule {ps.n_chunks} chunks of {getattr(ps, 'n_shards', 1)} x {ps.chunk}; "
+          f"plain version "
           f"{plain_ms:.1f} ms (one run)", flush=True)
     assert rel <= tol, f"K6 disagrees with its plain version: {rel}"
     assert bitwise and twice and all(ok for ok, _ in by_cap.values()), (bitwise, twice, by_cap)
@@ -1427,8 +1452,9 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     print(f"  one warm-up step and a batch of {days}: {step_ms:.1f} ms/step = "
           f"{cfg.num_pixels / step_ms * 1e3:.4g} cells*steps/s on {card}; launches for "
           f"{days + 1} steps: {launches} (NoRoutSteps + 1 = {T + 1} of K6 a step)", flush=True)
-    assert launches == {"kinwave_substep": 0, "kinwave_sweep": 0,
-                        "kinwave_sharded": (days + 1) * (T + 1)}, launches
+    assert routing_launches(launches) == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                                          "kinwave_sharded": (days + 1) * (T + 1)}, launches
+    assert launches["segment_sum"] > 0, launches
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     q = outs["ChanQAvg"]
@@ -1436,6 +1462,8 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
           f"{float(q.mean()):.4g} m3/s", flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "sharded")
+    position_catchments = p["kinp$Catchments"].cpu().numpy()
 
     # K6 on the land phase's overland operands and on one channel sub-step's
     beta = float(p["Beta"])
@@ -1527,8 +1555,8 @@ def phase_sharded(torch, ks, card, ctx, tmp):
           f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
           f"{run_s / days * 1e3:.1f} ms per simulated day; launches {launches_d}", flush=True)
     assert runner.config.routing_kernel == "sharded" and runner.config.num_shards == SHARDS
-    assert launches_d == {"kinwave_substep": 0, "kinwave_sweep": 0,
-                          "kinwave_sharded": days * (T + 1)}, launches_d
+    assert routing_launches(launches_d) == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                                            "kinwave_sharded": days * (T + 1)}, launches_d
     assert all(bool(torch.isfinite(v).all()) for v in runner.state.values()
                if v.is_floating_point())
     assert "dis.tss" in os.listdir(out)
@@ -1577,9 +1605,317 @@ def phase_sharded(torch, ks, card, ctx, tmp):
             "deep_tile_ms": deep_ms, "deep_tile_ms_overland": deep_o,
             "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
             "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
-            "step_ms": step_ms,
+            "step_ms": step_ms, "position_catchments": position_catchments,
             "plain_shape": "1200x1000 catchment, one channel sub-step (and the overland sweep), "
                            "float32"}
+
+
+# days phase 11 runs the scan step and lisfloodexe
+SCAN_DAYS = 3
+# the second tile cap at which phase 11 checks K6's bits on natural tables
+SCAN_CAPS = (256,)
+
+
+def phase_scan(torch, ks, card, ctx, tmp):
+    """Phase 11: RoutingKernel scan on phase 8's catchment; see the module
+    docstring. `ctx` is phase 8's context, `tmp` a scratch directory."""
+    import dataclasses
+
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
+    from lisflood_tpu_torch.models.step import build_multi_step, build_step
+    from lisflood_tpu_torch.models.synthetic import write_catchment
+    from lisflood_tpu_torch.ops import kinwave as kw
+    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    from lisflood_tpu_torch.ops.routing_ops import overland_operands
+    path, (cfg, params, state, aux) = ctx["path"], ctx["model"]
+    forcing = ctx["forcing"]
+    days = SCAN_DAYS
+    T = cfg.no_rout_steps
+    cfg_s = dataclasses.replace(cfg, routing_kernel="scan", num_shards=1)
+
+    t0 = time.perf_counter()
+    multi, p = build_multi_step(cfg_s, params, aux, output_keys=("ChanQAvg",),
+                                dtype=torch.float32, device="cuda")
+    s = multi.prepare_state(state)
+    torch.cuda.synchronize()
+    kin, tochan = multi.routers["kin"], multi.routers["tochan"]
+    sec = multi.routers["seconds"]
+    print(f"  scan step built and moved to the card in {time.perf_counter() - t0:.1f} s; "
+          f"pipeline {multi.step.pipeline}; host seconds of build_routers: channel "
+          f"{sec['router_kin']:.2f}, overland {sec['router_tochan']:.2f} (each router with K6's "
+          f"tables); segment orders {multi.step.order_seconds:.2f}", flush=True)
+    assert multi.step.pipeline == "substeps" and isinstance(kin, kw.ScanRouter)
+    assert not kin.no_edges and not tochan.no_edges
+    for name, router in (("channel", kin), ("overland", tochan)):
+        st = router.sweep_tiles().stats
+        plan = kss.sharded_plan(router.sweep_tiles(), *kss._smem(0, 0), 2 if name == "channel"
+                                else 3, 4)
+        print(f"  K6 {name} tables on the natural graph at cap {router.sweep_tiles().cap}: "
+              f"{st['trees']} trees, the largest {st['largest_tree']} cells, {st['levels']} levels "
+              f"at most in a tile, {router.sweep_tiles().n_tiles} tiles, {plan['ring_tiles']} "
+              f"through the ring, {plan['global_tiles']} in global memory; built in "
+              f"{st['seconds']:.2f} s on the host with the step; {router.ps.n_chunks} chunks of "
+              f"{router.ps.chunk} in the schedule", flush=True)
+    reset_launches()
+    s, _ = multi(s, stack_forcing(torch, forcing[:1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, outs = multi(s, stack_forcing(torch, forcing[1:1 + days]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / days * 1e3
+    launches = launch_counts()
+    print(f"  one warm-up step and a batch of {days}: {step_ms:.1f} ms/step = "
+          f"{cfg.num_pixels / step_ms * 1e3:.4g} cells*steps/s on {card}; launches for "
+          f"{days + 1} steps: {launches} (NoRoutSteps + 1 = {T + 1} of K6 a step)", flush=True)
+    assert routing_launches(launches) == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                                          "kinwave_sharded": (days + 1) * (T + 1)}, launches
+    assert launches["segment_sum"] > 0, launches
+    bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    assert not any(k.startswith("pk$") for k in s)
+    q = outs["ChanQAvg"]
+    assert q.shape == (days, cfg.num_pixels) and bool(torch.isfinite(q).all())
+    print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
+          f"{float(q.mean()):.4g} m3/s", flush=True)
+    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "scan")
+
+    # K6 on the natural tables: the land phase's overland operands and one
+    # channel sub-step's
+    beta = float(p["Beta"])
+    pp = multi.step.step_params(forcing[0])
+    d = multi.step.land_phase(s, forcing[0], pp)
+    _, q0, lat, adx = overland_operands(cfg_s, pp, s, d)
+    ops_o = tochan.sweep_operands(q0, lat, adx, beta)
+    captured = []
+    real = kss.kinwave_sharded_sweep
+
+    def capture(*args):
+        if not captured and args[0].shape[0] == 2:
+            captured.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args[:2]))
+        return real(*args)
+    kw.kinwave_sharded_sweep = capture
+    try:
+        multi.step(s, forcing[0])
+    finally:
+        kw.kinwave_sharded_sweep = real
+    ops_c = captured[0]
+    absd_o, plain_o, plan_o = sharded_held(torch, kss, tochan, ops_o, beta, 1e-5,
+                                           "scan, overland, 3 lanes, float32", caps=SCAN_CAPS)
+    absd_c, plain_c, plan_c = sharded_held(torch, kss, kin, ops_c, beta, 1e-5,
+                                           "scan, channel sub-step, 2 lanes, float32",
+                                           caps=SCAN_CAPS)
+    ms = {name: cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(*ops, r.sweep_tiles(), beta),
+                        N_REP)
+          for name, r, ops in (("channel", kin, ops_c), ("overland", tochan, ops_o))}
+    deep_ms, floor_ms, per_level = sharded_where(torch, kss, ops_c, kin.sweep_tiles(), beta,
+                                                 "scan, channel")
+    edges = lambda r: int((r.ps.down_pos < r.ps.num_pixels).sum())
+    bound_c = sharded_bound(kin.ps, 2, torch.float32, edges(kin))
+    bound_o = sharded_bound(tochan.ps, 3, torch.float32, edges(tochan))
+    print(f"  K6 on the natural tables {ms['channel']:.4f} ms a channel launch, "
+          f"{ms['overland']:.4f} ms an overland launch (mean of {N_REP}); bounds "
+          f"{bound_c[0]:.4f} ms ({bound_c[1]}) and {bound_o[0]:.4f} ms ({bound_o[1]}); chain floor "
+          f"{floor_ms:.4f} ms; {T * ms['channel'] + ms['overland']:.1f} ms of K6 a step in "
+          f"{T + 1} launches; card {card}", flush=True)
+    del ops_o, ops_c, captured, d
+
+    # the float32 scan state after `days` days against phase 8's packed
+    # step's after the same days from the same start (printed only)
+    runs = {}
+    for name, step in (("scan", multi.step), ("packed", ctx["step"])):
+        st = step.prepare_state(state)
+        for f in forcing[:days]:
+            st, _ = step(st, f)
+        runs[name] = step.natural_state(st)
+    diffs = sorted(((float((runs["scan"][k].double() - v.double()).abs().max())
+                     / max(float(v.double().abs().max()), 1e-30), k)
+                    for k, v in runs["packed"].items() if v.is_floating_point()), reverse=True)
+    print(f"  float32, {days} days from the same start, scan against phase 8's packed state, "
+          f"largest difference of each field's max: "
+          + ", ".join(f"{k} {e:.3e}" for e, k in diffs[:5]), flush=True)
+    del runs, multi, p, s
+    torch.cuda.empty_cache()
+
+    # lisfloodexe over the same days with RoutingKernel scan
+    out = os.path.join(tmp, "scan")
+    os.makedirs(out)
+    settings = load_settings(path, sys_args=["-v"], vars_to_set={
+        "Precision": "single", "PathOut": out, "RoutingKernel": "scan",
+        "StepEnd": f"{days:02d}/01/2000 00:00"})
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = lisfloodexe(settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_d = launch_counts()
+    sec = runner.seconds
+    run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
+    print(f"  lisfloodexe with RoutingKernel scan, {days} days at float32: {wall:.1f} s in all; "
+          f"host seconds: build_model {sec['build_model']:.1f}, step built (routers, tables) and "
+          f"state moved {sec['to_device']:.1f}; the run {run_s:.2f} (forcing "
+          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, copies to the host "
+          f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
+          f"{run_s / days * 1e3:.1f} ms per simulated day; launches {launches_d}", flush=True)
+    assert runner.config.routing_kernel == "scan"
+    assert routing_launches(launches_d) == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                                            "kinwave_sharded": days * (T + 1)}, launches_d
+    assert all(bool(torch.isfinite(v).all()) for v in runner.state.values()
+               if v.is_floating_point())
+    assert "dis.tss" in os.listdir(out)
+    del runner
+    torch.cuda.empty_cache()
+
+    # the float64 scan step on the card against the CPU, 96x80 catchment
+    small = load_settings(write_catchment(os.path.join(tmp, "scan_small"), 96, 80, seed=0,
+                                          n_steps=days, nc_format="classic"),
+                          vars_to_set={"RoutingKernel": "scan"})
+    cfg_m, params_m, state_m, aux_m = build_model(small)
+    f_m = meteo_forcing(small, cfg_m, aux_m)[:days]
+    ends = {}
+    for dev in ("cuda", "cpu"):
+        step, _ = build_step(cfg_m, params_m, aux_m, dtype=torch.float64, device=dev)
+        st = step.prepare_state(state_m)
+        for f in f_m:
+            st, _ = step(st, to_device(f, dev, torch.float64))
+        ends[dev] = {k: v.cpu() for k, v in step.natural_state(st).items()}
+    assert isinstance(step.routers["kin"], kw.ScanRouter)
+    worst = max((field_gate(k, v, ends["cuda"][k], ends["cpu"]), k)
+                for k, v in ends["cpu"].items() if v.is_floating_point())
+    print(f"  96x80 catchment, float64, {days} scan steps on the card against the CPU: worst "
+          f"{worst[0]:.3e} ({worst[1]}) of each field's max (tol 1e-10)", flush=True)
+    assert worst[0] <= 1e-10, worst
+    return {"ms": ms["channel"], "bound_ms": bound_c[0], "bound_by": bound_c[1],
+            "launches": launches["kinwave_sharded"], "plain_ms": plain_c,
+            "max_abs_err": max(absd_c, absd_o), "ms_overland": ms["overland"],
+            "bound_ms_overland": bound_o[0], "plain_ms_overland": plain_o,
+            "chain_floor_ms": floor_ms, "deep_tile_ms": deep_ms,
+            "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
+            "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
+            "step_ms": step_ms,
+            "plain_shape": "1200x1000 catchment, natural tables, one channel sub-step (and the "
+                           "overland sweep), float32"}
+
+
+def phase_segment_sums(torch, card, ctx, position_catchments):
+    """Phase 12: K7 on phase 8's catchment's segments; see the module
+    docstring. `position_catchments` is phase 10's kinp$Catchments."""
+    import numpy as np
+    cfg, params = ctx["model"][:2]
+    P = cfg.num_pixels
+    # the water-use regions write_catchment writes with the wateruse option:
+    # the grid's west and east halves
+    cols = np.asarray(params["landIdx"], np.int64) % cfg.grid_cols
+    regions = (cols >= cfg.grid_cols // 2).astype(np.int64)
+    print(f"  {ctx['sums_per_step']:g} calls of K7 a step on phase 8's path", flush=True)
+    return {
+        "Catchments": k7_figures(torch, card, "the catchment's Catchments", params["Catchments"],
+                                 cfg.num_catchments),
+        "kinp$Catchments": k7_figures(torch, card, "the sharded loop's kinp$Catchments",
+                                      position_catchments, cfg.num_catchments + 1),
+        "WUseRegionC": k7_figures(torch, card, "WUseRegionC (west and east halves)", regions, 2),
+        "downEva": k7_figures(torch, card, "the catchment's downEva", params["downEva"], P + 1,
+                              count=P)}
+
+
+# steps of each path that repeat_bitwise runs twice
+REPEAT_STEPS = 3
+
+
+def tensor_bits_equal(torch, a, b):
+    """Whether two tensors hold the same bits (NaNs included)."""
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    if a.dtype in bits and b.dtype == a.dtype:
+        return torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+    return torch.equal(a, b)
+
+
+def repeat_bitwise(torch, step, state, forcing, what, n=REPEAT_STEPS):
+    """Two runs of `n` steps of `step` from the same prepared `state` on the
+    same forcing, with no deterministic mode: every state entry and every
+    report (the step's diagnostics) of each step must have the same bits."""
+    first = []
+    s = dict(state)
+    for f in forcing[:n]:
+        s, d = step(s, f)
+        first.append((s, d))
+    s = dict(state)
+    differ, counted = [], (0, 0)
+    for i, f in enumerate(forcing[:n]):
+        s, d = step(s, f)
+        s0, d0 = first[i]
+        pairs = [(k, v, s[k]) for k, v in s0.items() if torch.is_tensor(v)]
+        reports = [(k, v, d[k]) for k, v in d0.items() if torch.is_tensor(v) and k not in s0]
+        differ += [(i + 1, k) for k, a, b in pairs + reports if not tensor_bits_equal(torch, a, b)]
+        counted = (len(pairs), len(reports))
+    del first
+    print(f"  {what}: two runs of {n} steps from the same state, no deterministic mode: "
+          f"{counted[0]} state entries and {counted[1]} reports a step bitwise equal: "
+          f"{not differ}{'' if not differ else f' (differ: {differ[:8]})'}", flush=True)
+    assert not differ, differ
+
+
+def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0):
+    """K7 (csrc/segment_sum.cu) on the segment array `seg` (n segments; the
+    totals of those below `count`, or spread back to the members where
+    every segment is summed) with float32 values drawn from `seed`, through
+    the order `order` (built here on the card if None): its segments,
+    members, largest segment and pieces; the same bits in two runs and
+    against its plain version (segment_sum.segment_sum) on the card; its time
+    (CUDA events, mean of N_REP), its bound by bytes (the values and the
+    permutation read, the totals and the spread written, at PEAK_BYTES) and
+    the library time of index_add_ plus the gather, atomic and under
+    torch.use_deterministic_algorithms. Returns the figures."""
+    import numpy as np
+    from lisflood_tpu_torch.ops import segment_sum as ss
+    seg = np.asarray(seg, np.int64)
+    order = order or ss.SegmentOrder.build(seg, n, count, "cuda")
+    spread = order.count == order.num_segments
+    fn = ss.segment_spread if spread else ss.segment_total
+    rng = np.random.default_rng(seed)
+    v = torch.as_tensor(rng.lognormal(0, 2, order.size).astype(np.float32), device="cuda")
+    a, b = fn(v, order), fn(v, order)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ss.segment_sum(v, order)
+    plain = plain[order.segments.long()] if spread else plain
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    twice, bitwise = tensor_bits_equal(torch, a, b), tensor_bits_equal(torch, a, plain)
+    ms = cuda_ms(torch, lambda: fn(v, order), N_REP)
+    seg_t = torch.as_tensor(seg, device="cuda")
+
+    def library():
+        totals = v.new_zeros(n).index_add_(0, seg_t, v)
+        return totals[seg_t] if spread else totals[:order.count]
+    lib_ms = cuda_ms(torch, library, N_REP)
+    torch.use_deterministic_algorithms(True)
+    try:
+        lib_det_ms = cuda_ms(torch, library, N_REP)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lib_rel = float((library() - a).abs().max() / a.abs().max().clamp_min(1e-30))
+    nbytes = 4 * (order.size + order.perm.numel() + order.count + (order.size if spread else 0))
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    adds_ms = order.perm.numel() / PEAK_FLOPS["float32"] * 1e3
+    st = order.stats
+    print(f"  K7 on {what}: {st['segments']} segments, {st['members']} members, the largest "
+          f"{st['largest']}, {st['pieces']} pieces ({st['large_pieces']} of more than "
+          f"{ss.SMALL}), order built in {order.stats['seconds']:.2f} s on the host; "
+          f"{'spread' if spread else 'totals'}: the same bits in two runs: {twice}, bitwise equal "
+          f"to the plain version: {bitwise}; K7 {ms:.4f} ms a call (mean of {N_REP}), bound "
+          f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB; {order.perm.numel()} adds "
+          f"{adds_ms:.5f} ms); index_add_ and gather {lib_ms:.4f} ms atomic, {lib_det_ms:.4f} ms "
+          f"deterministic (rel diff {lib_rel:.2e}); plain version {plain_ms:.1f} ms; card {card}",
+          flush=True)
+    assert twice and bitwise, (twice, bitwise)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "library_deterministic_ms": lib_det_ms, "plain_ms": plain_ms,
+            "max_abs_err": float((a - plain).abs().max()), "segments": st["segments"],
+            "largest": st["largest"], "order_build_s": st["seconds"]}
 
 
 def profile_step(torch, step, s, f, step_ms):
@@ -1686,6 +2022,20 @@ def side_flag_ab(torch):
     return 0
 
 
+# the start of each phase on the host clock, by phase
+STAMPS = {}
+
+
+def stamp(n):
+    STAMPS[n] = time.perf_counter()
+
+
+def phase_seconds():
+    """The seconds each phase took, from the stamps to now."""
+    ends = sorted(STAMPS.items())[1:] + [(None, time.perf_counter())]
+    return {n: round(t1 - t0, 1) for (n, t0), (_, t1) in zip(sorted(STAMPS.items()), ends)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1705,6 +2055,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
+    stamp(1)
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
     secs = _build.build()
@@ -1716,9 +2067,11 @@ def main():
 
     assert count_pow_ops() == POW_FLOPS, "POW_FLOPS is not what this nvcc emits for pow"
 
+    stamp(2)
     print("phase 2: kernel vs plain version, 240x200, T=24, C=512", flush=True)
     mid = phase_mid(torch, ks)
 
+    stamp(3)
     print("phase 3: main path, continental 1200x1000, T=24, C=512, float32", flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1737,7 +2090,8 @@ def main():
           f"window {multi.routers['kin'].ps.window}", flush=True)
     forcing = [to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
                for i in range(6)]
-    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card)
+    s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sums=False)
+    launches = launches["kinwave_substep"]
     per_model_bytes = torch.cuda.max_memory_allocated()
     print(f"  peak device memory {per_model_bytes / 2**30:.2f} GiB", flush=True)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
@@ -1748,6 +2102,7 @@ def main():
           f"mean {float(q.mean()):.4g} m3/s", flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
 
+    stamp(4)
     print("phase 4: kernel timing at the main-path shape", flush=True)
     d = multi.step.land_phase(s, forcing[0])
     spec, xs = kernel_operands(cfg, p, s, d, multi.routers)
@@ -1775,6 +2130,7 @@ def main():
           f"{f64['bound_ms']:.4f} ms "
           f"({f64['bound_by']}), plain version {f64['plain_ms']:.0f} ms", flush=True)
 
+    stamp(5)
     print("phase 5: all-options path, continental 1200x1000, T=24, C=512, float32", flush=True)
     t0 = time.perf_counter()
     cfg5, params5, state5, aux5 = with_options(model)
@@ -1788,7 +2144,8 @@ def main():
           f"{int((params5['InflowPoints'] > 0).sum())} inflow points", flush=True)
     forcing5 = [to_device({**synthetic_forcing(cfg5.num_pixels, seed=i), **aux5["forcing_options"]},
                           "cuda", torch.float32) for i in range(6)]
-    s5, outs5, step5_ms, launches5 = timed_steps(torch, ks, multi5, s5, forcing5, card)
+    s5, outs5, step5_ms, counts5 = timed_steps(torch, ks, multi5, s5, forcing5, card, sums=True)
+    launches5 = counts5["kinwave_substep"]
     bad = [k for k, v in s5.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     trans_cum = s5["pk$TransCum"]
@@ -1802,15 +2159,11 @@ def main():
           f"reference's balance does not close with every option on; the port is held to "
           f"the reference's residual by the CPU tests)", flush=True)
     profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
-    # the operands the kernel is held to the plain version on: the same steps
-    # once more from the initial state with sums in a fixed order, so that
-    # every run has the same numbers
-    with fixed_order_sums(torch):
-        again5 = multi5.prepare_state(state5)
-        for i in range(STEPS_RUN):
-            again5, _ = multi5.step(again5, forcing5[i % len(forcing5)])
-        spec5, xs5 = kernel_operands(cfg5, p5, again5,
-                                     multi5.step.land_phase(again5, forcing5[0]), multi5.routers)
+    repeat_bitwise(torch, multi5.step, multi5.prepare_state(state5), forcing5, "all-options")
+    # the operands the kernel is held to the plain version on (every sum in
+    # the step adds in a fixed order, so every run has the same numbers)
+    spec5, xs5 = kernel_operands(cfg5, p5, s5, multi5.step.land_phase(s5, forcing5[0]),
+                                 multi5.routers)
     assert all(k in xs5 for k in ("wuse", "qin_old", "qdelta", "uptrans", "tp1", "tp2", "tsub"))
     ys5, opts = kernel_figures(torch, ks, spec5, xs5, "launch with the sideflow terms")
     kernel5_ms, bound5_ms, bound5_by = opts["ms"], opts["bound_ms"], opts["bound_by"]
@@ -1832,13 +2185,25 @@ def main():
           f"path's shape ({spec5.n_chunks} chunks, window {spec5.window}); at 240x200 (phase 2) "
           f"kernel {side['ms']:.3f} ms, plain {side['plain_ms']:.0f} ms; card {card}", flush=True)
     assert rel5 <= 1e-5, f"kernel with the sideflow terms disagrees with the plain version: {rel5}"
-    del multi5, p5, s5, again5, xs5, ys5, ref5
+    del xs5, ys5, ref5
+    print(f"  K7, the segment sums, on this grid's segments, float32 ("
+          f"{counts5['segment_sum'] / STEPS_RUN:g} calls a step):", flush=True)
+    k7 = {name: k7_figures(torch, card, name, params5[name], int(p5["seg$" + name].num_segments),
+                           order=p5["seg$" + name])
+          for name in ("Catchments", "WUseRegionC", "downstruct")}
+    k7["downEva"] = k7_figures(torch, card, "downEva", params5["downEva"], cfg5.num_pixels + 1,
+                               count=cfg5.num_pixels)
+    k7_main = {**k7["Catchments"], "launches": counts5["segment_sum"],
+               "plain_shape": "1200x1000, all options, Catchments, float32"}
+    del multi5, p5, s5
     torch.cuda.empty_cache()
 
+    stamp(6)
     print("phase 6: InitLisflood prerun, continental 1200x1000, T=24, C=512, float32", flush=True)
     prerun = phase_prerun(torch, ks, model, card)
     torch.cuda.empty_cache()
 
+    stamp(7)
     print("phase 7: ensemble of the main path, continental 1200x1000, T=24, C=512, float32",
           flush=True)
     ensemble = phase_ensemble(torch, ks, model, multi.step, per_model_bytes, card)
@@ -1846,15 +2211,27 @@ def main():
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
+        stamp(8)
         print("phase 8: a catchment read from maps, 1200x1000, T=24, C=256, float32", flush=True)
         sweep, catchment, context = phase_catchment(torch, ks, card,
                                                     os.path.join(tmp, "catchment"))
         torch.cuda.empty_cache()
+        stamp(9)
         print("phase 9: the settings-driven run (lisfloodexe) on phase 8's catchment", flush=True)
         phase_driver(torch, ks, card, context, tmp)
+        stamp(10)
         print(f"phase 10: RoutingKernel sharded on phase 8's catchment, {SHARDS} shards, C=256, "
               "float32", flush=True)
         sharded = phase_sharded(torch, ks, card, context, tmp)
+        torch.cuda.empty_cache()
+        stamp(11)
+        print("phase 11: RoutingKernel scan on phase 8's catchment, C=256, float32", flush=True)
+        scan = phase_scan(torch, ks, card, context, tmp)
+        torch.cuda.empty_cache()
+        stamp(12)
+        print("phase 12: K7, the segment sums, on phase 8's catchment's segments, float32",
+              flush=True)
+        sums = phase_segment_sums(torch, card, context, sharded.pop("position_catchments"))
         del context
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
@@ -1886,6 +2263,22 @@ def main():
          "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
          "replaces": "lisflood_tpu/ops/kinwave_sharded.py:164", "library_ms": None,
          **{k: v for k, v in sharded.items() if k != "step_ms"}})
+    # K6 on the scan router's natural tables (phase 11): ms, bound and
+    # plain_ms of a channel sub-step's launch (overland in *_overland)
+    figures["kernels"].append(
+        {"name": "kinwave_sharded_scan", "route": "cuda",
+         "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
+         "replaces": "lisflood_tpu/ops/kinwave.py:80", "library_ms": None,
+         **{k: v for k, v in scan.items() if k != "step_ms"}})
+    # K7: the all-options path's Catchments spread (phase 5), its launches in
+    # that path's timed run; library_ms is index_add_ and the gather
+    figures["kernels"].append(
+        {"name": "segment_sum", "route": "cuda", "source": "lisflood_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "lisflood_tpu/ops/physics.py:22", **k7_main,
+         "catchment": {k: {f: v[f] for f in ("ms", "bound_ms", "library_ms", "segments",
+                                              "largest")}
+                       for k, v in sums.items()}})
+    print(f"seconds by phase: {phase_seconds()}", flush=True)
     print(json.dumps(figures))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

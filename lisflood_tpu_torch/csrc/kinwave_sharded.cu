@@ -11,6 +11,12 @@
 // lisflood_tpu_torch/ops/kinwave_sharded.py:_sweep_sharded, which walks the
 // schedule's lockstep chunks in order.
 //
+// The same kernel replaces lisflood_tpu/ops/kinwave.py:_route_batched (:80),
+// ScanRouter's lax.scan (:104) over a natural-order schedule: there position
+// space is pixel space (p_pad = P, nothing padded), the tables are built from
+// the natural graph (ops/kinwave.py:ScanRouter.sweep_tiles) and the plain
+// version is ops/kinwave.py:_route_batched, which walks the schedule's chunks.
+//
 // Design: tree tiles, as K5 (kinwave_sweep.cu). On one device the schedule's
 // cut edges are ordinary edges, so the graph is a forest. The host
 // (ops/wavefront.py:sweep_tiles, called by ops/kinwave_sharded.sharded_tables)

@@ -5,7 +5,8 @@ Every boolean here selects a physics path inside the step function, mirroring
 the reference's option-gated module dispatch (Lisflood_dynamic.py:38-268).
 `routing_kernel` picks the router and with it the sub-step loop: 'packed'
 runs the chunk-major sub-step kernel, 'sharded' (on `num_shards` logical
-shards) the sequential loop around the sharded sweep. The JAX package's
+shards) and 'scan' (the natural-order schedule) the sequential loop around
+K6's sweep. The JAX package's
 `routing_pipeline`, a choice among XLA schedules of the loop, has no
 counterpart here.
 """

@@ -96,7 +96,7 @@ def ensemble_model(cfg, params, aux, M):
     if cfg.routing_kernel != "packed":
         raise ValueError(
             f"routing_kernel={cfg.routing_kernel!r}: the folded ensemble replicates the packed "
-            "schedules; folding the sharded router's partition and schedules is not ported yet "
+            "schedules; folding the sharded and the scan router's schedules is not ported yet "
             "(ROADMAP.md, Queue 1)")
     P = cfg.num_pixels
     counts = {P, cfg.num_lakes or -1, cfg.num_reservoirs or -1}

@@ -18,8 +18,11 @@ The InitLisflood prerun routes a single lane with no lake, reservoir or
 polder. With the packed router (RoutingKernel packed, the default) the
 channel-routing state lives in schedule-packed position space across steps
 ('pk$' state keys) and the sub-step kernel runs the loop; with the sharded
-router (RoutingKernel sharded) the state is natural and the sequential
-sub-step loop runs around the sharded sweep.
+router (RoutingKernel sharded) and the scan router (RoutingKernel scan) the
+state is natural and the sequential sub-step loop runs around K6's sweep.
+The step's segment sums (catchment and region totals, the evaporation chain
+outside the kernel, UpstreamSumMonthDis) add in the fixed order of
+SegmentOrders built with the step (segment_orders; K7 on the card).
 """
 from __future__ import annotations
 
@@ -32,10 +35,12 @@ from ..device import resolve_device, to_device
 from ..ops import physics as ph
 from ..ops.indicators import (groundwater_smooth, indicator_keys, indicator_state_zero,
                               indicator_step)
-from ..ops.kinwave_packed import PackedRouter
-from ..ops.kinwave_sharded import ShardedRouter, ShardedSchedule, build_sharded_schedule
+from ..ops.kinwave import ScanRouter
+from ..ops.kinwave_packed import PackedRouter, PackedSchedule
+from ..ops.kinwave_sharded import ShardedRouter, build_sharded_schedule
 from ..ops.routing_ops import (channel_routing_kernel, channel_routing_substeps, resolve_pipeline,
                                surface_routing_step)
+from ..ops.segment_sum import SegmentOrder
 from ..ops.wavefront import upstream_table, wavefront_tables
 from ..parallel.partition import catchment_partition
 
@@ -116,7 +121,9 @@ def build_routers(cfg, aux, device):
     returns `shard_of` and `partition_stats`, as the JAX package does, and
     the host seconds of its parts in `seconds` (partition, then each graph's
     schedule and router, the router's with K6's tile tables where it
-    sweeps)."""
+    sweeps); 'scan' builds ScanRouters of both schedules, which route in
+    natural order with K6 on each graph's own tables (built here, their host
+    seconds, with the router's, in `seconds`)."""
     if cfg.routing_kernel == "sharded":
         t0 = time.perf_counter()
         shard_of, stats = catchment_partition(aux["graph_kin"], cfg.num_shards)
@@ -132,10 +139,17 @@ def build_routers(cfg, aux, device):
                 out[key].sweep_tiles()
             seconds[f"router_{key}"] = time.perf_counter() - t0
         return out
+    if cfg.routing_kernel == "scan":
+        out = {"seconds": {}}
+        for key in ("kin", "tochan"):
+            t0 = time.perf_counter()
+            out[key] = ScanRouter(aux["schedule_" + key], device)
+            if not out[key].no_edges:
+                out[key].sweep_tiles()
+            out["seconds"]["router_" + key] = time.perf_counter() - t0
+        return out
     if cfg.routing_kernel != "packed":
-        raise NotImplementedError(
-            f"routing_kernel={cfg.routing_kernel!r}: the port has the packed and the sharded "
-            "router; 'scan' is left to port (ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown routing_kernel {cfg.routing_kernel!r}")
     routers = {"kin": PackedRouter(aux["schedule_kin"], device),
                "tochan": PackedRouter(aux["schedule_tochan"], device)}
     if not routers["tochan"].no_edges:
@@ -148,21 +162,22 @@ def build_routers(cfg, aux, device):
 def packed_routing_params(cfg, params_np, ps):
     """Host-side schedule-order reorder of the per-pixel params the sub-step
     loop touches (p['kinp$...']), with padding fills that keep padded lanes
-    inert. For a PackedSchedule also the sub-step kernel's tables; for a
-    ShardedSchedule only what the sequential loop reads (with the mass
+    inert. For a PackedSchedule also the sub-step kernel's tables; for the
+    sequential loop's position spaces (a ShardedSchedule, the scan router's
+    identity NaturalSchedule) only what that loop reads (with the mass
     balance the catchment of every position, padding in the extra segment
     num_catchments).
 
     Returns (params, feeders_earlier, eva_window_ok): whether every structure
     cell lies in a strictly later chunk than all of its feeders, and whether
     the evaporation graph's edges fit the schedule window — the two
-    conditions the kernel's structure and evaporation chains rely on (False
-    for a ShardedSchedule, whose loop runs the chain outside)."""
+    conditions the kernel's structure and evaporation chains rely on (True
+    and False for the sequential loop, which reads the previous sub-step's
+    discharge and runs the chain outside)."""
     out = {}
     feeders_earlier = True
-    sharded = isinstance(ps, ShardedSchedule)
-    # a position's chunk (shard-major in a ShardedSchedule)
-    chunk_of = lambda pos: pos % (ps.n_chunks * ps.chunk) // ps.chunk
+    sequential = not isinstance(ps, PackedSchedule)
+    chunk_of = lambda pos: pos // ps.chunk
 
     def pk(name, fill=0.0):
         out["kinp$" + name] = ps.pack_np(np.asarray(params_np[name], np.float64), fill)
@@ -171,7 +186,7 @@ def packed_routing_params(cfg, params_np, ps):
     pk("ChannelAlpha", 1.0)
     out["kinp$IsChannelKinematic"] = ps.pack_np(
         np.asarray(params_np["IsChannelKinematic"], bool), False)
-    if not sharded:
+    if not sequential:
         out["kinp$AtLastPointC"] = ps.pack_np(np.asarray(params_np["AtLastPointC"], bool), False)
     if cfg.split:
         pk("ChannelAlpha2", 1.0)
@@ -185,7 +200,7 @@ def packed_routing_params(cfg, params_np, ps):
         pk("TransPower2", 1.0)
         pk("TransSub", 0.0)
 
-    if sharded and cfg.rep_mbts:
+    if sequential and cfg.rep_mbts:
         out["kinp$Catchments"] = ps.pack_np(np.asarray(params_np["Catchments"], np.int64),
                                             cfg.num_catchments)
 
@@ -194,7 +209,7 @@ def packed_routing_params(cfg, params_np, ps):
     real = ps.perm < P
     pos = np.flatnonzero(real)
     pix = ps.perm[real]
-    if not sharded:
+    if not sequential:
         # the kernel's hand-over of discharge, by the (structure-cut) routing graph
         has_down = ps.down_pos < p_pad
         out["kinp$UpsTable"] = upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down],
@@ -217,7 +232,7 @@ def packed_routing_params(cfg, params_np, ps):
             if ups.size > 8:
                 raise ValueError(f"structure cell {px} has {ups.size} upstream pixels")
             upos = ps.inv_perm[ups]
-            if not (chunk_of(upos) < chunk_of(ps.inv_perm[px])).all():
+            if not sequential and not (chunk_of(upos) < chunk_of(ps.inv_perm[px])).all():
                 feeders_earlier = False
             idx[i, :upos.size] = upos
             w[i, :upos.size] = 1.0
@@ -243,7 +258,7 @@ def packed_routing_params(cfg, params_np, ps):
     # InitLisflood prerun): its transfers follow downEva, whose edges must
     # land 1..W chunks later
     eva_window_ok = False
-    if sharded:
+    if sequential:
         return out, feeders_earlier, eva_window_ok
     if cfg.open_water_evapo and not cfg.init_lisflood and "downEva" in params_np:
         down_eva = np.asarray(params_np["downEva"], np.int64)     # (P,), P = pit
@@ -471,8 +486,8 @@ class Step:
         # water-security indicators (indicatorcalc.py:80-235)
         if cfg.indicator and cfg.water_use:
             month_dis = s["MonthDisM3"] + d["ChanQAvg"] * cfg.dt_sec
-            d["UpstreamSumMonthDis"] = ph.scatter_to_downstream(
-                month_dis, p["downstruct"], cfg.num_pixels)
+            d["UpstreamSumMonthDis"] = ph.scatter_to_downstream(month_dis,
+                                                                p["seg$downstruct"])
             d.update(indicator_step(cfg, p, s, d))
             # month-end reset of the accumulators (Lisflood_dynamic.py:266-268)
             zeros = indicator_state_zero(cfg, cfg.num_pixels, d["Rain"].dtype, d["Rain"].device)
@@ -481,13 +496,50 @@ class Step:
         return _collect_state(cfg, s, d), d
 
 
+def segment_orders(cfg, params_np, device, position_catchments=None, eva_outside=True):
+    """The SegmentOrders of the step's segment sums (ops/segment_sum.py) on
+    `device`, built on the host from the constant segment arrays, by the
+    parameter keys the step reads them under, 'seg$<name>': Catchments (the
+    mass balance's catchment totals), kinp$Catchments (the sequential loop's
+    in-loop totals in position space, from `position_catchments`, its padding
+    in the extra segment num_catchments), WUseRegionC (water use and the
+    indicators), downEva (the evaporation chain outside the kernel,
+    `eva_outside`, where no stencil moves it) and downstruct (the
+    indicators' UpstreamSumMonthDis). No segment array changes from step to
+    step: step_params replaces only land-use fractions."""
+    P = cfg.num_pixels
+    build = lambda seg, n, count=None: SegmentOrder.build(seg, n, count, device)
+    out = {}
+    if cfg.rep_mbts:
+        out["seg$Catchments"] = build(params_np["Catchments"], cfg.num_catchments)
+    if position_catchments is not None:
+        out["seg$kinp$Catchments"] = build(position_catchments, cfg.num_catchments + 1)
+    if cfg.water_use:
+        out["seg$WUseRegionC"] = build(params_np["WUseRegionC"], cfg.num_wregions)
+    if (cfg.open_water_evapo and eva_outside and "downEva" in params_np
+            and not ph.eva_uses_stencil(cfg, params_np, device)):
+        out["seg$downEva"] = build(params_np["downEva"], P + 1, P)
+    if cfg.indicator and cfg.water_use:
+        out["seg$downstruct"] = build(params_np["downstruct"], P + 1, P)
+    return out
+
+
 def build_step(cfg, params_np, aux, dtype=torch.float64, device=None):
     """Returns (step, device_params). `aux` holds the channel and overland
-    schedules ('schedule_kin', 'schedule_tochan')."""
+    schedules ('schedule_kin', 'schedule_tochan'). The step's segment orders
+    (segment_orders) join the parameters; `step.order_seconds` is the host
+    time of building them."""
     device = resolve_device(device)
     routers = build_routers(cfg, aux, device)
     p = device_params(cfg, params_np, routers, device, dtype)
-    return Step(cfg, p, routers, device), p
+    step = Step(cfg, p, routers, device)
+    t0 = time.perf_counter()
+    kin_catch = p.get("kinp$Catchments")
+    p.update(segment_orders(cfg, params_np, device,
+                            None if kin_catch is None else kin_catch.cpu().numpy(),
+                            not step.eva_in_kernel))
+    step.order_seconds = time.perf_counter() - t0
+    return step, p
 
 
 def build_multi_step(cfg, params_np, aux, output_keys=(), dtype=torch.float64, device=None):
@@ -546,7 +598,7 @@ def _storage_hillslope(cfg, p, s, d):
 def _waterbalance(cfg, p, s, d):
     """Total water storage and the catchment mass balance
     (waterbalance.py:114-288); the prerun (InitLisflood) has no balance."""
-    catchtotal = lambda x: ph.segment_spread(x, p["Catchments"], cfg.num_catchments)
+    catchtotal = lambda x: ph.segment_spread(x, p["seg$Catchments"])
     out = {}
     channel_stored = _storage_channel(cfg, p, s, d)
     hillslope_stored = _storage_hillslope(cfg, p, s, d)

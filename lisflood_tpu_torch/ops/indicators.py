@@ -68,7 +68,7 @@ def indicator_step(cfg, p, s, d):
     `/(X+1)` small-denominator guards (indicatorcalc.py:167-185) and the
     domestic M3MonthRegion sum that it leaves in mm (no MMtoM3 factor,
     indicatorcalc.py:219) included."""
-    regional = lambda x: segment_spread(x, p["WUseRegionC"], cfg.num_wregions)
+    regional = lambda x: segment_spread(x, p["seg$WUseRegionC"])
     out = {}
     out["DayCounter"] = s["DayCounter"] + 1
     month_etpot = s["MonthETpotMM"] + d["ETRef"]

@@ -220,44 +220,76 @@ def _sweep_sharded(const_p, adx_p, ups, n_chunks, n_shards, chunk, beta):
 
 
 @dataclass(frozen=True)
-class ShardedTiles(SweepTiles):
-    """K6's tables on one device: the SweepTiles of a sharded schedule's
-    real positions (ops/wavefront.sweep_tiles with the padding left out),
+class RingTiles(SweepTiles):
+    """K6's tables on one device: the SweepTiles of a graph's positions
+    (ops/wavefront.sweep_tiles, positions left out of `keep` solved apart),
     each tile's widest level (`width`; `widths` and `levels` on the host),
     each entry's ring record (`ring`: its position and its sources' offsets
-    into the level below), the padding positions `pad`, and the schedule's
-    geometry, which the plain version reads with `ups`."""
+    into the level below) and the positions left out `pad`. A subclass
+    gives the position space's size `p_pad` and the plain version
+    (`reference`), which reads `ups` and its own geometry."""
 
     width: torch.Tensor
     ring: torch.Tensor
     pad: torch.Tensor
     widths: np.ndarray
     levels: np.ndarray
+
+    @property
+    def p_pad(self):
+        raise NotImplementedError
+
+    def reference(self, const_p, adx_p, beta):
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class ShardedTiles(RingTiles):
+    """K6's tables of a sharded schedule: its real positions tiled, the
+    padding in `pad`, and the schedule's geometry, which the plain version
+    `_sweep_sharded` reads."""
+
     n_chunks: int
     n_shards: int
     chunk: int
+
+    @property
+    def p_pad(self):
+        return self.n_shards * self.n_chunks * self.chunk
+
+    def reference(self, const_p, adx_p, beta):
+        return _sweep_sharded(const_p, adx_p, self.ups.long(), self.n_chunks, self.n_shards,
+                              self.chunk, beta)
+
+
+def ring_tables(cls, down_pos, ups, p_pad, cap=SWEEP_CAP, keep=None, **fields):
+    """A RingTiles subclass `cls` (with its own `fields`) of the graph given
+    by each position's downstream position `down_pos` (p_pad = none) and its
+    source table `ups` (K, p_pad) int32, on ups's device, tiles of at most
+    `cap` positions, the positions outside `keep` in `pad`; `stats` holds
+    the host seconds of the build."""
+    t0 = time.perf_counter()
+    device = ups.device
+    tab = sweep_tiles(down_pos, ups.cpu().numpy(), p_pad, cap, keep=keep, ring=True)
+    lvl_ptr = tab["lvl_ptr"].astype(np.int64)
+    dev = lambda k: torch.as_tensor(tab[k], device=device)
+    stats = {k: tab[k] for k in ("trees", "largest_tree", "levels", "largest_tile")}
+    stats["seconds"] = time.perf_counter() - t0
+    return cls(ups=ups, tile_ptr=dev("tile_ptr"), pos=dev("pos"), slots=dev("slots"),
+               lvl_ptr=dev("lvl_ptr"), lvl_off=dev("lvl_off"), cap=int(cap),
+               count=tab["lvl_off"][lvl_ptr[1:] - 1].astype(np.int64),
+               padded=np.diff(tab["tile_ptr"].astype(np.int64)), stats=stats,
+               width=dev("width"), ring=dev("ring"), pad=dev("pad"),
+               widths=tab["width"].astype(np.int64), levels=np.diff(lvl_ptr) - 1, **fields)
 
 
 def sharded_tables(ps, ups, cap=SWEEP_CAP):
     """ShardedTiles of the sharded schedule `ps` from its source table `ups`
     (K, p_pad) int32 (upstream_positions), on ups's device, tiles of at most
     `cap` positions; `stats` holds the host seconds of the build."""
-    t0 = time.perf_counter()
-    device = ups.device
-    tab = sweep_tiles(ps.down_pos, ups.cpu().numpy(), ps.p_pad, cap, keep=ps.perm < ps.num_pixels,
-                      ring=True)
-    lvl_ptr = tab["lvl_ptr"].astype(np.int64)
-    dev = lambda k: torch.as_tensor(tab[k], device=device)
-    stats = {k: tab[k] for k in ("trees", "largest_tree", "levels", "largest_tile")}
-    stats["seconds"] = time.perf_counter() - t0
-    return ShardedTiles(ups=ups, tile_ptr=dev("tile_ptr"), pos=dev("pos"), slots=dev("slots"),
-                        lvl_ptr=dev("lvl_ptr"), lvl_off=dev("lvl_off"), cap=int(cap),
-                        count=tab["lvl_off"][lvl_ptr[1:] - 1].astype(np.int64),
-                        padded=np.diff(tab["tile_ptr"].astype(np.int64)), stats=stats,
-                        width=dev("width"), ring=dev("ring"), pad=dev("pad"),
-                        widths=tab["width"].astype(np.int64),
-                        levels=np.diff(lvl_ptr) - 1, n_chunks=ps.n_chunks,
-                        n_shards=ps.n_shards, chunk=ps.chunk)
+    return ring_tables(ShardedTiles, ps.down_pos, ups, ps.p_pad, cap,
+                       keep=ps.perm < ps.num_pixels, n_chunks=ps.n_chunks,
+                       n_shards=ps.n_shards, chunk=ps.chunk)
 
 
 # the ring path's copy slots (csrc/kinwave_sharded.cu: kGatherSlots operand
@@ -399,7 +431,7 @@ def _launch(const_p, adx_p, tiles, beta, trace=None):
 def _check(const_p, adx_p, tiles):
     """Device, dtype, shape and contiguity of the sweep's operands and
     tables."""
-    p_pad = tiles.n_shards * tiles.n_chunks * tiles.chunk
+    p_pad = tiles.p_pad
     if const_p.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"const: dtype {const_p.dtype}")
     if const_p.dim() != 2 or const_p.shape[1] != p_pad or not 1 <= const_p.shape[0] <= 8:
@@ -427,19 +459,19 @@ def _check(const_p, adx_p, tiles):
 
 
 def kinwave_sharded_sweep(const_p, adx_p, tiles, beta):
-    """One kinematic-wave time step over a sharded schedule: const_p / adx_p
-    (L, p_pad) in its position space and the ShardedTiles of its graph
-    (sharded_tables). A CUDA tensor launches the kernel (and counts the
-    launch in `kinwave_sharded_sweep.launches`), a CPU tensor runs the plain
-    version `_sweep_sharded`; any other device raises. Returns q
-    (L, p_pad)."""
+    """One kinematic-wave time step over a graph's tiles: const_p / adx_p
+    (L, p_pad) in its position space and its RingTiles (sharded_tables for a
+    sharded schedule, ops/kinwave.ScanRouter.sweep_tiles for the natural
+    one). A CUDA tensor launches the kernel (and counts the launch in
+    `kinwave_sharded_sweep.launches`), a CPU tensor runs the tiles' plain
+    version (`_sweep_sharded`, `kinwave._sweep_scan`); any other device
+    raises. Returns q (L, p_pad)."""
     _check(const_p, adx_p, tiles)
     kind = const_p.device.type
     if kind == "cuda":
         return _launch(const_p, adx_p, tiles, beta)
     if kind == "cpu":
-        return _sweep_sharded(const_p, adx_p, tiles.ups.long(), tiles.n_chunks, tiles.n_shards,
-                              tiles.chunk, beta)
+        return tiles.reference(const_p, adx_p, beta)
     raise RuntimeError(f"no sharded sweep kernel for device {kind!r}")
 
 

@@ -9,23 +9,10 @@ from __future__ import annotations
 
 import torch
 
-# ---------------------------------------------------------------------------
-# reductions
-
-
-def segment_spread(values, segments, num_segments):
-    """np.bincount(seg, w)[seg] — per-group total spread back to members.
-    On CUDA `index_add_` sums with atomics, so the order of the additions
-    (and the last bits of a float32 total) varies from run to run."""
-    totals = values.new_zeros(num_segments).index_add_(0, segments, values)
-    return totals[segments]
-
-
-def scatter_to_downstream(values, down_index, num_pixels):
-    """np.bincount(downstruct, w)[:P] — route values to the downstream pixel
-    (index P collects pits). Atomic on CUDA, as segment_spread."""
-    return values.new_zeros(num_pixels + 1).index_add_(0, down_index, values)[:num_pixels]
-
+# per-segment totals in a fixed order (ops/segment_sum.py, K7 on the card):
+# segment_spread(values, order) and scatter_to_downstream(values, order) take
+# the step's SegmentOrder of the segment array (models/step.segment_orders)
+from .segment_sum import scatter_to_downstream, segment_spread  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # snow (snow.py:95-188)
@@ -413,11 +400,9 @@ def rice_irrigation_step(cfg, p, s, d):
 
 
 def water_abstraction_step(cfg, p, s, d):
-    nreg = cfg.num_wregions
-    wreg = p["WUseRegionC"]
     mmto_m3 = p["MMtoM3"]
     m3to_mm = p["M3toMM"]
-    regional = lambda x: segment_spread(x, wreg, nreg)
+    regional = lambda x: segment_spread(x, p["seg$WUseRegionC"])
     zero = torch.zeros_like(d["Rain"])
     paddy = d["PaddyRiceWaterAbstractionFromSurfaceWaterM3"]
 
@@ -788,18 +773,23 @@ def scatter_down_stencil(x, codes2d, land_idx, nrows, ncols):
     return out.reshape(-1)[land_idx]
 
 
+def eva_uses_stencil(cfg, p, device):
+    """Whether evapowater_step moves water down by the 2-D stencil (else by
+    scatter_to_downstream over downEva)."""
+    return bool(cfg.use_eva_stencil(device) and "evaDir2D" in p and cfg.grid_rows
+                and cfg.grid_cols)
+
+
 def evapowater_step(cfg, p, s, d):
     """Open-water evaporation moved downstream (evapowater.py:123-159), outside
     the routing kernel: the path of schedules whose evaporation edges leave
     the kernel's window."""
-    P = cfg.num_pixels
     upstream_eva = d["EWRef"] * p["MMtoM3"] * d["WaterFraction"]
-    if (cfg.use_eva_stencil(upstream_eva.device) and "evaDir2D" in p
-            and cfg.grid_rows and cfg.grid_cols):
+    if eva_uses_stencil(cfg, p, upstream_eva.device):
         move_down = lambda x: scatter_down_stencil(
             x, p["evaDir2D"], p["landIdx"], cfg.grid_rows, cfg.grid_cols)
     else:
-        move_down = lambda x: scatter_to_downstream(x, p["downEva"], P)
+        move_down = lambda x: scatter_to_downstream(x, p["seg$downEva"])
     chan_m_iter = d["ChanM3Kin"]
     chan_left = chan_m_iter * 0.1
     eva_add = torch.zeros_like(upstream_eva)

@@ -8,10 +8,11 @@ Two sub-step loops, chosen by the channel router (resolve_pipeline):
     whole NoRoutSteps x chunks loop of a step in one launch of the CUDA
     kernel on a CUDA device, its plain PyTorch version on the CPU
     (channel_routing_kernel);
-  - the sharded router's: the sequential loop of the JAX package's
-    `channel_routing` (channel_routing_substeps), one sub-step after the
-    other, each routing the whole graph with one sweep of
-    ops/kinwave_sharded.py (the K6 kernel on a CUDA device).
+  - the sharded and the scan router's: the sequential loop of the JAX
+    package's `channel_routing` (channel_routing_substeps), one sub-step
+    after the other, each routing the whole graph with one sweep of K6
+    (ops/kinwave_sharded.py; the scan router, ops/kinwave.py, sweeps the
+    natural graph in the identity position space).
 The JAX package's chunk-major XLA loop (`channel_routing_pipelined`) is a
 schedule for XLA that the kernel replaces and has no counterpart here.
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .kinwave import ScanRouter
 from .kinwave_packed import PackedRouter
 from .kinwave_sharded import ShardedRouter
 from .kinwave_substep import (WAVEFRONT_TABLES, SubstepSpec, _lake_step, _reservoir_step,
@@ -83,11 +85,12 @@ def surface_routing_step(cfg, p, s, d, routers):
 def resolve_pipeline(cfg, routers, device):
     """Which implementation runs the sub-step loop: for the packed router
     'cuda' (the kernel) on a CUDA device and 'reference' (its plain PyTorch
-    version) on the CPU, in float32 and float64 alike; for the sharded
-    router 'substeps', the sequential loop (channel_routing_substeps), on
-    any device. Raises for a configuration no loop takes."""
+    version) on the CPU, in float32 and float64 alike; for the sharded and
+    the scan router 'substeps', the sequential loop
+    (channel_routing_substeps), on any device. Raises for a configuration no
+    loop takes."""
     kin = routers["kin"]
-    if isinstance(kin, ShardedRouter):
+    if isinstance(kin, (ShardedRouter, ScanRouter)):
         return "substeps"
     if not isinstance(kin, PackedRouter):
         raise NotImplementedError("the sub-step loops take the packed or the sharded router")
@@ -141,7 +144,8 @@ def structure_params(cfg, p):
 def channel_routing_substeps(cfg, p, s, d, routers):
     """The NoRoutSteps sub-step loop, one sub-step after the other, in the
     channel router's position space (lisflood_tpu/ops/routing_ops.py:
-    channel_routing, :185-414): each sub-step runs the lakes and
+    channel_routing, :185-414; the scan router's is the identity, its
+    kinp$ parameters the natural ones): each sub-step runs the lakes and
     reservoirs on the previous sub-step's discharge, assembles the
     sideflow, and routes single or split (two lanes in one sweep); the
     catchment totals of the mass balance are taken in the loop. The state is
@@ -206,11 +210,11 @@ def channel_routing_substeps(cfg, p, s, d, routers):
         return torch.zeros_like(zero).index_copy_(0, pk(name + "Pos").long(), q_out)
 
     if cfg.rep_mbts:
-        # in-loop catchment totals: padded positions carry the extra segment
+        # in-loop catchment totals in position space, in the order built over
+        # kinp$Catchments: padded positions carry the extra segment
         # num_catchments, so they never add to a real total. The totals of
         # the terms that do not change over the sub-steps are taken once.
-        catch = pk("Catchments").long()
-        ct = lambda x: segment_spread(x, catch, cfg.num_catchments + 1)
+        ct = lambda x: segment_spread(x, p["seg$kinp$Catchments"])
         c["AddedTRUN"] = zero
         added_const = ct(to_chan)
         if cfg.open_water_evapo:
@@ -402,7 +406,7 @@ def channel_routing_kernel(cfg, p, s, d, routers):
         natural["QinADDEDM3"] = d["QInM3OldLoop"] + d["QDelta"] * (T + 1) / 2.0
     if cfg.rep_mbts:
         # AddedTRUN is linear in the per-sub-step terms: one catchment total
-        ct = lambda v: segment_spread(v, p["Catchments"], cfg.num_catchments)
+        ct = lambda v: segment_spread(v, p["seg$Catchments"])
         added = T * ct(d["ToChanM3RunoffDt"])
         if cfg.inflow:
             added = added + ct(natural["QinADDEDM3"])
@@ -432,7 +436,7 @@ def _post_routing(cfg, p, s, d, carry, dtype):
     P = cfg.num_pixels
     dx = p["ChanLength"]
     inv_dx = 1.0 / dx
-    catchtotal = lambda x: segment_spread(x, p["Catchments"], cfg.num_catchments)
+    catchtotal = lambda x: segment_spread(x, p["seg$Catchments"])
 
     out = dict(carry)
     if cfg.inflow:

@@ -22,7 +22,7 @@ from lisflood_tpu.ops import indicators as jax_ind
 from lisflood_tpu.ops import physics as jax_ph
 from lisflood_tpu_torch.device import to_device
 from lisflood_tpu_torch.models.convert import config_from_reference, from_reference
-from lisflood_tpu_torch.models.step import Step, build_step
+from lisflood_tpu_torch.models.step import Step, build_step, segment_orders
 from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
                                                  with_options)
 from lisflood_tpu_torch.ops import indicators as ind
@@ -81,6 +81,7 @@ def _both(cfg, params, state, d_np):
                         "cpu", torch.float64))
     ts = to_device(state, "cpu", torch.float64)
     td = to_device(d_np, "cpu", torch.float64)
+    tp.update(segment_orders(cfg, params, "cpu"))
     return (jax_config(cfg), jp, js, jd), (cfg, tp, ts, td)
 
 

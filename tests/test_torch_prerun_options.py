@@ -21,7 +21,7 @@ from lisflood_tpu.models.config import ModelConfig as JaxConfig
 from lisflood_tpu.models.step import build_step as jax_build_step
 from lisflood_tpu.ops import indicators as jax_ind
 from lisflood_tpu_torch.device import to_device
-from lisflood_tpu_torch.models.step import LANDUSE_FRACTIONS, build_step
+from lisflood_tpu_torch.models.step import LANDUSE_FRACTIONS, build_step, segment_orders
 from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, landuse_forcing,
                                                  synthetic_forcing, with_options)
 from lisflood_tpu_torch.ops import indicators as ind
@@ -196,6 +196,7 @@ def test_indicator_step(options_step):
     tp = {k: v for k, v in params.items() if np.isscalar(v)}
     tp.update(to_device({k: v for k, v in params.items() if not np.isscalar(v)}, "cpu",
                         torch.float64))
+    tp.update(segment_orders(cfg, params, "cpu"))
     got = ind.indicator_step(cfg, tp, to_device(s_np, "cpu", torch.float64),
                              to_device(d_np, "cpu", torch.float64))
     assert set(got) == set(ref) and "RegionMonthReservoirAndLakeStorageM3" in got

@@ -190,18 +190,25 @@ def test_sweep_wrapper_checks_and_devices(graphs):
 def test_config_keeps_num_shards_and_refuses_scan(catchment):
     """config_from_reference carries num_shards; from_settings reads
     RoutingShards for the sharded kernel (4 by default) and 1 otherwise;
-    RoutingKernel scan is refused when the step is built; the folded
-    ensemble refuses the sharded router."""
+    RoutingKernel scan builds (since the scan router was ported) and a
+    router name that no package has is refused when the step is built; the
+    folded ensemble refuses the sharded and the scan router."""
     assert config_from_reference(JaxConfig(routing_kernel="sharded", num_shards=8)).num_shards == 8
     assert ModelConfig.from_settings(load_settings(catchment)).num_shards == 1
     sharded = load_settings(catchment, vars_to_set={"RoutingKernel": "sharded"})
     assert ModelConfig.from_settings(sharded).num_shards == 4
+    scan = ModelConfig.from_settings(load_settings(catchment, vars_to_set={"RoutingKernel": "scan"}))
+    assert scan.routing_kernel == "scan" and scan.num_shards == 1
     cfg, params, state, aux = build_synthetic_model(16, 16, chunk_size=16)
-    with pytest.raises(NotImplementedError, match="scan"):
-        build_step(dataclasses.replace(cfg, routing_kernel="scan"), params, aux, device="cpu")
-    with pytest.raises(ValueError, match="sharded"):
-        ensemble_model(dataclasses.replace(cfg, routing_kernel="sharded", num_shards=2),
-                       params, aux, 2)
+    step, _ = build_step(dataclasses.replace(cfg, routing_kernel="scan"), params, aux,
+                         device="cpu")
+    assert step.pipeline == "substeps"
+    with pytest.raises(ValueError, match="routing_kernel"):
+        build_step(dataclasses.replace(cfg, routing_kernel="lockstep"), params, aux, device="cpu")
+    for kernel in ("sharded", "scan"):
+        with pytest.raises(ValueError, match=kernel):
+            ensemble_model(dataclasses.replace(cfg, routing_kernel=kernel, num_shards=2),
+                           params, aux, 2)
 
 
 def test_from_reference_carries_the_graphs():

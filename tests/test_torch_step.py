@@ -173,7 +173,8 @@ def test_unported_options_refused():
     """The step's last four options build (tests/test_torch_prerun_options.py
     holds them to the JAX package), InitLisflood without the water-balance
     reports and the indicators, which it refuses as the JAX step fails on
-    them; a router the port does not have (`scan`) is refused."""
+    them; every router of the JAX package builds (`scan` with the sequential
+    loop), and a router name that none has is refused."""
     cfg, params, state, aux = port_synthetic.with_options(
         port_synthetic.build_synthetic_model(**SIZE))
     prerun_off = dict(rep_total_water_storage=False, rep_mbts=False, indicator=False)
@@ -185,8 +186,11 @@ def test_unported_options_refused():
         assert getattr(step.cfg, field) and step.pipeline == "reference"
     with pytest.raises(ValueError, match="InitLisflood"):
         build_step(dataclasses.replace(cfg, init_lisflood=True), params, aux, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_step(dataclasses.replace(cfg, routing_kernel="scan"), params, aux, device="cpu")
+    step, _ = build_step(dataclasses.replace(cfg, routing_kernel="scan"), params, aux,
+                         device="cpu")
+    assert step.pipeline == "substeps"
+    with pytest.raises(ValueError, match="routing_kernel"):
+        build_step(dataclasses.replace(cfg, routing_kernel="pallas"), params, aux, device="cpu")
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -25,7 +25,8 @@ script exits non-zero:
      more blocks than the card holds at once must be refused; and the whole
      float64 step (default, all-options, and all-options with the
      evaporation chain outside the kernel) on the card against the same step
-     on the CPU (within 1e-10);
+     on the CPU (within 1e-10); K8 in float64 at 240x200 against its plain
+     version, on the land phase's operands and forced wet (within 1e-12);
   3. the main path: the continental synthetic model (1200x1000,
      NoRoutSteps=24, chunk 512, float32) through build_multi_step with
      ChanQAvg output, one warm-up step and two timed batches of five steps
@@ -39,7 +40,13 @@ script exits non-zero:
      sleep kernel, so the device's time: cuda_ms, which times every kernel)
      by block count from 1 to the limit, and its bound; the plain version's
      time (one run, ~100 s) and the kernel held to it (float32, within 1e-5
-     of each output's max);
+     of each output's max); K8, the soil Courant tail (csrc/soil_tail.cu),
+     on the land phase's operands against its plain version
+     (soil_tail_reference, within 1e-5 of each sum's max, whether bitwise
+     printed, the same bits in two runs), its lanes that sub-step, the
+     largest count, its time, bound and the plain version's time; the same
+     forced wet (KSat scaled up until the largest count reaches
+     max_soil_substeps and SoilCourantCapHit is set);
   5. the all-options path: the continental model with every option of
      with_options on (water use, rice, inflow, transmission loss, polders,
      water levels, pF, mass-balance reports) through build_multi_step, timed
@@ -90,7 +97,8 @@ script exits non-zero:
      the launch and alone); the same in float64 at 240x200 (within 1e-12), also at a
      cap below its largest tree, where tiles keep q in global memory; the
      sub-step kernel's launch at chunk 256 held to its
-     plain version on its first 256 chunks, its time and bound;
+     plain version on its first 256 chunks, its time and bound; K8 on the
+     land phase's operands, as in phase 4;
   9. the settings-driven run (models/driver.py) on phase 8's catchment,
      written with its outputs bound: lisfloodexe in float32 (Precision
      single), the production run_scanned over the 11 days with PCRaster end
@@ -157,6 +165,27 @@ script exits non-zero:
      torch.use_deterministic_algorithms (phase 5 does the same on the
      continental all-options grid's Catchments, WUseRegionC, downstruct and
      downEva, and counts K7's calls a step).
+ 13. the folded ensemble (models/ensemble.py) of ROUTER_MEMBERS = 4 members
+     of phase 8's catchment, float32, on RoutingKernel sharded (SHARDS
+     shards, phase 10's partition and schedules replicated, member m's shard
+     s being shard m S + s) and on RoutingKernel scan (the natural schedules
+     replicated): the host seconds of the folded schedules and K6's tables;
+     one warm-up step and a timed batch of ROUTER_DAYS, ms per ensemble step
+     and per member-step, NoRoutSteps + 1 launches of K6 a step for all
+     members and one of K8, one profiled step; each member bitwise equal to
+     phase 10's or 11's single step over 2 steps from the same state; two
+     runs of the ensemble step bitwise; K6 on one channel sub-step's folded
+     operands bitwise equal to its plain version, its time on the folded
+     channel and overland tables against phases 10 and 11's single launch,
+     its bound, chain floor and the deepest tile alone; then MonteCarlo and
+     EnKF from the settings with RoutingKernel sharded (run_from_settings
+     through lisfloodexe), 4 members over ROUTER_DAYS days with one filter
+     step: ms per member-day and the analysis's seconds.
+Each driven path's step launches K8 once (its count is asserted with the
+routing kernels'; the lanes that sub-step and the largest count are printed
+by path), and one step of each path runs under
+torch.cuda.set_sync_debug_mode("warn"): the host synchronisations it makes
+are counted and printed (sync_count), and the main path's must be none.
 Every sum of the step adds in a fixed order (K7), so every run computes the
 same numbers: the all-options (phase 5), prerun (6), catchment (8), sharded
 (10) and scan (11) steps run REPEAT_STEPS steps twice from the same state,
@@ -167,7 +196,8 @@ kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
-scan router's natural tables and segment_sum); then
+scan router's natural tables, segment_sum, soil_tail and K6 on the two
+folded ensembles' tables); then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
@@ -228,6 +258,18 @@ FLOPS_SWEEP = 1 + 76
 # 1 and 2 pow more
 FLOPS_RAMP = 3
 FLOPS_TRANS = (4, 1, 2)
+# the soil Courant tail (csrc/soil_tail.cu, K8), per sub-step of a lane, by
+# line of the kernel's loop: the three storages (3); each of the three
+# conductivities (conductivity()): the pore space (1), the saturation's
+# difference and division (2), its clamp (2 compares), the two `1 -` (2),
+# inner * inner (1), sqrt (1) and the two multiplies (2): 11 and 2 pow; the
+# three seepages' products (3), the two caps (2) and three mins (3); the
+# storage updates (5) and the three sums (3)
+FLOPS_SOIL_SUBSTEP = (3 + 3 * 11 + 3 + 2 + 3 + 5 + 3, 3 * 2)     # (plain, pow)
+# bytes a lane that sub-steps reads and writes beyond its count: dt_sub, the
+# three storages, the three sums and 15 parameters read (22 values), the three
+# sums written (3 values), and its three masks (1 byte each)
+SOIL_VALUES, SOIL_MASK_BYTES = 22 + 3, 3
 
 
 def smi_line():
@@ -425,7 +467,7 @@ def held_to_plain(torch, ks, spec, xs, tol, what):
     return ys, plan, {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd}
 
 
-def phase_mid(torch, ks):
+def phase_mid(torch, ks, card):
     """Phase 2: kernel vs plain version at 240x200 in float32 and float64
     with every main-path phase, in float32 with single routing and no
     evaporation chain (the kernel's one-lane sub-step), and with the optional
@@ -469,6 +511,13 @@ def phase_mid(torch, ks):
             print(f"  with one block {one_block_ms:.3f} ms", flush=True)
             figures[name] = {**fig, "bound_ms": bound_ms, "bound_by": bound_by,
                              "blocks": plan["blocks"], "ms_one_block": one_block_ms}
+    # K8 in float64 at 240x200: the land phase's operands, and forced wet
+    step, s, f, _, _ = kernel_inputs(model, "cuda", torch.float64)
+    ops8, _ = soil_tail_operands(torch, step, s, f)
+    figures["soil_tail_float64"] = soil_tail_figures(torch, card, ops8, 1e-12,
+                                                     "240x200, float64")
+    figures["soil_tail_float64_wet"] = forced_wet_figures(torch, card, step, s, f, 1e-12)
+    del step, s, f, ops8
     # more blocks than the card holds at once: the launcher refuses
     try:
         ks._launch(spec, xs, blocks=plan["limit"] + 1)
@@ -511,25 +560,30 @@ def stack_forcing(torch, fs):
 
 def reset_launches():
     """Sets every kernel wrapper's launch count to 0."""
-    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep, segment_sum
+    from lisflood_tpu_torch.ops import (kinwave_packed, kinwave_sharded, kinwave_substep,
+                                        segment_sum, soil_tail)
     kinwave_substep.kinwave_substep.launches = 0
     kinwave_packed.kinwave_sweep.launches = 0
     kinwave_sharded.kinwave_sharded_sweep.launches = 0
     segment_sum.segment_total.launches = 0
+    soil_tail.soil_tail.launches = 0
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel."""
-    from lisflood_tpu_torch.ops import kinwave_packed, kinwave_sharded, kinwave_substep, segment_sum
+    from lisflood_tpu_torch.ops import (kinwave_packed, kinwave_sharded, kinwave_substep,
+                                        segment_sum, soil_tail)
     return {"kinwave_substep": kinwave_substep.kinwave_substep.launches,
             "kinwave_sweep": kinwave_packed.kinwave_sweep.launches,
             "kinwave_sharded": kinwave_sharded.kinwave_sharded_sweep.launches,
-            "segment_sum": segment_sum.segment_total.launches}
+            "segment_sum": segment_sum.segment_total.launches,
+            "soil_tail": soil_tail.soil_tail.launches}
 
 
 def routing_launches(launches):
-    """The routing kernels' launch counts of `launches` (K7's apart)."""
-    return {k: v for k, v in launches.items() if k != "segment_sum"}
+    """The routing kernels' launch counts of `launches` (K7's and K8's
+    apart)."""
+    return {k: v for k, v in launches.items() if k not in ("segment_sum", "soil_tail")}
 
 
 def timed_batches(torch, ks, run, forcing):
@@ -574,6 +628,7 @@ def timed_steps(torch, ks, multi, s, forcing, card, sweeps=0, sums=None):
           f"of K7, the segment sums, a step)", flush=True)
     assert routing_launches(launches) == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": sweeps,
                                           "kinwave_sharded": 0}, launches
+    assert launches["soil_tail"] == STEPS_RUN, launches
     if sums is not None:
         assert (launches["segment_sum"] > 0) == sums, launches
     return s, outs, ms[-1], launches
@@ -630,6 +685,8 @@ def phase_prerun(torch, ks, model, card):
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    SYNCS["prerun"] = sync_count(torch, multi.step, s, forcing[0], "prerun")
+    SOIL_COUNTS["prerun"] = soil_tail_counts(torch, multi.step, s, forcing[0], "prerun")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "prerun")
     assert "pk$Chan2QKin" not in s and "LakeStorageM3CC" not in s, sorted(s)
     assert torch.equal(s["pk$avgdis"], s["pk$CumQ"] / s["TimeSinceStart"]), "avgdis"
@@ -727,6 +784,7 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
           f"{peak / 2**30:.2f} GiB", flush=True)
     assert routing_launches(counts) == {"kinwave_substep": STEPS_RUN, "kinwave_sweep": 0,
                                         "kinwave_sharded": 0}, (counts, "one a step")
+    assert counts["soil_tail"] == STEPS_RUN, counts
     # the evaporation stencil is chosen by the member's grid, as for one model
     print(f"  evaporation stencil on the card: single model {cfg.use_eva_stencil('cuda')}, "
           f"{M}-member ensemble {runner.cfg.use_eva_stencil('cuda')}", flush=True)
@@ -736,6 +794,8 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     assert not bad, f"non-finite state: {bad}"
     f0 = tile_forcing(forcing[0], M, P)
     profile_step(torch, runner.step, runner.state, f0, step_ms)
+    SYNCS["ensemble"] = sync_count(torch, runner.step, runner.state, f0, "ensemble")
+    SOIL_COUNTS["ensemble"] = soil_tail_counts(torch, runner.step, runner.state, f0, "ensemble")
 
     spec, xs = kernel_operands(runner.cfg, runner.params, runner.state,
                                runner.step.land_phase(runner.state, f0), runner.step.routers)
@@ -973,7 +1033,12 @@ def phase_catchment(torch, ks, card, root):
           f"{float(torch.stack([s['OFQOther'], s['OFQForest'], s['OFQDirect']]).max()):.4g} m3/s",
           flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    SYNCS["catchment"] = sync_count(torch, multi.step, s, forcing[0], "catchment")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "catchment")
+    ops8, _ = soil_tail_operands(torch, multi.step, s, forcing[0])
+    k8 = {**soil_tail_figures(torch, card, ops8, 1e-5, "1200x1000 catchment, float32"),
+          "launches": launches["soil_tail"]}
+    del ops8
 
     print("  K5, the overland sweep, at the catchment's shape (float32):", flush=True)
     beta = float(p["Beta"])
@@ -1035,7 +1100,7 @@ def phase_catchment(torch, ks, card, root):
     del xs, ys
     context = {"path": path, "model": (cfg, params, state, aux), "step": multi.step,
                "forcing": forcing, "spec": spec, "step_ms": step_ms, "blocks": fig["blocks"],
-               "sums_per_step": launches["segment_sum"] / STEPS_RUN}
+               "sums_per_step": launches["segment_sum"] / STEPS_RUN, "soil_tail": k8}
     return sweep, substep, context
 
 
@@ -1114,6 +1179,7 @@ def phase_driver(torch, ks, card, ctx, tmp):
     assert routing_launches(launches) == {"kinwave_substep": days, "kinwave_sweep": days,
                                           "kinwave_sharded": 0}, launches
     assert launches["segment_sum"] > 0, launches
+    assert launches["soil_tail"] == days, launches
     assert runner.dtype == torch.float32 and runner.device.type == "cuda"
     names = sorted(os.listdir(out))
     assert {"dis.tss", "mbErrorMM.tss", "chanqend.map", "lzend.map",
@@ -1235,6 +1301,7 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
     assert routing_launches(launches) == {"kinwave_substep": days, "kinwave_sweep": days,
                                           "kinwave_sharded": 0}, launches
+    assert launches["soil_tail"] == days, launches
     assert ens.n == M and ring > spec.window * M, (ens.n, ring, spec.window)
     top = sorted(os.listdir(ens_out))
     assert top == [str(m) for m in range(1, M + 1)] + ["stateVar"], top
@@ -1454,7 +1521,7 @@ def phase_sharded(torch, ks, card, ctx, tmp):
           f"{days + 1} steps: {launches} (NoRoutSteps + 1 = {T + 1} of K6 a step)", flush=True)
     assert routing_launches(launches) == {"kinwave_substep": 0, "kinwave_sweep": 0,
                                           "kinwave_sharded": (days + 1) * (T + 1)}, launches
-    assert launches["segment_sum"] > 0, launches
+    assert launches["segment_sum"] > 0 and launches["soil_tail"] == days + 1, launches
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     q = outs["ChanQAvg"]
@@ -1462,6 +1529,8 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
           f"{float(q.mean()):.4g} m3/s", flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    SYNCS["sharded"] = sync_count(torch, multi.step, s, forcing[0], "sharded")
+    SOIL_COUNTS["sharded"] = soil_tail_counts(torch, multi.step, s, forcing[0], "sharded")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "sharded")
     position_catchments = p["kinp$Catchments"].cpu().numpy()
 
@@ -1531,6 +1600,7 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     print(f"  float32, {days} days from the same start, sharded against phase 8's packed "
           f"state, largest difference of each field's max: "
           + ", ".join(f"{k} {e:.3e}" for e, k in diffs[:5]), flush=True)
+    single_step = multi.step
     del runs, multi, p, s
     torch.cuda.empty_cache()
 
@@ -1557,6 +1627,7 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     assert runner.config.routing_kernel == "sharded" and runner.config.num_shards == SHARDS
     assert routing_launches(launches_d) == {"kinwave_substep": 0, "kinwave_sweep": 0,
                                             "kinwave_sharded": days * (T + 1)}, launches_d
+    assert launches_d["soil_tail"] == days, launches_d
     assert all(bool(torch.isfinite(v).all()) for v in runner.state.values()
                if v.is_floating_point())
     assert "dis.tss" in os.listdir(out)
@@ -1606,6 +1677,7 @@ def phase_sharded(torch, ks, card, ctx, tmp):
             "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
             "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
             "step_ms": step_ms, "position_catchments": position_catchments,
+            "single_step": single_step,
             "plain_shape": "1200x1000 catchment, one channel sub-step (and the overland sweep), "
                            "float32"}
 
@@ -1672,7 +1744,7 @@ def phase_scan(torch, ks, card, ctx, tmp):
           f"{days + 1} steps: {launches} (NoRoutSteps + 1 = {T + 1} of K6 a step)", flush=True)
     assert routing_launches(launches) == {"kinwave_substep": 0, "kinwave_sweep": 0,
                                           "kinwave_sharded": (days + 1) * (T + 1)}, launches
-    assert launches["segment_sum"] > 0, launches
+    assert launches["segment_sum"] > 0 and launches["soil_tail"] == days + 1, launches
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     assert not any(k.startswith("pk$") for k in s)
@@ -1681,6 +1753,8 @@ def phase_scan(torch, ks, card, ctx, tmp):
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
           f"{float(q.mean()):.4g} m3/s", flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    SYNCS["scan"] = sync_count(torch, multi.step, s, forcing[0], "scan")
+    SOIL_COUNTS["scan"] = soil_tail_counts(torch, multi.step, s, forcing[0], "scan")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "scan")
 
     # K6 on the natural tables: the land phase's overland operands and one
@@ -1737,6 +1811,7 @@ def phase_scan(torch, ks, card, ctx, tmp):
     print(f"  float32, {days} days from the same start, scan against phase 8's packed state, "
           f"largest difference of each field's max: "
           + ", ".join(f"{k} {e:.3e}" for e, k in diffs[:5]), flush=True)
+    single_step = multi.step
     del runs, multi, p, s
     torch.cuda.empty_cache()
 
@@ -1763,6 +1838,7 @@ def phase_scan(torch, ks, card, ctx, tmp):
     assert runner.config.routing_kernel == "scan"
     assert routing_launches(launches_d) == {"kinwave_substep": 0, "kinwave_sweep": 0,
                                             "kinwave_sharded": days * (T + 1)}, launches_d
+    assert launches_d["soil_tail"] == days, launches_d
     assert all(bool(torch.isfinite(v).all()) for v in runner.state.values()
                if v.is_floating_point())
     assert "dis.tss" in os.listdir(out)
@@ -1795,9 +1871,216 @@ def phase_scan(torch, ks, card, ctx, tmp):
             "chain_floor_ms": floor_ms, "deep_tile_ms": deep_ms,
             "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
             "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
-            "step_ms": step_ms,
+            "step_ms": step_ms, "single_step": single_step,
             "plain_shape": "1200x1000 catchment, natural tables, one channel sub-step (and the "
                            "overland sweep), float32"}
+
+
+# members of phase 13's ensembles on the sharded and the scan router, the
+# days their steps are timed, and the days and filter step of its
+# MonteCarlo/EnKF run from the settings
+ROUTER_MEMBERS = 4
+ROUTER_DAYS = 3
+ROUTER_FILTER_STEP = 2
+
+
+def capture_k6(torch, step, s, f):
+    """The operands (const, adx) of the first channel sub-step's K6 launch in
+    one step of `step` (sharded or scan router), copied as they enter it."""
+    from lisflood_tpu_torch.ops import kinwave as kw
+    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    captured = []
+    real = kss.kinwave_sharded_sweep
+
+    def capture(*args):
+        if not captured and args[0].shape[0] == 2:
+            captured.append(tuple(a.clone() for a in args[:2]))
+        return real(*args)
+    capture.launches, capture.last_plan = 0, None
+    kss.kinwave_sharded_sweep = kw.kinwave_sharded_sweep = capture
+    try:
+        step(s, f)
+    finally:
+        kss.kinwave_sharded_sweep = kw.kinwave_sharded_sweep = real
+    return captured[0]
+
+
+def members_bitwise(torch, ens, single, forcing, n=2):
+    """Each member of the ensemble `ens` after `n` steps from its state
+    against the single model's `single` step from the same state: the
+    state entries of every member that differ in any bit."""
+    from lisflood_tpu_torch.models.ensemble import member_state, tile_forcing
+    starts = ens.member_states()
+    s_e = ens.fold(starts)
+    for f in forcing[:n]:
+        s_e, _ = ens.step(s_e, tile_forcing(f, ens.n, ens.pixels))
+    differ = []
+    for m, start in enumerate(starts):
+        s1 = single.prepare_state(start)
+        for f in forcing[:n]:
+            s1, _ = single(s1, f)
+        mine = member_state(s_e, m, ens.n, 0)
+        differ += [(m, k) for k, v in s1.items() if not tensor_bits_equal(torch, mine[k], v)]
+    torch.cuda.synchronize()
+    return differ, len(s1)
+
+
+def phase_ensemble_routers(torch, ks, card, ctx, tmp, singles):
+    """Phase 13: the folded ensemble on RoutingKernel sharded and scan; see
+    the module docstring. `ctx` is phase 8's context, `singles` phases 10 and
+    11's single steps and K6 figures by router."""
+    import dataclasses
+
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    from lisflood_tpu_torch.models.ensemble import EnsembleRunner, tile_forcing
+    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    from lisflood_tpu_torch.ops.routing_ops import overland_operands
+    path, (cfg, params, state, aux) = ctx["path"], ctx["model"]
+    forcing = ctx["forcing"]
+    M, T, P, days = ROUTER_MEMBERS, cfg.no_rout_steps, cfg.num_pixels, ROUTER_DAYS
+    figures = {}
+    for router, fields in (("sharded", {"routing_kernel": "sharded", "num_shards": SHARDS}),
+                           ("scan", {"routing_kernel": "scan", "num_shards": 1})):
+        single, k6_single = singles[router]
+        model_aux = aux
+        if router == "sharded":
+            # the single model's partition and schedules (phase 10's), replicated
+            r = single.routers
+            model_aux = {**aux, "sharded": {"kin": r["kin"].ps, "tochan": r["tochan"].ps,
+                                            "shard_of": r["shard_of"],
+                                            "partition_stats": r["partition_stats"],
+                                            "seconds": {}}}
+        t0 = time.perf_counter()
+        ens = EnsembleRunner((dataclasses.replace(cfg, **fields), params, state, model_aux), M,
+                             dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kin, tochan = ens.step.routers["kin"], ens.step.routers["tochan"]
+        sec = ens.step.routers["seconds"]
+        print(f"  {router}, {M} members of {P} cells: the folded model built, moved and perturbed "
+              f"in {build_s:.1f} s; host seconds: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
+              + f", segment orders {ens.step.order_seconds:.2f}; channel "
+              + (schedule_text(kin.ps) if router == "sharded" else f"{kin.ps.n_chunks} chunks")
+              + f"; K6 tables: channel {kin.sweep_tiles().n_tiles} tiles "
+              f"({kin.sweep_tiles().stats['trees']} trees, the largest "
+              f"{kin.sweep_tiles().stats['largest_tree']} cells, "
+              f"{kin.sweep_tiles().stats['levels']} levels), overland "
+              f"{tochan.sweep_tiles().n_tiles} tiles", flush=True)
+        assert ens.step.pipeline == "substeps" and not tochan.no_edges
+        if router == "sharded":
+            assert kin.ps.n_shards == M * SHARDS and tochan.has_cuts
+        stack = stack_forcing(torch, forcing[:1 + days])
+        reset_launches()
+        ens.advance({k: v[:1] for k, v in stack.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ens.advance({k: v[1:] for k, v in stack.items()})
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / days * 1e3
+        launches = launch_counts()
+        print(f"  one warm-up step and a batch of {days}: {step_ms:.1f} ms per ensemble step, "
+              f"{step_ms / M:.1f} ms per member-step = {M * P / step_ms * 1e3:.4g} member "
+              f"cells*steps/s on {card}; launches for {days + 1} steps: {launches}", flush=True)
+        assert routing_launches(launches) == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                                              "kinwave_sharded": (days + 1) * (T + 1)}, launches
+        assert launches["soil_tail"] == days + 1 and launches["segment_sum"] > 0, launches
+        bad = [k for k, v in ens.state.items()
+               if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+        assert not bad, f"non-finite state: {bad}"
+        f0 = tile_forcing(forcing[0], M, P)
+        profile_step(torch, ens.step, ens.state, f0, step_ms)
+        syncs = SYNCS[f"{router} ensemble"] = sync_count(torch, ens.step, ens.state, f0,
+                                                          f"{router} ensemble")
+        SOIL_COUNTS[f"{router} ensemble"] = soil_tail_counts(torch, ens.step, ens.state, f0,
+                                                             f"{router} ensemble")
+        differ, n_keys = members_bitwise(torch, ens, single, forcing)
+        print(f"  each of the {M} members against phase {10 if router == 'sharded' else 11}'s "
+              f"single step from the same state, 2 steps: {n_keys} state entries bitwise equal: "
+              f"{not differ}{'' if not differ else f' (differ: {differ[:8]})'}", flush=True)
+        assert not differ, differ
+        repeat_bitwise(torch, ens.step, ens.fold(ens.member_states()),
+                       [tile_forcing(f, M, P) for f in forcing[:REPEAT_STEPS]],
+                       f"{router} ensemble")
+
+        # K6 on the folded tables: one channel sub-step's operands and the
+        # overland operands of the land phase
+        beta = float(ens.params["Beta"])
+        ops_c = capture_k6(torch, ens.step, ens.state, f0)
+        absd, plain_ms, plan_c = sharded_held(torch, kss, kin, ops_c, beta, 1e-5,
+                                              f"{router} ensemble, channel sub-step, 2 lanes, "
+                                              f"{M} members, float32", caps=())
+        pp = ens.step.step_params(f0)
+        d = ens.step.land_phase(ens.state, f0, pp)
+        _, q0, lat, adx = overland_operands(ens.cfg, pp, ens.state, d)
+        ops_o = tochan.sweep_operands(q0, lat, adx, beta)
+        q_o = kss.kinwave_sharded_sweep(*ops_o, tochan.sweep_tiles(), beta)
+        twice_o = same_bits({"q": q_o},
+                            {"q": kss.kinwave_sharded_sweep(*ops_o, tochan.sweep_tiles(), beta)})
+        assert twice_o
+        ms = {name: cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(*ops, r.sweep_tiles(), beta),
+                            N_REP)
+              for name, r, ops in (("channel", kin, ops_c), ("overland", tochan, ops_o))}
+        deep_ms, floor_ms, per_level = sharded_where(torch, kss, ops_c, kin.sweep_tiles(), beta,
+                                                     f"{router} ensemble, channel")
+        edges = lambda r: int((r.ps.down_pos < r.ps.p_pad).sum())
+        bound_c = sharded_bound(kin.ps, 2, torch.float32, edges(kin))
+        print(f"  K6 on the folded tables: {ms['channel']:.4f} ms a channel launch for {M} "
+              f"members ({k6_single['ms']:.4f} for one model in phase "
+              f"{10 if router == 'sharded' else 11}; {ms['channel'] / M:.4f} per member), "
+              f"{ms['overland']:.4f} ms an overland launch ({k6_single['ms_overland']:.4f}), the "
+              f"overland bits the same in two runs; chain floor {floor_ms:.4f} ms, the deepest "
+              f"tile alone {deep_ms:.4f} ms; bound {bound_c[0]:.4f} ms ({bound_c[1]}) over "
+              f"{kin.ps.num_pixels} positions; {T * ms['channel'] + ms['overland']:.1f} ms of K6 an "
+              f"ensemble step in {T + 1} launches; card {card}", flush=True)
+        figures[router] = {"ms": ms["channel"], "ms_overland": ms["overland"],
+                           "bound_ms": bound_c[0], "bound_by": bound_c[1],
+                           "plain_ms": plain_ms, "max_abs_err": absd,
+                           "launches": launches["kinwave_sharded"], "chain_floor_ms": floor_ms,
+                           "deep_tile_ms": deep_ms, "cycles_per_level": float(per_level),
+                           "tiles": plan_c["tiles"], "ring_tiles": plan_c["ring_tiles"],
+                           "step_ms": step_ms, "member_step_ms": step_ms / M,
+                           "syncs": syncs, "members": M}
+        del ens, ops_c, ops_o, q_o, d
+        torch.cuda.empty_cache()
+
+    # MonteCarlo and EnKF from the settings with RoutingKernel sharded
+    out = os.path.join(tmp, "ensemble_sharded")
+    os.makedirs(out)
+    settings = load_settings(path, sys_args=["-v"], opts_to_set=["MonteCarlo", "EnKF"],
+                             vars_to_set={"Precision": "single", "PathOut": out,
+                                          "EnsMembers": str(M),
+                                          "FilterSteps": str(ROUTER_FILTER_STEP),
+                                          "LZState": "", "RoutingKernel": "sharded",
+                                          "RoutingShards": str(SHARDS),
+                                          "StepEnd": f"{days:02d}/01/2000 00:00"})
+    assert settings.ens_members == M and settings.filter_steps == [ROUTER_FILTER_STEP]
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = lisfloodexe(settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    ens = runner.ensemble
+    es = ens.seconds
+    print(f"  MonteCarlo + EnKF, RoutingKernel sharded, {M} members x {days} days at float32: "
+          f"{wall:.1f} s in all (build_model {runner.seconds['build_model']:.1f}, the folded "
+          f"model built, moved and perturbed {es['build']:.1f}, the days {es['days']:.2f}, one "
+          f"EnKF analysis {es['enkf']:.2f}, dumps {es['dumps']:.2f}); "
+          f"{es['days'] / (days * M) * 1e3:.1f} ms per member-day; launches {launches}; card "
+          f"{card}", flush=True)
+    assert ens.cfg.routing_kernel == "sharded" and ens.n == M
+    assert routing_launches(launches) == {"kinwave_substep": 0, "kinwave_sweep": 0,
+                                          "kinwave_sharded": days * (T + 1)}, launches
+    assert launches["soil_tail"] == days, launches
+    assert sorted(os.listdir(out)) == [str(m) for m in range(1, M + 1)] + ["stateVar"]
+    assert all(bool(torch.isfinite(v).all()) for v in ens.state.values() if v.is_floating_point())
+    figures["sharded"]["member_day_ms"] = es["days"] / (days * M) * 1e3
+    figures["sharded"]["enkf_s"] = es["enkf"]
+    del runner, ens
+    torch.cuda.empty_cache()
+    return figures
 
 
 def phase_segment_sums(torch, card, ctx, position_catchments):
@@ -1918,6 +2201,138 @@ def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0):
             "largest": st["largest"], "order_build_s": st["seconds"]}
 
 
+def soil_tail_operands(torch, step, s, f, p=None):
+    """The operands the land phase of `step` (with the parameters `p`, the
+    step's by default) gives the soil tail (K8) from state `s` and forcing
+    `f`, copied as they enter it, and the land phase's diagnostics."""
+    from lisflood_tpu_torch.ops import physics
+    from lisflood_tpu_torch.ops.soil_tail import SOIL_KEYS
+    captured = []
+    real = physics.soil_tail
+
+    def capture(aw, seep, no_subs, dt_sub, q):
+        captured.append((tuple(x.clone() for x in aw), tuple(x.clone() for x in seep),
+                         no_subs.clone(), dt_sub.clone(), {k: q[k] for k in SOIL_KEYS}))
+        return real(aw, seep, no_subs, dt_sub, q)
+    physics.soil_tail = capture
+    try:
+        d = step.land_phase(s, f, p)
+    finally:
+        physics.soil_tail = real
+    assert len(captured) == 1, len(captured)
+    return captured[0], d
+
+
+def soil_tail_bound(ops):
+    """(bound_ms, bound_by) of K8 on `ops`, counted from what this run's data
+    needs: every lane's count read (4 bytes), and a lane that sub-steps its
+    operands read and its sums written (SOIL_VALUES values and its masks), at
+    PEAK_BYTES, against FLOPS_SOIL_SUBSTEP for each of its no_subs - 1
+    sub-steps (a pow as POW_FLOPS) over the non-tensor peak of the type."""
+    aw, seep, no_subs, dt_sub, q = ops
+    name = str(dt_sub.dtype).replace("torch.", "")
+    multi = int((no_subs > 1).sum())
+    substeps = int((no_subs.long() - 1).clamp_min(0).sum())
+    nbytes = 4 * no_subs.numel() + multi * (SOIL_VALUES * dt_sub.element_size() + SOIL_MASK_BYTES)
+    plain, pows = FLOPS_SOIL_SUBSTEP
+    flops = substeps * (plain + pows * POW_FLOPS[name])
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[name] * 1e3
+    print(f"  K8 bound: {nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms; {substeps} lane sub-steps, "
+          f"{flops / 1e9:.4f} GFLOP ({name}) -> {t_ops:.5f} ms", flush=True)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def soil_tail_figures(torch, card, ops, tol, what):
+    """K8 (csrc/soil_tail.cu) on the operands `ops` (soil_tail_operands)
+    against its plain version (soil_tail_reference) on the card: within
+    `tol` of each sum's max, whether bitwise equal (printed), the same bits
+    in two runs; the lanes that sub-step, the largest count and the lane
+    sub-steps; its time (CUDA events, mean of N_REP), the plain version's
+    (one run) and its bound. Returns the figures."""
+    from lisflood_tpu_torch.ops import soil_tail as st
+    aw, seep, no_subs, dt_sub, q = ops
+    names = ("seep_a", "seep_b", "seep_gw")
+    run = lambda fn: dict(zip(names, fn(aw, tuple(x.clone() for x in seep), no_subs, dt_sub, q)))
+    a, b = run(st.soil_tail), run(st.soil_tail)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = run(st.soil_tail_reference)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    twice, bitwise = same_bits(a, b), same_bits(a, ref)
+    rel, absd = max_rel_err(a, ref)
+    scratch = tuple(x.clone() for x in seep)
+    ms = cuda_ms(torch, lambda: st.soil_tail(aw, scratch, no_subs, dt_sub, q), N_REP)
+    bound_ms, bound_by = soil_tail_bound(ops)
+    multi, largest = int((no_subs > 1).sum()), int(no_subs.max())
+    differ = sum(int((a[i] != ref[i]).sum()) for i in a)
+    print(f"  K8 ({what}): {multi} of {no_subs.numel()} lanes sub-step, the largest count "
+          f"{largest}; K8 vs plain max rel err {rel:.3e} of each sum's max (tol {tol:g}), max abs "
+          f"{absd:.3e}, bitwise equal: {bitwise} ({differ} values differ); the same bits in two "
+          f"runs: {twice}; K8 {ms:.4f} ms a launch (mean of {N_REP}), bound {bound_ms:.5f} ms "
+          f"({bound_by}), plain version {plain_ms:.1f} ms (one run); card {card}", flush=True)
+    assert rel <= tol and twice, (rel, twice)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
+            "max_abs_err": absd, "bitwise": bitwise, "multi_lanes": multi,
+            "largest_no_subs": largest, "lanes": no_subs.numel()}
+
+
+def soil_tail_counts(torch, step, s, f, what):
+    """The lanes that sub-step in the soil tail (K8) and the largest count,
+    from one land phase of `step` on state `s` and forcing `f`."""
+    ops, _ = soil_tail_operands(torch, step, s, f)
+    no_subs = ops[2]
+    multi, largest = int((no_subs > 1).sum()), int(no_subs.max())
+    print(f"  K8 on the {what} path: {multi} of {no_subs.numel()} lanes sub-step, the largest "
+          f"count {largest}", flush=True)
+    return {"multi_lanes": multi, "largest_no_subs": largest, "lanes": no_subs.numel()}
+
+
+def forced_wet_figures(torch, card, step, s, f, tol):
+    """K8 where the soil's Courant cap binds: the land phase of `step` with
+    KSat1a, KSat1b and KSat2 scaled up by 10 at a time until the largest
+    count reaches cfg.max_soil_substeps, SoilCourantCapHit set; K8 held to
+    its plain version on those operands (soil_tail_figures)."""
+    cap = step.cfg.max_soil_substeps
+    scale = 1.0
+    while True:
+        scale *= 10.0
+        p = dict(step.params)
+        for k in ("KSat1a", "KSat1b", "KSat2"):
+            p[k] = step.params[k] * scale
+        ops, d = soil_tail_operands(torch, step, s, f, p)
+        if int(ops[2].max()) >= cap or scale >= 1e8:
+            break
+    hit = bool(d["SoilCourantCapHit"])
+    print(f"  forced wet: KSat x {scale:g}, the largest count {int(ops[2].max())} (the cap "
+          f"{cap}), SoilCourantCapHit {hit}", flush=True)
+    assert int(ops[2].max()) == cap and hit
+    return soil_tail_figures(torch, card, ops, tol, f"forced wet, KSat x {scale:g}")
+
+
+def sync_count(torch, step, s, f, what):
+    """The host synchronisations of one step of `step` on the card (state
+    `s`, forcing `f`), from torch.cuda.set_sync_debug_mode("warn"): their
+    count and the lines that make them. Returns the count."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(s, f)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter(f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in syncs)
+    print(f"  host synchronisations in one {what} step (set_sync_debug_mode warn): {len(syncs)}"
+          + (f" at {dict(sites.most_common(8))}" if syncs else ""), flush=True)
+    return len(syncs)
+
+
 def profile_step(torch, step, s, f, step_ms):
     """One step under torch.profiler: the device's busy time by kernel rows,
     against the unprofiled steady step time `step_ms` (the profiled step's
@@ -2024,6 +2439,10 @@ def side_flag_ab(torch):
 
 # the start of each phase on the host clock, by phase
 STAMPS = {}
+# host synchronisations in one step of each path (sync_count), by path
+SYNCS = {}
+# the soil tail's lanes that sub-step and largest count on each path
+SOIL_COUNTS = {}
 
 
 def stamp(n):
@@ -2069,7 +2488,7 @@ def main():
 
     stamp(2)
     print("phase 2: kernel vs plain version, 240x200, T=24, C=512", flush=True)
-    mid = phase_mid(torch, ks)
+    mid = phase_mid(torch, ks, card)
 
     stamp(3)
     print("phase 3: main path, continental 1200x1000, T=24, C=512, float32", flush=True)
@@ -2091,7 +2510,7 @@ def main():
     forcing = [to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
                for i in range(6)]
     s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sums=False)
-    launches = launches["kinwave_substep"]
+    launches, launches_k8 = launches["kinwave_substep"], launches["soil_tail"]
     per_model_bytes = torch.cuda.max_memory_allocated()
     print(f"  peak device memory {per_model_bytes / 2**30:.2f} GiB", flush=True)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
@@ -2101,6 +2520,8 @@ def main():
     print(f"  every state entry finite ({len(s)} entries); ChanQAvg {tuple(q.shape)}, "
           f"mean {float(q.mean()):.4g} m3/s", flush=True)
     profile_step(torch, multi.step, s, forcing[0], step_ms)
+    SYNCS["main"] = sync_count(torch, multi.step, s, forcing[0], "main")
+    assert SYNCS["main"] == 0, "the main-path step synchronises the host"
 
     stamp(4)
     print("phase 4: kernel timing at the main-path shape", flush=True)
@@ -2124,6 +2545,11 @@ def main():
           f"rel err {rel:.3e} (tol 1e-05), max abs err {absd:.3e}, at the main-path shape "
           f"({spec.n_chunks} chunks); card {card}", flush=True)
     assert rel <= 1e-5, f"kernel disagrees with the plain version: {rel}"
+    ops8, _ = soil_tail_operands(torch, multi.step, s, forcing[0])
+    k8_main = {**soil_tail_figures(torch, card, ops8, 1e-5, "continental main path, float32"),
+               "launches": launches_k8}
+    k8_wet = forced_wet_figures(torch, card, multi.step, s, forcing[0], 1e-5)
+    del ops8
     f64 = mid["float64"]
     print(f"  the float64 q-space kernel at 240x200: {f64['ms']:.3f} ms with {f64['blocks']} "
           f"blocks ({f64['ms_one_block']:.3f} ms with one), bound "
@@ -2159,6 +2585,9 @@ def main():
           f"reference's balance does not close with every option on; the port is held to "
           f"the reference's residual by the CPU tests)", flush=True)
     profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
+    SYNCS["all-options"] = sync_count(torch, multi5.step, s5, forcing5[0], "all-options")
+    SOIL_COUNTS["all-options"] = soil_tail_counts(torch, multi5.step, s5, forcing5[0],
+                                                  "all-options")
     repeat_bitwise(torch, multi5.step, multi5.prepare_state(state5), forcing5, "all-options")
     # the operands the kernel is held to the plain version on (every sum in
     # the step adds in a fixed order, so every run has the same numbers)
@@ -2232,6 +2661,14 @@ def main():
         print("phase 12: K7, the segment sums, on phase 8's catchment's segments, float32",
               flush=True)
         sums = phase_segment_sums(torch, card, context, sharded.pop("position_catchments"))
+        stamp(13)
+        print(f"phase 13: the folded ensemble, {ROUTER_MEMBERS} members, on RoutingKernel "
+              f"sharded ({SHARDS} shards) and scan, phase 8's catchment, float32", flush=True)
+        folded = phase_ensemble_routers(
+            torch, ks, card, context, tmp,
+            {"sharded": (sharded.pop("single_step"), sharded),
+             "scan": (scan.pop("single_step"), scan)})
+        k8_catchment = context["soil_tail"]
         del context
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
@@ -2278,6 +2715,32 @@ def main():
          "catchment": {k: {f: v[f] for f in ("ms", "bound_ms", "library_ms", "segments",
                                               "largest")}
                        for k, v in sums.items()}})
+    # K8: the continental main path's operands and launches; the catchment's,
+    # the forced-wet case's and float64's beside them; no PyTorch call
+    # computes it (a per-lane loop of data-dependent length)
+    figures["kernels"].append(
+        {"name": "soil_tail", "route": "cuda", "source": "lisflood_tpu_torch/csrc/soil_tail.cu",
+         "replaces": "lisflood_tpu/ops/physics.py:300", "library_ms": None,
+         **{k: v for k, v in k8_main.items() if k != "bitwise"},
+         "plain_shape": "1200x1000 continental main path, float32",
+         "catchment": k8_catchment, "forced_wet": k8_wet,
+         "float64": mid["soil_tail_float64"], "float64_wet": mid["soil_tail_float64_wet"]})
+    # K6 on the folded ensembles' tables (phase 13): a channel sub-step's
+    # launch for all members, its launches in the ensemble's timed run
+    for router, fig in folded.items():
+        figures["kernels"].append(
+            {"name": f"kinwave_sharded_ensemble_{router}", "route": "cuda",
+             "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
+             "replaces": ("lisflood_tpu/ops/kinwave_sharded.py:164" if router == "sharded"
+                          else "lisflood_tpu/ops/kinwave.py:80"), "library_ms": None,
+             **{k: v for k, v in fig.items() if k not in ("step_ms", "syncs")},
+             "plain_shape": f"1200x1000 catchment, {ROUTER_MEMBERS} members, one channel "
+                            f"sub-step, float32"})
+    print(f"host synchronisations in one step, by path: {SYNCS}", flush=True)
+    SOIL_COUNTS.update({"main": k8_main, "catchment": k8_catchment})
+    print("K8 lanes that sub-step / the largest count, by path: "
+          + "; ".join(f"{k} {v['multi_lanes']} of {v['lanes']} / {v['largest_no_subs']}"
+                      for k, v in SOIL_COUNTS.items()), flush=True)
     print(f"seconds by phase: {phase_seconds()}", flush=True)
     print(json.dumps(figures))
     print(smi_line())

@@ -44,35 +44,22 @@ class FlowGraph:
     def topo_distance(self):
         """Hop distance to the terminal pit: pits get 1, their upstreams 2, …
         (reference kinematic_wave_parallel.py:92-106)."""
+        levels, rest = hop_levels(self.downstream)
         dist = -np.ones(self.num_pixels, dtype=np.int64)
+        for i, lv in enumerate(levels):
+            dist[lv] = i + 1
         down = self.downstream
-        for p in self.topo_order_down_up():
-            d = down[p]
-            dist[p] = 1 if d < 0 else dist[d] + 1
+        for p in rest:      # pixels that reach no pit, after all the others
+            dist[p] = dist[down[p]] + 1
         return dist
 
     def topo_order_down_up(self):
         """Pixel indices ordered outlets-first (each pixel after its
-        downstream neighbour). Iterative BFS from pits."""
-        down = self.downstream
-        ups_lists = self.upstream_lists()
-        order = np.empty(self.num_pixels, dtype=np.int64)
-        head = 0
-        seen = np.zeros(self.num_pixels, dtype=bool)
-        queue = list(np.flatnonzero(down < 0))
-        while queue:
-            nxt = []
-            for p in queue:
-                order[head] = p
-                head += 1
-                seen[p] = True
-                nxt.extend(ups_lists[p])
-            queue = nxt
-        if head != self.num_pixels:
-            # disconnected missing-ldd cells: append them as pits
-            rest = np.flatnonzero(~seen)
-            order[head:head + rest.size] = rest
-        return order
+        downstream neighbour): the hop levels from the pits, each in
+        ascending index order, then the pixels that reach no pit (a cycle
+        of missing-ldd cells) as if they were pits."""
+        levels, rest = hop_levels(self.downstream)
+        return np.concatenate([np.zeros(0, np.int64), *levels, rest])
 
     def upstream_lists(self):
         """List of immediate upstream pixel indices per pixel."""
@@ -83,13 +70,17 @@ class FlowGraph:
 
     def accuflux(self, material):
         """Accumulated flux: for each pixel the sum of `material` over all
-        upstream pixels incl. itself (PCRaster accuflux)."""
+        upstream pixels incl. itself (PCRaster accuflux), headwaters first:
+        a pixel adds its upstream pixels' totals in descending index order,
+        one hop level at a time (np.add.at adds in the order given)."""
         acc = np.asarray(material, dtype=np.float64).copy()
         down = self.downstream
-        for p in self.topo_order_down_up()[::-1]:   # headwaters first
-            d = down[p]
-            if d >= 0:
-                acc[d] += acc[p]
+        levels, rest = hop_levels(down)
+        for p in rest[::-1]:
+            acc[down[p]] += acc[p]
+        for lv in reversed(levels[1:]):
+            kids = lv[::-1]
+            np.add.at(acc, down[kids], acc[kids])
         return acc
 
     def catchment_labels(self, point_ids=None):
@@ -103,10 +94,11 @@ class FlowGraph:
         else:
             labels[pits] = point_ids[pits]
         down = self.downstream
-        for p in self.topo_order_down_up():
-            d = down[p]
-            if d >= 0:
-                labels[p] = labels[d]
+        levels, rest = hop_levels(down)
+        for lv in levels[1:]:
+            labels[lv] = labels[down[lv]]
+        for p in rest:
+            labels[p] = labels[down[p]]
         return labels
 
     def downstream_value(self, values, pit_value=None):
@@ -208,6 +200,50 @@ class RoutingSchedule:
         return self.chunks.shape[0]
 
 
+def upstream_csr(downstream):
+    """(ptr, src): the upstream pixels of pixel p are src[ptr[p]:ptr[p+1]],
+    ascending (as FlowGraph.upstream_lists orders them)."""
+    down = np.asarray(downstream, np.int64)
+    P = down.size
+    src = np.flatnonzero(down >= 0)
+    tgt = down[src]
+    ptr = np.zeros(P + 1, np.int64)
+    np.cumsum(np.bincount(tgt, minlength=P), out=ptr[1:])
+    return ptr, src[np.argsort(tgt, kind="stable")]
+
+
+def _gather(ptr, src, pixels):
+    """The upstream pixels of `pixels` in order, each pixel's ascending, and
+    for each the index into `pixels` of the pixel it drains into."""
+    lo, n = ptr[pixels], ptr[pixels + 1] - ptr[pixels]
+    idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+    return src[idx], np.repeat(np.arange(pixels.size), n)
+
+
+def hop_levels(downstream):
+    """(levels, rest): the pixels by hop distance to their pit, as a list of
+    ascending index arrays (level 0 the pits, level i the pixels draining
+    into level i-1), and the pixels that reach no pit (a cycle), ascending."""
+    down = np.asarray(downstream, np.int64)
+    ptr, src = upstream_csr(down)
+    frontier = np.flatnonzero(down < 0)
+    levels, seen = [], np.zeros(down.size, bool)
+    while frontier.size:
+        levels.append(frontier)
+        seen[frontier] = True
+        frontier = np.sort(_gather(ptr, src, frontier)[0])
+    return levels, np.flatnonzero(~seen)
+
+
+def graph_levels(downstream):
+    """The hop levels of hop_levels (FlowGraph.topo_distance is i + 1 on
+    level i). Raises ValueError where a pixel reaches no pit (a cycle)."""
+    levels, rest = hop_levels(downstream)
+    if rest.size:
+        raise ValueError(f"{rest.size} pixels drain into a cycle")
+    return levels
+
+
 def build_schedule(graph: FlowGraph, chunk_size=256, order_graph=None) -> RoutingSchedule:
     """Pack pixels into fixed-width chunks in topological (headwater->outlet)
     order such that each pixel's upstream neighbours are in strictly earlier
@@ -219,30 +255,52 @@ def build_schedule(graph: FlowGraph, chunk_size=256, order_graph=None) -> Routin
     table stays `graph`'s. The structure-cut routing graph uses the pre-cut
     channel graph here so lake/reservoir cells land in chunks strictly after
     their upstream feeders, which the routing kernel's structure chains
-    rely on."""
+    rely on.
+
+    The pixels are taken headwaters (largest distance) first, by index
+    within a distance, and a pixel joins the open chunk unless one of its
+    upstream pixels is in it or it is full. A distance's upstream pixels all
+    lie at the distance before, so within a distance only the pixels before
+    the open chunk's first close can meet one, and the chunks after it close
+    on width alone: a distance is a few array passes. A distance with an
+    upstream pixel at the same distance (a cycle) is walked pixel by pixel."""
     P = graph.num_pixels
     og = order_graph if order_graph is not None else graph
     dist = og.topo_distance()
     # iterate headwaters (max dist) -> outlets (dist 1), stable by pixel index
     order = np.lexsort((np.arange(P), -dist))
+    ptr, src = upstream_csr(og.downstream)
+    C = int(chunk_size)
     chunk_of = -np.ones(P, dtype=np.int64)
-    chunks = []
-    current = []
-    ups_lists = og.upstream_lists()
-    # a pixel joins the current chunk unless one of its upstreams is in it
-    for p in order:
-        conflict = any(chunk_of[u] == len(chunks) for u in ups_lists[p])
-        if conflict or len(current) >= chunk_size:
-            chunks.append(current)
-            current = []
-        current.append(int(p))
-        chunk_of[p] = len(chunks)
-    if current:
-        chunks.append(current)
+    nc, cnt = 0, 0          # the open chunk and its pixels
+    for g in np.split(order, np.flatnonzero(np.diff(dist[order])) + 1):
+        if not g.size:
+            continue
+        ups, owner = _gather(ptr, src, g)
+        if (dist[ups] == dist[g[0]]).any():
+            for p in g:
+                conflict = (chunk_of[src[ptr[p]:ptr[p + 1]]] == nc).any()
+                if conflict or cnt >= C:
+                    nc, cnt = nc + 1, 0
+                chunk_of[p] = nc
+                cnt += 1
+            continue
+        conflict = np.zeros(g.size, bool)
+        conflict[owner[chunk_of[ups] == nc]] = True
+        stop = np.flatnonzero(conflict | (cnt + np.arange(g.size) >= C))
+        a = int(stop[0]) if stop.size else g.size
+        chunk_of[g[:a]] = nc
+        cnt += a
+        if a < g.size:
+            n = g.size - a
+            chunk_of[g[a:]] = nc + 1 + np.arange(n) // C
+            nc += 1 + (n - 1) // C
+            cnt = n - (n - 1) // C * C
+    n_chunks = nc + 1 if P else 0
 
-    packed = np.full((len(chunks), chunk_size), P, dtype=np.int32)
-    for i, ch in enumerate(chunks):
-        packed[i, : len(ch)] = ch
+    packed = np.full((n_chunks, chunk_size), P, dtype=np.int32)
+    co = chunk_of[order]
+    packed[co, np.arange(P) - np.searchsorted(co, co)] = order
     downstream = np.full(P + 1, P, dtype=np.int32)
     valid = graph.downstream >= 0
     downstream[:P][valid] = graph.downstream[valid]

@@ -11,9 +11,16 @@ model of M * P pixels (`ensemble_model`), whose member m holds pixels
 offset into its member's range. Its routing schedule interleaves the
 members' chunks, chunk j of member m at position j M + m, so the one
 sub-step kernel launch of a step serves all members, as M independent
-wavefronts whose tickets alternate. The step's code is the single model's;
-the one sum over all pixels, groundwater smoothing's mean correction, is
-taken per member (cfg.members).
+wavefronts whose tickets alternate. With RoutingKernel sharded the single
+model's partition and sharded schedules are replicated, member m's shard s
+being shard m S + s (ops/kinwave_sharded.replicate_sharded_schedule); with
+RoutingKernel scan the natural schedules are replicated as above. Either
+way one launch of K6 a sub-step sweeps the M members' forests, and every
+member's positions keep their single model's order, so its sums (K6's
+sources, K7's pieces) add in the same order and a member equals the single
+step bit for bit. The step's code is the single model's; the one sum over
+all pixels, groundwater smoothing's mean correction, is taken per member
+(cfg.members).
 
 The members share parameters and forcing (a step's forcing is tiled over
 the members, `tile_forcing`) and each has its own state. `EnsembleRunner`
@@ -48,8 +55,9 @@ import numpy as np
 import torch
 
 from ..graph.ldd import RoutingSchedule
+from ..ops.kinwave_sharded import replicate_sharded_schedule
 from .driver import OutputManager, to_host
-from .step import build_step
+from .step import build_step, sharded_schedules
 
 # prognostic fields updated by the EnKF analysis (clamped at 0 after it)
 DEFAULT_ANALYSIS_FIELDS = ("ChanQKin", "ChanM3Kin", "UZ", "LZ", "W1a", "W1b", "W2")
@@ -90,14 +98,11 @@ def ensemble_model(cfg, params, aux, M):
     are tiled along their last axis, index parameters offset into each
     member's range; an integer array of unknown meaning raises ValueError.
     `aux` keeps the single model's forcing entries; the schedules are
-    replicated (replicate_schedule)."""
+    replicated (replicate_schedule), and with RoutingKernel sharded the
+    single model's sharded schedules too (`aux["sharded"]`,
+    replicate_sharded), built from its graphs unless `aux` holds them."""
     if cfg.members != 1:
         raise ValueError("ensemble_model takes a single model")
-    if cfg.routing_kernel != "packed":
-        raise ValueError(
-            f"routing_kernel={cfg.routing_kernel!r}: the folded ensemble replicates the packed "
-            "schedules; folding the sharded and the scan router's schedules is not ported yet "
-            "(ROADMAP.md, Queue 1)")
     P = cfg.num_pixels
     counts = {P, cfg.num_lakes or -1, cfg.num_reservoirs or -1}
     grid = cfg.grid_rows * cfg.grid_cols
@@ -136,7 +141,26 @@ def ensemble_model(cfg, params, aux, M):
              and not k.startswith("graph")}
     aux_e["schedule_kin"] = replicate_schedule(aux["schedule_kin"], M)
     aux_e["schedule_tochan"] = replicate_schedule(aux["schedule_tochan"], M)
+    if cfg.routing_kernel == "sharded":
+        aux_e["sharded"] = replicate_sharded(aux["sharded"] if "sharded" in aux
+                                             else sharded_schedules(cfg, aux), M)
     return cfg_e, out, aux_e
+
+
+def replicate_sharded(sched, M):
+    """The sharded schedules of an M-member ensemble (for build_routers'
+    `aux["sharded"]`) from the single model's (step.sharded_schedules):
+    both graphs' schedules replicated (replicate_sharded_schedule), member
+    m's shard s numbered m S + s, the single model's partition statistics,
+    and in `seconds` the single model's parts and the replication's."""
+    t0 = time.perf_counter()
+    S = int(sched["kin"].n_shards)
+    shard_of = np.asarray(sched["shard_of"], np.int64)
+    out = {key: replicate_sharded_schedule(sched[key], M) for key in ("kin", "tochan")}
+    out["shard_of"] = np.concatenate([shard_of + m * S for m in range(M)]).astype(np.int32)
+    out["partition_stats"] = sched["partition_stats"]
+    out["seconds"] = {**sched["seconds"], "replicate": time.perf_counter() - t0}
+    return out
 
 
 def fold_states(states, chunk):
@@ -234,7 +258,15 @@ class EnsembleRunner:
         PathOut/<m+1>/."""
         t0 = time.perf_counter()
         state = {k: v.cpu().numpy() for k, v in runner.state.items()}
-        ens = cls((runner.config, runner.params_np, state, runner.aux), n_members, seed,
+        aux = runner.aux
+        routers = runner.step.routers
+        if runner.config.routing_kernel == "sharded":
+            # the runner's own partition and schedules, replicated
+            aux = {**aux, "sharded": {"kin": routers["kin"].ps, "tochan": routers["tochan"].ps,
+                                      "shard_of": routers["shard_of"],
+                                      "partition_stats": routers["partition_stats"],
+                                      "seconds": {}}}
+        ens = cls((runner.config, runner.params_np, state, aux), n_members, seed,
                   dtype=runner.dtype, device=runner.device, **kw)
         ens.runner = runner
         # host seconds: the folded model built and perturbed, the days
@@ -360,10 +392,14 @@ class EnsembleRunner:
 
     def _gauge_discharge(self, obs_pixels):
         """(N, n_obs) member discharge at the single model's pixel indices,
-        read from the schedule-packed ChanQ."""
+        read from ChanQ: schedule-packed with the packed router, natural with
+        the sharded and the scan router."""
         natural = (np.arange(self.n)[:, None] * self.pixels + obs_pixels[None]).reshape(-1)
-        pos = self.step.routers["kin"].ps.inv_perm[natural]
-        q = self.state["pk$ChanQ"][torch.as_tensor(pos, device=self.step.device)]
+        if "pk$ChanQ" in self.state:
+            pos = self.step.routers["kin"].ps.inv_perm[natural]
+            q = self.state["pk$ChanQ"][torch.as_tensor(pos, device=self.step.device)]
+        else:
+            q = self.state["ChanQ"][torch.as_tensor(natural, device=self.step.device)]
         return q.double().cpu().numpy().reshape(self.n, -1)
 
     # ------------------------------------------------------------------

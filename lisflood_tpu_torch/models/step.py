@@ -110,34 +110,48 @@ def state_keys(cfg):
     return keys
 
 
+def sharded_schedules(cfg, aux):
+    """The sharded schedules of RoutingKernel sharded: the channel graph
+    `aux["graph_kin"]` partitioned into `cfg.num_shards` shards, and the
+    schedules of it and of the overland graph `aux["graph_tochan"]` (which
+    shares the pixel space) on that partition. Returns a dict with the
+    schedules under "kin" and "tochan", `shard_of`, `partition_stats` and
+    the host seconds of the parts in `seconds`."""
+    t0 = time.perf_counter()
+    shard_of, stats = catchment_partition(aux["graph_kin"], cfg.num_shards)
+    out = {"shard_of": shard_of, "partition_stats": stats,
+           "seconds": {"partition": time.perf_counter() - t0}}
+    for key, graph in (("kin", "graph_kin"), ("tochan", "graph_tochan")):
+        t0 = time.perf_counter()
+        out[key] = build_sharded_schedule(aux[graph], shard_of)
+        out["seconds"][f"schedule_{key}"] = time.perf_counter() - t0
+    return out
+
+
 def build_routers(cfg, aux, device):
     """Kinematic-wave routers for the channel and the overland (to-channel)
     graphs, as `cfg.routing_kernel` selects: 'packed' reads the schedules
     (`aux["schedule_kin"]`, `["schedule_tochan"]`, the port's or the JAX
     package's, by their `chunks`, `downstream` and `num_pixels` fields);
-    'sharded' partitions the channel graph `aux["graph_kin"]` into
-    `cfg.num_shards` shards and builds both routers on that partition (the
-    overland graph `aux["graph_tochan"]` shares the pixel space), and also
-    returns `shard_of` and `partition_stats`, as the JAX package does, and
-    the host seconds of its parts in `seconds` (partition, then each graph's
+    'sharded' builds both routers on the schedules of `sharded_schedules`,
+    or on `aux["sharded"]` where it holds them (a folded ensemble's, the
+    single model's replicated, models/ensemble.py), and also returns
+    `shard_of` and `partition_stats`, as the JAX package does, and the host
+    seconds of its parts in `seconds` (partition, then each graph's
     schedule and router, the router's with K6's tile tables where it
     sweeps); 'scan' builds ScanRouters of both schedules, which route in
     natural order with K6 on each graph's own tables (built here, their host
     seconds, with the router's, in `seconds`)."""
     if cfg.routing_kernel == "sharded":
-        t0 = time.perf_counter()
-        shard_of, stats = catchment_partition(aux["graph_kin"], cfg.num_shards)
-        seconds = {"partition": time.perf_counter() - t0}
-        out = {"shard_of": shard_of, "partition_stats": stats, "seconds": seconds}
-        for key, graph in (("kin", "graph_kin"), ("tochan", "graph_tochan")):
+        sched = aux["sharded"] if "sharded" in aux else sharded_schedules(cfg, aux)
+        out = {"shard_of": sched["shard_of"], "partition_stats": sched["partition_stats"],
+               "seconds": dict(sched["seconds"])}
+        for key in ("kin", "tochan"):
             t0 = time.perf_counter()
-            ps = build_sharded_schedule(aux[graph], shard_of)
-            seconds[f"schedule_{key}"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            out[key] = ShardedRouter(ps, device=device)
+            out[key] = ShardedRouter(sched[key], device=device)
             if not out[key].no_edges:
                 out[key].sweep_tiles()
-            seconds[f"router_{key}"] = time.perf_counter() - t0
+            out["seconds"][f"router_{key}"] = time.perf_counter() - t0
         return out
     if cfg.routing_kernel == "scan":
         out = {"seconds": {}}
@@ -401,8 +415,12 @@ class Step:
         d["EWRef"] = f["EWRef"] * cfg.dt_day * p["CalEvaporation"]
         d["ESRef"] = (d["EWRef"] + d["ETRef"]) / 2
 
-        # LAI selection (leafarea.py:76-90)
-        d["LAI"] = p["LAIX"][f["LAIInterval"]]
+        # LAI selection (leafarea.py:76-90); a tensor index goes through
+        # index_select, which reads nothing back on the host (indexing with a
+        # 0-d device tensor does)
+        lai_i = f["LAIInterval"]
+        d["LAI"] = (p["LAIX"].index_select(0, lai_i.reshape(1)).squeeze(0)
+                    if torch.is_tensor(lai_i) else p["LAIX"][lai_i])
 
         # inflow hydrographs (inflow.py:98-127)
         if cfg.inflow:

@@ -21,7 +21,8 @@ CSRC = _PKG / "csrc"
 SOURCES = {"kinwave_substep": CSRC / "kinwave_substep.cu",
            "kinwave_sweep": CSRC / "kinwave_sweep.cu",
            "kinwave_sharded": CSRC / "kinwave_sharded.cu",
-           "segment_sum": CSRC / "segment_sum.cu"}
+           "segment_sum": CSRC / "segment_sum.cu",
+           "soil_tail": CSRC / "soil_tail.cu"}
 BUILD_DIR = _PKG / "_build"
 # -fmad=false: every operation rounds on its own, as the plain PyTorch
 # versions' separate elementwise operations do

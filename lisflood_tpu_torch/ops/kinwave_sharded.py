@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel.partition import graph_levels
+from ..graph.ldd import graph_levels
 from .kinwave_packed import (SWEEP_THREADS, PackedRouter, PackedSchedule, SweepTiles,
                              newton_solve, sweep_fit)
 from .wavefront import SWEEP_CAP, sweep_tiles, upstream_table
@@ -169,6 +169,41 @@ def build_sharded_schedule(graph, shard_of, chunk_size=256) -> ShardedSchedule:
                            down_pos=down_pos, cut_src=cut_src, cut_dst=cut_dst,
                            n_chunks=n_chunks, n_shards=S, chunk=C, window=W,
                            num_pixels=P)
+
+
+def replicate_sharded_schedule(ps, M):
+    """The sharded schedule of M copies of `ps`'s graph, copy m on pixels
+    [m P, (m+1) P) (models/ensemble.py): shard s of copy m is shard m S + s,
+    with the single schedule's chunks, lanes and window, so copy m holds the
+    positions [m p_pad, (m+1) p_pad) in the single schedule's order. Every
+    edge stays within its copy and keeps its chunks; a chunk's cut edges are
+    listed copy by copy, each copy's in its own order (ascending pixel, as
+    build_sharded_schedule lists them). The copies are not partitioned anew:
+    catchment_partition packs by size, and M copies would get other shards,
+    other positions and other cut edges than the single model's."""
+    P, S, C, W = ps.num_pixels, ps.n_shards, ps.chunk, ps.window
+    p_pad = ps.p_pad
+    m = np.arange(M, dtype=np.int64)[:, None]
+    perm = np.where(ps.perm[None] < P, ps.perm[None] + m * P, M * P).reshape(-1)
+    inv_perm = (np.asarray(ps.inv_perm, np.int64)[None] + m * p_pad).reshape(-1)
+    down = ps.down_pos.astype(np.int64)[None]
+    down_pos = np.where(down < p_pad, down + m * p_pad, M * p_pad).reshape(-1).astype(np.int32)
+    # cut edges (n_chunks, K) of each copy, offset into its shards, then
+    # the valid ones of a chunk first, in copy order
+    src = ps.cut_src.astype(np.int64)[:, None]                       # (n, 1, K)
+    valid = np.broadcast_to(src < S * C, (ps.n_chunks, M, src.shape[2]))
+    off = np.arange(M, dtype=np.int64)[None, :, None]
+    cut_src = np.where(valid, src + off * S * C, M * S * C).reshape(ps.n_chunks, -1)
+    cut_dst = np.where(valid, ps.cut_dst.astype(np.int64)[:, None] + off * S * W * C,
+                       0).reshape(ps.n_chunks, -1)
+    order = np.argsort(~valid.reshape(ps.n_chunks, -1), axis=1, kind="stable")
+    K = max(int(valid.sum(axis=(1, 2)).max(initial=0)), 1)
+    cut_src = np.take_along_axis(cut_src, order, 1)[:, :K].astype(np.int32)
+    cut_dst = np.take_along_axis(cut_dst, order, 1)[:, :K].astype(np.int32)
+    return ShardedSchedule(perm=perm, inv_perm=inv_perm,
+                           down_local=np.tile(ps.down_local, (1, M, 1)), down_pos=down_pos,
+                           cut_src=cut_src, cut_dst=cut_dst, n_chunks=ps.n_chunks,
+                           n_shards=M * S, chunk=C, window=W, num_pixels=M * P)
 
 
 def upstream_positions(ps):

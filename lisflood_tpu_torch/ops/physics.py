@@ -13,6 +13,9 @@ import torch
 # segment_spread(values, order) and scatter_to_downstream(values, order) take
 # the step's SegmentOrder of the segment array (models/step.segment_orders)
 from .segment_sum import scatter_to_downstream, segment_spread  # noqa: F401
+# the soil's Courant tail (ops/soil_tail.py, K8 on the card)
+from .soil_tail import soil_tail
+from .soil_tail import unsat_conductivity as _unsat_conductivity
 
 # ---------------------------------------------------------------------------
 # snow (snow.py:95-188)
@@ -178,17 +181,6 @@ def canopy_step(cfg, p, s, d):
 # soil column water balance (soilloop.py:78-356)
 
 
-def _unsat_conductivity(w, psnz, wres, ws, ksat, inv_m, m):
-    sat = torch.where(psnz, torch.clamp((w - wres) / torch.where(psnz, ws - wres, 1.0), 0.0, 1.0), 0.0)
-    return ksat * torch.sqrt(sat) * (1 - (1 - sat ** inv_m) ** m) ** 2
-
-
-_SOIL_KEYS = ("WRes1a", "WRes1b", "WRes2", "WS1a", "WS1b", "WS2",
-              "KSat1a", "KSat1b", "KSat2", "GenuInvM1a", "GenuInvM1b",
-              "GenuInvM2", "GenuM1a", "GenuM1b", "GenuM2",
-              "PoreSpaceNotZero1a", "PoreSpaceNotZero1b", "PoreSpaceNotZero2")
-
-
 def soil_columns_step(cfg, p, s, d):
     dt_day = cfg.dt_day
     rain_plus_melt = d["Rain"] + d["SnowMelt"]
@@ -227,10 +219,9 @@ def soil_columns_step(cfg, p, s, d):
     w1b = w1b + torch.clamp_min(test_w1a - p["WS1a"], 0.0)
 
     # Darcy inter-layer seepage with per-pixel Courant sub-steps
-    # (soilloop.py:213-321): sub-step 0 for the whole grid, then the lanes
-    # that need more sub-steps are compacted with nonzero and iterate on
-    # their own, masked per lane in the reference's update order (the JAX
-    # package's top_k compaction and overflow fallback are TPU devices)
+    # (soilloop.py:213-321): sub-step 0 for the whole grid here, then
+    # sub-steps 1..no_subs-1 of every lane in ops/soil_tail.py (K8 on the
+    # card, one thread a lane; its plain version on the CPU)
     k1a0 = _unsat_conductivity(w1a, p["PoreSpaceNotZero1a"], p["WRes1a"], p["WS1a"], p["KSat1a"], p["GenuInvM1a"], p["GenuM1a"])
     k1b0 = _unsat_conductivity(w1b, p["PoreSpaceNotZero1b"], p["WRes1b"], p["WS1b"], p["KSat1b"], p["GenuInvM1b"], p["GenuM1b"])
     k20 = _unsat_conductivity(w2, p["PoreSpaceNotZero2"], p["WRes2"], p["WS2"], p["KSat2"], p["GenuInvM2"], p["GenuM2"])
@@ -243,7 +234,8 @@ def soil_columns_step(cfg, p, s, d):
     courant = torch.maximum(torch.maximum(courant_a, courant_b), courant_2)
     no_subs_raw = torch.clamp_min(torch.ceil(courant / p["CourantCrit"]), 1).to(torch.int32)
     no_subs = torch.clamp_max(no_subs_raw, cfg.max_soil_substeps)
-    # the safety cap truncates the physics when it binds
+    # the safety cap truncates the physics when it binds (a device flag,
+    # read by the driver once per chunk of days)
     cap_hit = (no_subs_raw > cfg.max_soil_substeps).any()
     dt_sub = dt_day / no_subs.to(courant.dtype)
     cap1 = p["WS1b"] - w1b
@@ -256,33 +248,8 @@ def soil_columns_step(cfg, p, s, d):
     aw1a_1 = aw1a - seep_a
     aw1b_1 = aw1b + seep_a - seep_b
     aw2_1 = aw2 + seep_b - seep_gw
-
-    shape = no_subs.shape
-    idx = torch.nonzero((no_subs > 1).reshape(-1)).squeeze(1)
-    if idx.numel():
-        g = lambda x: torch.broadcast_to(x, shape).reshape(-1)[idx]
-        q = {k: g(p[k]) for k in _SOIL_KEYS}
-        ns_t, dtsub_t = g(no_subs), g(dt_sub)
-        a1a, a1b, a2 = g(aw1a_1), g(aw1b_1), g(aw2_1)
-        sa, sb, sgw = g(seep_a), g(seep_b), g(seep_gw)
-        # sub-steps 1..no_subs-1; caps recomputed from current storage each
-        # sub-step, which equals the explicit cap carry of soilloop.py
-        for i in range(1, int(ns_t.max())):
-            active = i < ns_t
-            wt1a = a1a + q["WRes1a"]
-            wt1b = a1b + q["WRes1b"]
-            wt2 = a2 + q["WRes2"]
-            k1a = _unsat_conductivity(wt1a, q["PoreSpaceNotZero1a"], q["WRes1a"], q["WS1a"], q["KSat1a"], q["GenuInvM1a"], q["GenuM1a"])
-            k1b = _unsat_conductivity(wt1b, q["PoreSpaceNotZero1b"], q["WRes1b"], q["WS1b"], q["KSat1b"], q["GenuInvM1b"], q["GenuM1b"])
-            k2 = _unsat_conductivity(wt2, q["PoreSpaceNotZero2"], q["WRes2"], q["WS2"], q["KSat2"], q["GenuInvM2"], q["GenuM2"])
-            s_a = torch.minimum(k1a * dtsub_t, q["WS1b"] - wt1b)
-            s_b = torch.minimum(k1b * dtsub_t, q["WS2"] - wt2)
-            s_g = torch.minimum(k2 * dtsub_t, a2)
-            sel = lambda n, o: torch.where(active, n, o)
-            a1a, a1b, a2 = sel(a1a - s_a, a1a), sel(a1b + s_a - s_b, a1b), sel(a2 + s_b - s_g, a2)
-            sa, sb, sgw = sel(sa + s_a, sa), sel(sb + s_b, sb), sel(sgw + s_g, sgw)
-        scat = lambda full, comp: full.reshape(-1).index_copy(0, idx, comp).reshape(shape)
-        seep_a, seep_b, seep_gw = scat(seep_a, sa), scat(seep_b, sb), scat(seep_gw, sgw)
+    seep_a, seep_b, seep_gw = soil_tail((aw1a_1, aw1b_1, aw2_1), (seep_a, seep_b, seep_gw),
+                                        no_subs, dt_sub, p)
 
     seep_a = torch.where(frozen, 0.0, seep_a)
     seep_b = torch.where(frozen, 0.0, seep_b)

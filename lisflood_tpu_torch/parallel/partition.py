@@ -26,37 +26,7 @@ import heapq
 
 import numpy as np
 
-
-def upstream_csr(downstream):
-    """(ptr, src): the upstream pixels of pixel p are src[ptr[p]:ptr[p+1]],
-    ascending (as FlowGraph.upstream_lists orders them)."""
-    down = np.asarray(downstream, np.int64)
-    P = down.size
-    src = np.flatnonzero(down >= 0)
-    tgt = down[src]
-    ptr = np.zeros(P + 1, np.int64)
-    np.cumsum(np.bincount(tgt, minlength=P), out=ptr[1:])
-    return ptr, src[np.argsort(tgt, kind="stable")]
-
-
-def graph_levels(downstream):
-    """The pixels by hop distance to their pit, as a list of ascending index
-    arrays: level 0 the pits, level i the pixels draining into level i-1
-    (FlowGraph.topo_distance is i + 1). Raises ValueError where a pixel
-    reaches no pit (a cycle)."""
-    down = np.asarray(downstream, np.int64)
-    ptr, src = upstream_csr(down)
-    frontier = np.flatnonzero(down < 0)
-    levels, seen = [], 0
-    while frontier.size:
-        levels.append(frontier)
-        seen += frontier.size
-        lo, n = ptr[frontier], ptr[frontier + 1] - ptr[frontier]
-        idx = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
-        frontier = np.sort(src[idx])
-    if seen != down.size:
-        raise ValueError(f"{down.size - seen} pixels drain into a cycle")
-    return levels
+from ..graph.ldd import graph_levels, upstream_csr
 
 
 def subtree_pixels(graph, root):

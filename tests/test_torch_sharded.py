@@ -192,7 +192,9 @@ def test_config_keeps_num_shards_and_refuses_scan(catchment):
     RoutingShards for the sharded kernel (4 by default) and 1 otherwise;
     RoutingKernel scan builds (since the scan router was ported) and a
     router name that no package has is refused when the step is built; the
-    folded ensemble refuses the sharded and the scan router."""
+    folded ensemble takes the sharded router (the single model's 2 shards
+    replicated, 2 per member) and the scan router (natural schedules
+    replicated)."""
     assert config_from_reference(JaxConfig(routing_kernel="sharded", num_shards=8)).num_shards == 8
     assert ModelConfig.from_settings(load_settings(catchment)).num_shards == 1
     sharded = load_settings(catchment, vars_to_set={"RoutingKernel": "sharded"})
@@ -206,9 +208,12 @@ def test_config_keeps_num_shards_and_refuses_scan(catchment):
     with pytest.raises(ValueError, match="routing_kernel"):
         build_step(dataclasses.replace(cfg, routing_kernel="lockstep"), params, aux, device="cpu")
     for kernel in ("sharded", "scan"):
-        with pytest.raises(ValueError, match=kernel):
-            ensemble_model(dataclasses.replace(cfg, routing_kernel=kernel, num_shards=2),
-                           params, aux, 2)
+        cfg_e, _, aux_e = ensemble_model(dataclasses.replace(cfg, routing_kernel=kernel,
+                                                             num_shards=2), params, aux, 2)
+        assert cfg_e.members == 2 and cfg_e.num_pixels == 2 * cfg.num_pixels
+        assert ("sharded" in aux_e) == (kernel == "sharded")
+        if kernel == "sharded":
+            assert aux_e["sharded"]["kin"].n_shards == 4
 
 
 def test_from_reference_carries_the_graphs():

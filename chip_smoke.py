@@ -42,11 +42,13 @@ script exits non-zero:
      time (one run, ~100 s) and the kernel held to it (float32, within 1e-5
      of each output's max); K8, the soil Courant tail (csrc/soil_tail.cu),
      on the land phase's operands against its plain version
-     (soil_tail_reference, within 1e-5 of each sum's max, whether bitwise
-     printed, the same bits in two runs), its lanes that sub-step, the
-     largest count, its time, bound and the plain version's time; the same
-     forced wet (KSat scaled up until the largest count reaches
-     max_soil_substeps and SoilCourantCapHit is set);
+     (soil_tail_reference, within 1e-5 of each sum's max, bitwise equal in
+     float32, the same bits in two runs), its lanes that sub-step, the
+     largest count, its time (printed beside the time recorded before the
+     redesign, PREVIOUS_MS), bound, chain floor (the lane with the largest count
+     launched alone, its sums the same bits as in the whole launch) and the
+     plain version's time; the same forced wet (KSat scaled up until the
+     largest count reaches max_soil_substeps and SoilCourantCapHit is set);
   5. the all-options path: the continental model with every option of
      with_options on (water use, rice, inflow, transmission loss, polders,
      water levels, pF, mass-balance reports) through build_multi_step, timed
@@ -159,10 +161,15 @@ script exits non-zero:
  12. K7, the fixed-order segment sum (csrc/segment_sum.cu), on phase 8's
      catchment's Catchments, the sharded loop's kinp$Catchments, the
      water-use regions write_catchment writes (west and east halves) and
-     downEva: segments, members, the largest segment, bitwise equal to its
-     plain version in two runs, its time, its bound by bytes, and the time
-     of index_add_ with the gather, atomic and under
-     torch.use_deterministic_algorithms (phase 5 does the same on the
+     downEva: segments, members, the largest segment, the kernel's warp
+     items and segments of several pieces, bitwise equal to its plain
+     version in two runs and through a second order of the same segments
+     built apart, called between calls of the first (its own tickets and
+     scratch), the kernels a call launches (one, two for a spread over a
+     segment of several pieces), its time (printed beside the time recorded
+     before the redesign, PREVIOUS_MS), its bound by bytes, and the time of index_add_
+     with the gather, atomic and under torch.use_deterministic_algorithms
+     (phase 5 does the same on the
      continental all-options grid's Catchments, WUseRegionC, downstruct and
      downEva, and counts K7's calls a step).
  13. the folded ensemble (models/ensemble.py) of ROUTER_MEMBERS = 4 members
@@ -194,6 +201,8 @@ with no deterministic mode of PyTorch on.
 Run as `python3 chip_smoke.py --side-flag-ab` it only times the main path's
 kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
+Run as `python3 chip_smoke.py --k7-k8` (~1 min) it only builds K7 and K8 and
+checks and times them at the continental grid's shapes (k7_k8_check).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
 scan router's natural tables, segment_sum, soil_tail and K6 on the two
@@ -270,6 +279,18 @@ FLOPS_SOIL_SUBSTEP = (3 + 3 * 11 + 3 + 2 + 3 + 5 + 3, 3 * 2)     # (plain, pow)
 # three storages, the three sums and 15 parameters read (22 values), the three
 # sums written (3 values), and its three masks (1 byte each)
 SOIL_VALUES, SOIL_MASK_BYTES = 22 + 3, 3
+# K8's and K7's times a launch and a call before their redesign (ms), as
+# recorded by this script's run from a git archive of the tree of their first
+# port, on an NVIDIA H100 80GB HBM3 at 700.00 W, by operand set: printed
+# beside this run's times, labelled as recorded, and kept out of the kernels
+# line, which holds only what this run measured
+PREVIOUS_MS = {
+    "soil_tail": {"main": 0.3336, "forced wet": 2.3226, "catchment": 0.0300,
+                  "float64": 0.3097, "float64 forced wet": 1.1369},
+    "segment_sum": {"Catchments": 0.0279, "WUseRegionC": 0.0179, "downstruct": 0.0161,
+                    "downEva": 0.0156, "catchment Catchments": 0.0274,
+                    "catchment kinp$Catchments": 0.0503, "catchment WUseRegionC": 0.0225,
+                    "catchment downEva": 0.0076}}
 
 
 def smi_line():
@@ -514,9 +535,11 @@ def phase_mid(torch, ks, card):
     # K8 in float64 at 240x200: the land phase's operands, and forced wet
     step, s, f, _, _ = kernel_inputs(model, "cuda", torch.float64)
     ops8, _ = soil_tail_operands(torch, step, s, f)
+    was = PREVIOUS_MS["soil_tail"]
     figures["soil_tail_float64"] = soil_tail_figures(torch, card, ops8, 1e-12,
-                                                     "240x200, float64")
-    figures["soil_tail_float64_wet"] = forced_wet_figures(torch, card, step, s, f, 1e-12)
+                                                     "240x200, float64", was["float64"])
+    figures["soil_tail_float64_wet"] = forced_wet_figures(torch, card, step, s, f, 1e-12,
+                                                          was["float64 forced wet"])
     del step, s, f, ops8
     # more blocks than the card holds at once: the launcher refuses
     try:
@@ -1036,7 +1059,8 @@ def phase_catchment(torch, ks, card, root):
     SYNCS["catchment"] = sync_count(torch, multi.step, s, forcing[0], "catchment")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "catchment")
     ops8, _ = soil_tail_operands(torch, multi.step, s, forcing[0])
-    k8 = {**soil_tail_figures(torch, card, ops8, 1e-5, "1200x1000 catchment, float32"),
+    k8 = {**soil_tail_figures(torch, card, ops8, 1e-5, "1200x1000 catchment, float32",
+                              PREVIOUS_MS["soil_tail"]["catchment"]),
           "launches": launches["soil_tail"]}
     del ops8
 
@@ -2094,14 +2118,17 @@ def phase_segment_sums(torch, card, ctx, position_catchments):
     cols = np.asarray(params["landIdx"], np.int64) % cfg.grid_cols
     regions = (cols >= cfg.grid_cols // 2).astype(np.int64)
     print(f"  {ctx['sums_per_step']:g} calls of K7 a step on phase 8's path", flush=True)
+    was = lambda name: PREVIOUS_MS["segment_sum"]["catchment " + name]
     return {
         "Catchments": k7_figures(torch, card, "the catchment's Catchments", params["Catchments"],
-                                 cfg.num_catchments),
+                                 cfg.num_catchments, previous=was("Catchments")),
         "kinp$Catchments": k7_figures(torch, card, "the sharded loop's kinp$Catchments",
-                                      position_catchments, cfg.num_catchments + 1),
-        "WUseRegionC": k7_figures(torch, card, "WUseRegionC (west and east halves)", regions, 2),
+                                      position_catchments, cfg.num_catchments + 1,
+                                      previous=was("kinp$Catchments")),
+        "WUseRegionC": k7_figures(torch, card, "WUseRegionC (west and east halves)", regions, 2,
+                                  previous=was("WUseRegionC")),
         "downEva": k7_figures(torch, card, "the catchment's downEva", params["downEva"], P + 1,
-                              count=P)}
+                              count=P, previous=was("downEva"))}
 
 
 # steps of each path that repeat_bitwise runs twice
@@ -2141,17 +2168,27 @@ def repeat_bitwise(torch, step, state, forcing, what, n=REPEAT_STEPS):
     assert not differ, differ
 
 
-def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0):
+# K7's figures of each segment set in the kernels line
+K7_KEYS = ("ms", "kernels_per_call", "bound_ms", "library_ms", "segments",
+           "largest")
+
+
+def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0, previous=None):
     """K7 (csrc/segment_sum.cu) on the segment array `seg` (n segments; the
     totals of those below `count`, or spread back to the members where
     every segment is summed) with float32 values drawn from `seed`, through
     the order `order` (built here on the card if None): its segments,
-    members, largest segment and pieces; the same bits in two runs and
-    against its plain version (segment_sum.segment_sum) on the card; its time
-    (CUDA events, mean of N_REP), its bound by bytes (the values and the
-    permutation read, the totals and the spread written, at PEAK_BYTES) and
-    the library time of index_add_ plus the gather, atomic and under
-    torch.use_deterministic_algorithms. Returns the figures."""
+    members, largest segment, pieces and the kernel's warp items; the same
+    bits in two runs, through a second order of the same segments built
+    apart (its own tables, tickets and scratch) between calls of the first,
+    and against its plain version (segment_sum.segment_sum) on the card; the
+    kernels a call launches (one, two for a spread over a segment of more
+    than one piece); its time (CUDA events, mean of N_REP) beside
+    `previous`, the time recorded before K7's redesign (printed, not
+    returned), its bound by bytes (the
+    values and the permutation read, the totals and the spread written, at
+    PEAK_BYTES) and the library time of index_add_ plus the gather, atomic
+    and under torch.use_deterministic_algorithms. Returns the figures."""
     import numpy as np
     from lisflood_tpu_torch.ops import segment_sum as ss
     seg = np.asarray(seg, np.int64)
@@ -2161,6 +2198,9 @@ def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0):
     rng = np.random.default_rng(seed)
     v = torch.as_tensor(rng.lognormal(0, 2, order.size).astype(np.float32), device="cuda")
     a, b = fn(v, order), fn(v, order)
+    kernels = ss.segment_total.last_kernels
+    other = ss.SegmentOrder.build(seg, order.num_segments, order.count, "cuda")
+    apart = [fn(v, other), fn(v, order), fn(v, other)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = ss.segment_sum(v, order)
@@ -2168,6 +2208,7 @@ def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     twice, bitwise = tensor_bits_equal(torch, a, b), tensor_bits_equal(torch, a, plain)
+    orders = all(tensor_bits_equal(torch, a, x) for x in apart)
     ms = cuda_ms(torch, lambda: fn(v, order), N_REP)
     seg_t = torch.as_tensor(seg, device="cuda")
 
@@ -2185,20 +2226,26 @@ def k7_figures(torch, card, what, seg, n, count=None, order=None, seed=0):
     bound_ms = nbytes / PEAK_BYTES * 1e3
     adds_ms = order.perm.numel() / PEAK_FLOPS["float32"] * 1e3
     st = order.stats
+    want = 2 if spread and order.n_multi_items else 1
+    was = "" if previous is None else f" (recorded before the redesign: {previous:.4f} ms)"
     print(f"  K7 on {what}: {st['segments']} segments, {st['members']} members, the largest "
-          f"{st['largest']}, {st['pieces']} pieces ({st['large_pieces']} of more than "
-          f"{ss.SMALL}), order built in {order.stats['seconds']:.2f} s on the host; "
-          f"{'spread' if spread else 'totals'}: the same bits in two runs: {twice}, bitwise equal "
-          f"to the plain version: {bitwise}; K7 {ms:.4f} ms a call (mean of {N_REP}), bound "
+          f"{st['largest']}, {st['pieces']} pieces, {st['warp_items']} warp items, "
+          f"{st['multi_segments']} segments of several pieces, order built in "
+          f"{order.stats['seconds']:.2f} s on the host; {'spread' if spread else 'totals'}: "
+          f"{kernels} kernel launches a call; the same bits in two runs: {twice}, through a "
+          f"second order between calls of the first: {orders}, bitwise equal to the plain "
+          f"version: {bitwise}; K7 {ms:.4f} ms a call (mean of {N_REP}){was}, bound "
           f"{bound_ms:.4f} ms (bytes: {nbytes / 1e6:.1f} MB; {order.perm.numel()} adds "
           f"{adds_ms:.5f} ms); index_add_ and gather {lib_ms:.4f} ms atomic, {lib_det_ms:.4f} ms "
           f"deterministic (rel diff {lib_rel:.2e}); plain version {plain_ms:.1f} ms; card {card}",
           flush=True)
-    assert twice and bitwise, (twice, bitwise)
-    return {"ms": ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-            "library_deterministic_ms": lib_det_ms, "plain_ms": plain_ms,
-            "max_abs_err": float((a - plain).abs().max()), "segments": st["segments"],
-            "largest": st["largest"], "order_build_s": st["seconds"]}
+    assert twice and bitwise and orders, (twice, bitwise, orders)
+    assert kernels == want, (kernels, want)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "library_deterministic_ms": lib_det_ms, "plain_ms": plain_ms,
+            "max_abs_err": float((a - plain).abs().max()), "kernels_per_call": kernels,
+            "segments": st["segments"], "largest": st["largest"],
+            "order_build_s": st["seconds"]}
 
 
 def soil_tail_operands(torch, step, s, f, p=None):
@@ -2242,13 +2289,17 @@ def soil_tail_bound(ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def soil_tail_figures(torch, card, ops, tol, what):
+def soil_tail_figures(torch, card, ops, tol, what, previous=None):
     """K8 (csrc/soil_tail.cu) on the operands `ops` (soil_tail_operands)
     against its plain version (soil_tail_reference) on the card: within
-    `tol` of each sum's max, whether bitwise equal (printed), the same bits
-    in two runs; the lanes that sub-step, the largest count and the lane
-    sub-steps; its time (CUDA events, mean of N_REP), the plain version's
-    (one run) and its bound. Returns the figures."""
+    `tol` of each sum's max and, in float32, bitwise equal (float64 may
+    differ in the last bit of CUDA's double pow), the same bits in two runs;
+    the lanes that sub-step, the largest count and the lane sub-steps; its
+    time (CUDA events, mean of N_REP) beside `previous`, the time recorded
+    before K8's redesign (printed, not returned); the chain floor, the lane with the largest
+    count launched alone (its sums the same bits as in the whole launch);
+    the plain version's time (one run) and its bound. Returns the
+    figures."""
     from lisflood_tpu_torch.ops import soil_tail as st
     aw, seep, no_subs, dt_sub, q = ops
     names = ("seep_a", "seep_b", "seep_gw")
@@ -2266,15 +2317,29 @@ def soil_tail_figures(torch, card, ops, tol, what):
     bound_ms, bound_by = soil_tail_bound(ops)
     multi, largest = int((no_subs > 1).sum()), int(no_subs.max())
     differ = sum(int((a[i] != ref[i]).sum()) for i in a)
+    # the chain floor: the lane with the largest count, launched alone
+    lane = int(no_subs.reshape(-1).argmax())
+    one = lambda x: x.expand(no_subs.shape).reshape(-1)[lane:lane + 1].clone()
+    aw1, no1, dt1 = tuple(one(x) for x in aw), one(no_subs), one(dt_sub)
+    q1 = {k: one(v) for k, v in q.items()}
+    alone = st.soil_tail(aw1, tuple(one(x) for x in seep), no1, dt1, q1)
+    same_alone = all(tensor_bits_equal(torch, x, one(a[k])) for x, k in zip(alone, names))
+    scratch1 = tuple(one(x) for x in seep)
+    floor_ms = cuda_ms(torch, lambda: st.soil_tail(aw1, scratch1, no1, dt1, q1), N_REP)
+    was = "" if previous is None else f" (recorded before the redesign: {previous:.4f} ms)"
     print(f"  K8 ({what}): {multi} of {no_subs.numel()} lanes sub-step, the largest count "
           f"{largest}; K8 vs plain max rel err {rel:.3e} of each sum's max (tol {tol:g}), max abs "
           f"{absd:.3e}, bitwise equal: {bitwise} ({differ} values differ); the same bits in two "
-          f"runs: {twice}; K8 {ms:.4f} ms a launch (mean of {N_REP}), bound {bound_ms:.5f} ms "
-          f"({bound_by}), plain version {plain_ms:.1f} ms (one run); card {card}", flush=True)
-    assert rel <= tol and twice, (rel, twice)
-    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
-            "max_abs_err": absd, "bitwise": bitwise, "multi_lanes": multi,
-            "largest_no_subs": largest, "lanes": no_subs.numel()}
+          f"runs: {twice}; K8 {ms:.4f} ms a launch (mean of {N_REP}){was}, bound "
+          f"{bound_ms:.5f} ms ({bound_by}), chain floor {floor_ms:.4f} ms (the lane of count "
+          f"{largest} alone, its sums the same bits as in the whole launch: {same_alone}), "
+          f"plain version {plain_ms:.1f} ms (one run); card {card}", flush=True)
+    assert rel <= tol and twice and same_alone, (rel, twice, same_alone)
+    assert bitwise or dt_sub.dtype != torch.float32, f"float32 K8 differs in {differ} values"
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_floor_ms": floor_ms, "plain_ms": plain_ms, "max_abs_err": absd,
+            "bitwise": bitwise, "multi_lanes": multi, "largest_no_subs": largest,
+            "lanes": no_subs.numel()}
 
 
 def soil_tail_counts(torch, step, s, f, what):
@@ -2288,11 +2353,11 @@ def soil_tail_counts(torch, step, s, f, what):
     return {"multi_lanes": multi, "largest_no_subs": largest, "lanes": no_subs.numel()}
 
 
-def forced_wet_figures(torch, card, step, s, f, tol):
-    """K8 where the soil's Courant cap binds: the land phase of `step` with
-    KSat1a, KSat1b and KSat2 scaled up by 10 at a time until the largest
-    count reaches cfg.max_soil_substeps, SoilCourantCapHit set; K8 held to
-    its plain version on those operands (soil_tail_figures)."""
+def forced_wet_operands(torch, step, s, f):
+    """The soil tail's operands where the soil's Courant cap binds: the land
+    phase of `step` with KSat1a, KSat1b and KSat2 scaled up by 10 at a time
+    until the largest count reaches cfg.max_soil_substeps,
+    SoilCourantCapHit set. Returns them and the scale."""
     cap = step.cfg.max_soil_substeps
     scale = 1.0
     while True:
@@ -2307,7 +2372,14 @@ def forced_wet_figures(torch, card, step, s, f, tol):
     print(f"  forced wet: KSat x {scale:g}, the largest count {int(ops[2].max())} (the cap "
           f"{cap}), SoilCourantCapHit {hit}", flush=True)
     assert int(ops[2].max()) == cap and hit
-    return soil_tail_figures(torch, card, ops, tol, f"forced wet, KSat x {scale:g}")
+    return ops, scale
+
+
+def forced_wet_figures(torch, card, step, s, f, tol, previous=None):
+    """K8 where the soil's Courant cap binds (forced_wet_operands), held to
+    its plain version on those operands (soil_tail_figures)."""
+    ops, scale = forced_wet_operands(torch, step, s, f)
+    return soil_tail_figures(torch, card, ops, tol, f"forced wet, KSat x {scale:g}", previous)
 
 
 def sync_count(torch, step, s, f, what):
@@ -2437,6 +2509,45 @@ def side_flag_ab(torch):
     return 0
 
 
+def k7_k8_check(torch):
+    """K8 and K7 alone, built from the checkout, at the continental grid's
+    shapes (the main-path model, 3 steps in): K8 held to its plain version
+    on the main path's and the forced-wet operands (soil_tail_figures), K7
+    on the grid's Catchments, downstruct and downEva (k7_figures)."""
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.step import build_multi_step
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+    from lisflood_tpu_torch.ops import _build
+    card = smi_line()
+    print(f"K7 and K8 alone; card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    secs = _build.build(["soil_tail", "segment_sum"])
+    print(f"  built soil_tail and segment_sum in {secs:.1f} s", flush=True)
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name} ptxas: {line.strip()}", flush=True)
+    cfg, params, state, aux = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
+    multi, _ = build_multi_step(cfg, params, aux, dtype=torch.float32, device="cuda")
+    s = multi.prepare_state(state)
+    for i in range(3):
+        f = to_device(synthetic_forcing(cfg.num_pixels, seed=i), "cuda", torch.float32)
+        s, _ = multi.step(s, f)
+    was = PREVIOUS_MS["soil_tail"]
+    soil_tail_figures(torch, card, soil_tail_operands(torch, multi.step, s, f)[0], 1e-5,
+                      "continental main path, float32", was["main"])
+    forced_wet_figures(torch, card, multi.step, s, f, 1e-5, was["forced wet"])
+    was = PREVIOUS_MS["segment_sum"]
+    k7_figures(torch, card, "Catchments", params["Catchments"], cfg.num_catchments,
+               previous=was["Catchments"])
+    k7_figures(torch, card, "downstruct", params["downstruct"], cfg.num_pixels + 1,
+               count=cfg.num_pixels, previous=was["downstruct"])
+    k7_figures(torch, card, "downEva", params["downEva"], cfg.num_pixels + 1,
+               count=cfg.num_pixels, previous=was["downEva"])
+    print(card, flush=True)
+    return 0
+
+
 # the start of each phase on the host clock, by phase
 STAMPS = {}
 # host synchronisations in one step of each path (sync_count), by path
@@ -2462,6 +2573,8 @@ def main():
         return 1
     if sys.argv[1:] == ["--side-flag-ab"]:
         return side_flag_ab(torch)
+    if sys.argv[1:] == ["--k7-k8"]:
+        return k7_k8_check(torch)
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
     from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
@@ -2546,9 +2659,11 @@ def main():
           f"({spec.n_chunks} chunks); card {card}", flush=True)
     assert rel <= 1e-5, f"kernel disagrees with the plain version: {rel}"
     ops8, _ = soil_tail_operands(torch, multi.step, s, forcing[0])
-    k8_main = {**soil_tail_figures(torch, card, ops8, 1e-5, "continental main path, float32"),
+    was = PREVIOUS_MS["soil_tail"]
+    k8_main = {**soil_tail_figures(torch, card, ops8, 1e-5, "continental main path, float32",
+                                   was["main"]),
                "launches": launches_k8}
-    k8_wet = forced_wet_figures(torch, card, multi.step, s, forcing[0], 1e-5)
+    k8_wet = forced_wet_figures(torch, card, multi.step, s, forcing[0], 1e-5, was["forced wet"])
     del ops8
     f64 = mid["float64"]
     print(f"  the float64 q-space kernel at 240x200: {f64['ms']:.3f} ms with {f64['blocks']} "
@@ -2617,13 +2732,15 @@ def main():
     del xs5, ys5, ref5
     print(f"  K7, the segment sums, on this grid's segments, float32 ("
           f"{counts5['segment_sum'] / STEPS_RUN:g} calls a step):", flush=True)
+    was = PREVIOUS_MS["segment_sum"]
     k7 = {name: k7_figures(torch, card, name, params5[name], int(p5["seg$" + name].num_segments),
-                           order=p5["seg$" + name])
+                           order=p5["seg$" + name], previous=was[name])
           for name in ("Catchments", "WUseRegionC", "downstruct")}
     k7["downEva"] = k7_figures(torch, card, "downEva", params5["downEva"], cfg5.num_pixels + 1,
-                               count=cfg5.num_pixels)
+                               count=cfg5.num_pixels, previous=was["downEva"])
     k7_main = {**k7["Catchments"], "launches": counts5["segment_sum"],
-               "plain_shape": "1200x1000, all options, Catchments, float32"}
+               "plain_shape": "1200x1000, all options, Catchments, float32",
+               "continental": {k: {f: v[f] for f in K7_KEYS} for k, v in k7.items()}}
     del multi5, p5, s5
     torch.cuda.empty_cache()
 
@@ -2712,9 +2829,7 @@ def main():
     figures["kernels"].append(
         {"name": "segment_sum", "route": "cuda", "source": "lisflood_tpu_torch/csrc/segment_sum.cu",
          "replaces": "lisflood_tpu/ops/physics.py:22", **k7_main,
-         "catchment": {k: {f: v[f] for f in ("ms", "bound_ms", "library_ms", "segments",
-                                              "largest")}
-                       for k, v in sums.items()}})
+         "catchment": {k: {f: v[f] for f in K7_KEYS} for k, v in sums.items()}})
     # K8: the continental main path's operands and launches; the catchment's,
     # the forced-wet case's and float64's beside them; no PyTorch call
     # computes it (a per-lane loop of data-dependent length)

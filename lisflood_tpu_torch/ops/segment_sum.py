@@ -16,18 +16,19 @@ most g <= LANES members gives the same bits as the tree over all of them.
 
 `segment_total`, `segment_spread` and `scatter_to_downstream` run the CUDA
 kernel csrc/segment_sum.cu on a CUDA tensor (counted in
-`segment_total.launches`; no atomics, so the same bits in every run and for any
-launch configuration) and the plain version `segment_sum` on a CPU tensor;
-any other device raises. The plain version makes every addition explicit
-(torch.sum leaves its order open) and groups the pieces by shape so that a
-class of pieces is added as one tensor.
+`segment_total.launches`, one a call of one or two kernel launches; no sum is
+atomic, so the same bits in every run and for any launch configuration) and
+the plain version `segment_sum` on a CPU tensor; any other device raises.
+The plain version makes every addition explicit (torch.sum leaves its order
+open) and groups the pieces by shape so that a class of pieces is added as
+one tensor.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -35,8 +36,8 @@ import torch
 # members of a piece, lanes of a piece's pattern
 PIECE = 1024
 LANES = 32
-# pieces of at most SMALL members are summed one to a thread in the kernel
-# (its tree over SMALL lanes), the others one to a warp
+# segments of at most SMALL members are summed one to a thread in the kernel
+# (its tree over SMALL lanes), the pieces of the others one to a warp
 SMALL = 8
 
 
@@ -53,10 +54,20 @@ class SegmentOrder:
 
       perm (M,) int32: the members of segments < count, by segment, each
           segment's in ascending index order;
-      piece_start, piece_len (n_pieces,) int32: each piece's first entry of
-          perm and its member count; a segment's pieces are consecutive;
-      seg_piece (count + 1,) int32: each segment's first piece;
-      large, small (int32): the pieces of more and of at most SMALL members;
+      n_pieces: the number of pieces (a segment's are consecutive);
+      seg_ptr (count + 1,) int32: each segment's first entry of perm;
+      items (n_items, 4) int32: the kernel's warp items, {first entry of
+          perm, members, target, multi}: the pieces of the segments of more
+          than one piece first (multi their index among those segments,
+          target the piece's slot in `partial`), then the pieces of more
+          than SMALL members of the others (multi -1, target the segment);
+      multi (n_multi, 3) int32: the segments of more than one piece, {first
+          slot, pieces, segment};
+      tickets (n_multi,) int32, partial, multi_totals (float64, read as the
+          values' type): the kernel's scratch, kept with the order so that a
+          call allocates only its output; the tickets are 0 between calls,
+          and the calls of one order run one at a time: on the stream of
+          its first call on the card, `stream`, another raising;
       segments (size,) int32: each member's segment (the spread's gather);
       classes: the plain version's pieces grouped by (rows, lanes): piece
           ids and (n, rows, lanes) member indices, -1 where none;
@@ -67,21 +78,21 @@ class SegmentOrder:
     num_segments: int
     count: int
     perm: torch.Tensor
-    piece_start: torch.Tensor
-    piece_len: torch.Tensor
-    seg_piece: torch.Tensor
-    large: torch.Tensor
-    small: torch.Tensor
+    n_pieces: int
+    seg_ptr: torch.Tensor
+    items: torch.Tensor
+    multi: torch.Tensor
+    n_multi_items: int
+    tickets: torch.Tensor
+    partial: torch.Tensor
+    multi_totals: torch.Tensor
     segments: torch.Tensor
     classes: tuple
     by_pieces: torch.Tensor
     first_piece: torch.Tensor
     n_active: np.ndarray
     stats: dict
-
-    @property
-    def n_pieces(self):
-        return self.piece_start.numel()
+    stream: dict = field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def build(cls, segments, num_segments, count=None, device="cpu"):
@@ -123,15 +134,28 @@ class SegmentOrder:
         order = np.argsort(-pieces, kind="stable")
         n_active = np.searchsorted(-pieces[order], -np.arange(int(pieces.max(initial=0))),
                                    side="left").astype(np.int64)
+        # the kernel's tables: the pieces of multi-piece segments, then the
+        # pieces of more than SMALL members of the others
         i32 = lambda a: dev(np.asarray(a, np.int32))
+        multi_seg = np.flatnonzero(pieces > 1)
+        in_multi = pieces[owner] > 1
+        mp = np.flatnonzero(in_multi)
+        ms = np.searchsorted(multi_seg, owner[mp])
+        lp = np.flatnonzero(~in_multi & (length > SMALL))
+        items = np.r_[np.c_[start[mp], length[mp], np.arange(mp.size), ms],
+                      np.c_[start[lp], length[lp], owner[lp], np.full(lp.size, -1)]]
+        multi = np.c_[np.cumsum(pieces[multi_seg]) - pieces[multi_seg], pieces[multi_seg],
+                      multi_seg]
         stats = {"segments": count, "members": int(perm.size), "pieces": n_pieces,
-                 "largest": int(members.max(initial=0)),
-                 "large_pieces": int((length > SMALL).sum()),
-                 "seconds": time.perf_counter() - t0}
+                 "largest": int(members.max(initial=0)), "warp_items": len(items),
+                 "multi_segments": len(multi_seg), "seconds": time.perf_counter() - t0}
+        zeros = lambda n, dtype: torch.zeros(max(n, 1), dtype=dtype, device=device)
         return cls(size=int(seg.size), num_segments=int(num_segments), count=count,
-                   perm=i32(perm), piece_start=i32(start), piece_len=i32(length),
-                   seg_piece=i32(seg_piece), large=i32(np.flatnonzero(length > SMALL)),
-                   small=i32(np.flatnonzero(length <= SMALL)),
+                   perm=i32(perm), n_pieces=n_pieces, seg_ptr=i32(seg_ptr),
+                   items=i32(items.reshape(-1, 4)), multi=i32(multi.reshape(-1, 3)),
+                   n_multi_items=int(mp.size), tickets=zeros(len(multi_seg), torch.int32),
+                   partial=zeros(int(mp.size), torch.float64),
+                   multi_totals=zeros(len(multi_seg), torch.float64),
                    segments=i32(seg), classes=tuple(classes),
                    by_pieces=dev(order), first_piece=dev(seg_piece[:-1][order]),
                    n_active=n_active, stats=stats)
@@ -178,10 +202,11 @@ def segment_sum(values, order):
 
 class _SegmentArgs(ctypes.Structure):
     """Mirror of struct SegmentArgs in csrc/segment_sum.cu."""
-    _fields_ = ([(k, ctypes.c_int) for k in ("n_large", "n_small", "count", "size", "spread")]
-                + [(k, ctypes.c_void_p) for k in ("values", "perm", "piece_start", "piece_len",
-                                                  "seg_piece", "large", "small", "segments",
-                                                  "partial", "totals", "out")])
+    _fields_ = ([(k, ctypes.c_int) for k in ("n_items", "n_multi_items", "n_multi", "count",
+                                             "spread")]
+                + [(k, ctypes.c_void_p) for k in ("values", "perm", "seg_ptr", "items", "multi",
+                                                  "tickets", "partial", "multi_totals", "totals",
+                                                  "out")])
 
 
 @functools.cache
@@ -189,38 +214,51 @@ def _library():
     from . import _build
     lib = _build.load("segment_sum")
     lib.segment_sum_launch.argtypes = [ctypes.POINTER(_SegmentArgs), ctypes.c_int,
-                                       ctypes.c_void_p]
+                                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.segment_sum_launch.restype = ctypes.c_int
     lib.segment_sum_error_string.argtypes = [ctypes.c_int]
     lib.segment_sum_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _claim_stream(order, stream):
+    """Holds `order` to the stream (a handle) of its first call on the card:
+    its scratch (tickets, partial, multi_totals) serves one call at a time,
+    and two streams, or a graph captured on a stream of its own, could run
+    two calls at once. A call on another stream raises."""
+    first = order.stream.setdefault("handle", stream)
+    if first != stream:
+        raise RuntimeError(f"this SegmentOrder's calls run on stream {first:#x}, not {stream:#x}: "
+                           "its scratch serves one stream; build an order for each stream")
+
+
 def _launch(values, order, spread):
-    """Pass 1 (the pieces' sums), pass 2 (each segment's total) and, with
-    `spread`, pass 3 (each member's segment total) on the current stream:
-    one launch of K7. Returns the totals, or the spread."""
+    """Pass 1 (the pieces' sums and the totals) and, for a spread over
+    segments of several pieces, pass 2 on the current stream: one call of
+    K7, its kernel launches in `segment_total.last_kernels`. Returns the
+    totals, or the spread."""
     lib = _library()
     dev = values.device
-    partial = values.new_empty(max(order.n_pieces, 1))
-    totals = values.new_empty(max(order.count, 1))
-    out = values.new_empty(order.size) if spread else totals
+    out = values.new_empty(order.size if spread else max(order.count, 1))
     ptr = lambda v: v.data_ptr()
-    args = _SegmentArgs(n_large=order.large.numel(), n_small=order.small.numel(),
-                        count=order.count, size=order.size, spread=int(spread),
-                        values=ptr(values), partial=ptr(partial), totals=ptr(totals),
-                        out=ptr(out),
-                        **{k: ptr(getattr(order, k)) for k in ("perm", "piece_start", "piece_len",
-                                                               "seg_piece", "large", "small",
-                                                               "segments")})
+    args = _SegmentArgs(n_items=order.items.shape[0], n_multi_items=order.n_multi_items,
+                        n_multi=order.multi.shape[0], count=order.count, spread=int(spread),
+                        values=ptr(values), totals=None if spread else ptr(out),
+                        out=ptr(out) if spread else None,
+                        **{k: ptr(getattr(order, k)) for k in ("perm", "seg_ptr", "items", "multi",
+                                                               "tickets", "partial",
+                                                               "multi_totals")})
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        _claim_stream(order, stream)
         rc = lib.segment_sum_launch(ctypes.byref(args), int(values.dtype == torch.float64),
-                                    ctypes.c_void_p(stream))
+                                    ctypes.c_void_p(stream), ctypes.byref(launched))
     if rc != 0:
         raise RuntimeError("segment_sum launch failed: " + lib.segment_sum_error_string(rc).decode())
     segment_total.launches += 1
-    return out if spread else totals[:order.count]
+    segment_total.last_kernels = launched.value
+    return out if spread else out[:order.count]
 
 
 def _check(values, order):
@@ -248,13 +286,15 @@ def _run(values, order, spread):
 def segment_total(values, order):
     """The totals (count,) of `values` per segment, in the order `order`
     fixes: csrc/segment_sum.cu on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor. On the card every call on one order runs on one stream, the
+    first call's (the order's scratch serves one call at a time; another
+    stream raises): an order for each stream, or for a captured graph's."""
     return _run(values, order, False)
 
 
 def segment_spread(values, order):
     """np.bincount(seg, w)[seg]: each member's segment total, in the fixed
-    order."""
+    order; on the card on one stream per order, as segment_total."""
     if order.count != order.num_segments:
         raise ValueError("segment_spread needs the totals of every segment")
     return _run(values, order, True)
@@ -268,3 +308,4 @@ def scatter_to_downstream(values, order):
 
 
 segment_total.launches = 0
+segment_total.last_kernels = 0

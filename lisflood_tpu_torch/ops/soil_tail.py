@@ -3,13 +3,15 @@ Darcy seepage, the port of the tail of lisflood_tpu/ops/physics.py
 soil_columns_step (`tail_loop`, a lax.while_loop over the lanes that
 lax.top_k compacts, with a whole-grid fallback on overflow).
 
-`soil_tail` runs the CUDA kernel csrc/soil_tail.cu on CUDA tensors (one
-thread a lane, each lane looping its own count: one launch a step, no
-compaction and no read on the host; counted in `soil_tail.launches`) and the
-plain version `soil_tail_reference` on CPU tensors; any other device raises.
-The plain version compacts the lanes that sub-step with `nonzero` and loops
-to the largest count, every update masked per lane in the kernel's order, so
-the two compute the same operations on every lane.
+`soil_tail` runs the CUDA kernel csrc/soil_tail.cu on CUDA tensors (a
+block a tile of lanes, in rounds of ROUND interleaved across the grid,
+which compacts the lanes that sub-step in shared memory, groups them by
+count and runs them 32 to a warp, the longest first: one launch a step, no
+read on the host; counted in `soil_tail.launches`) and the plain version
+`soil_tail_reference` on CPU tensors; any other device raises. The plain
+version compacts the lanes that sub-step with `nonzero` and loops to the
+largest count, every update masked per lane in the kernel's order, so the
+two compute the same operations on every lane.
 """
 from __future__ import annotations
 
@@ -25,6 +27,25 @@ FLOAT_KEYS = ("WRes1a", "WRes1b", "WRes2", "WS1a", "WS1b", "WS2",
               "GenuInvM2", "GenuM1a", "GenuM1b", "GenuM2")
 MASK_KEYS = ("PoreSpaceNotZero1a", "PoreSpaceNotZero1b", "PoreSpaceNotZero2")
 SOIL_KEYS = FLOAT_KEYS + MASK_KEYS
+
+# the kernel's threads a block, lanes whose counts a block reads a round (4
+# a thread) and the most lanes a tile (kThreads, kRound, kTile in
+# csrc/soil_tail.cu); a tile is the fewest whole rounds that keep the grid
+# within BLOCKS_PER_SM blocks for each of the card's SMs, the blocks of
+# float32 lanes that fit on an SM at once (by registers), so that every
+# lane's chain starts in the first wave
+THREADS = 256
+ROUND = 4 * THREADS
+TILE = 7 * ROUND
+BLOCKS_PER_SM = 4
+
+
+def tile_lanes(n, sms):
+    """The lanes of a tile for `n` lanes on a card of `sms` SMs: the fewest
+    whole rounds that give at most BLOCKS_PER_SM blocks an SM, at most
+    TILE."""
+    want = -(-n // (sms * BLOCKS_PER_SM))
+    return min(TILE, max(ROUND, -(-want // ROUND) * ROUND))
 
 
 def unsat_conductivity(w, psnz, wres, ws, ksat, inv_m, m):
@@ -88,7 +109,8 @@ class _SoilTailArgs(ctypes.Structure):
 def _library():
     from . import _build
     lib = _build.load("soil_tail")
-    lib.soil_tail_launch.argtypes = [ctypes.POINTER(_SoilTailArgs), ctypes.c_int, ctypes.c_void_p]
+    lib.soil_tail_launch.argtypes = [ctypes.POINTER(_SoilTailArgs), ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
     lib.soil_tail_launch.restype = ctypes.c_int
     lib.soil_tail_error_string.argtypes = [ctypes.c_int]
     lib.soil_tail_error_string.restype = ctypes.c_char_p
@@ -96,10 +118,11 @@ def _library():
 
 
 def _launch(aw, seep, no_subs, dt_sub, q):
-    """One launch of csrc/soil_tail.cu on the current stream over every lane;
-    the seepage sums are updated in place."""
+    """One launch of csrc/soil_tail.cu on the current stream over every lane,
+    in tiles of tile_lanes; the seepage sums are updated in place."""
     lib = _library()
     dev = no_subs.device
+    tile = tile_lanes(no_subs.numel(), torch.cuda.get_device_properties(dev).multi_processor_count)
     ptr = lambda v: v.data_ptr()
     # a parameter of the lanes' shape is passed as it is (expand and
     # contiguous return it); a broadcast one is made whole first
@@ -119,7 +142,7 @@ def _launch(aw, seep, no_subs, dt_sub, q):
                          psnz=(ctypes.c_void_p * len(MASK_KEYS))(*map(ptr, masks)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.soil_tail_launch(ctypes.byref(args), int(dt_sub.dtype == torch.float64),
+        rc = lib.soil_tail_launch(ctypes.byref(args), int(tile), int(dt_sub.dtype == torch.float64),
                                   ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("soil_tail launch failed: " + lib.soil_tail_error_string(rc).decode())

@@ -188,6 +188,26 @@ script exits non-zero:
      EnKF from the settings with RoutingKernel sharded (run_from_settings
      through lisfloodexe), 4 members over ROUTER_DAYS days with one filter
      step: ms per member-day and the analysis's seconds.
+ 14. the multi-process step (parallel/shard_model.py, multihost.py):
+     CATCHMENT_RANKS = 2 rank processes on the one card over gloo (a file://
+     store in the temporary directory, each process with a timeout; one that
+     dies, hangs or differs fails the phase), each building phase 8's
+     catchment on the host and its rank step (SHARDS shards, float32) on the
+     card, one warm-up day and SHARDED_DAYS days: the gathered state and
+     reports bitwise equal to phase 10's one-process step over the same
+     days; per rank its pixels, each graph's own and halo positions and the
+     positions it sends, collectives, bytes through the host and host
+     synchronisations a step, K6 / K7 / K8 launches a step (K6 NoRoutSteps +
+     1), ms/step (two processes time-slice the card: no speed-up is
+     claimed), peak device memory and host seconds; K6 on rank 0's own and
+     halo tables bitwise equal to its plain version (RankTiles.reference)
+     and in two runs, its time against phase 10's launch, bound, chain floor
+     and the deepest tile alone; then SYNTHETIC_RANKS = 4 ranks of the
+     synthetic 240x200 model (SYNTHETIC_SHARDS = 8 shards, float64, channel
+     edges between ranks: the channel halo exchanged every sub-step)
+     bitwise equal to the one-process step on the card. A rank process is
+     `python3 chip_smoke.py --rank-child SPEC RANK`; `python3 chip_smoke.py
+     --multi-process` runs this phase alone on a catchment of its own.
 Each driven path's step launches K8 once (its count is asserted with the
 routing kernels'; the lanes that sub-step and the largest count are printed
 by path), and one step of each path runs under
@@ -205,8 +225,8 @@ Run as `python3 chip_smoke.py --k7-k8` (~1 min) it only builds K7 and K8 and
 checks and times them at the continental grid's shapes (k7_k8_check).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
-scan router's natural tables, segment_sum, soil_tail and K6 on the two
-folded ensembles' tables); then
+scan router's natural tables, segment_sum, soil_tail, K6 on the two
+folded ensembles' tables and K6 on a rank's tables); then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
@@ -1517,7 +1537,7 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     # the step (build_routers records the host seconds of its parts): one
     # warm-up day and one timed batch
     t0 = time.perf_counter()
-    multi, p = build_multi_step(cfg_s, params, aux, output_keys=("ChanQAvg",),
+    multi, p = build_multi_step(cfg_s, params, aux, output_keys=("ChanQAvg",) + RANK_REPORTS[1:],
                                 dtype=torch.float32, device="cuda")
     s = multi.prepare_state(state)
     torch.cuda.synchronize()
@@ -1548,6 +1568,10 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     assert launches["segment_sum"] > 0 and launches["soil_tail"] == days + 1, launches
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
+    # the state and reports phase 14's ranks are held to, bit for bit
+    ranks_reference = {k: v.cpu().numpy() for k, v in multi.natural_state(s).items()}
+    ranks_reference.update({f"{k}@{i}": outs[k][i].cpu().numpy()
+                            for k in RANK_REPORTS for i in range(days)})
     q = outs["ChanQAvg"]
     assert q.shape == (days, cfg.num_pixels) and bool(torch.isfinite(q).all())
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
@@ -1701,7 +1725,8 @@ def phase_sharded(torch, ks, card, ctx, tmp):
             "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
             "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
             "step_ms": step_ms, "position_catchments": position_catchments,
-            "single_step": single_step,
+            "single_step": single_step, "ranks_reference": ranks_reference,
+            "k7_per_step": launches["segment_sum"] / (days + 1),
             "plain_shape": "1200x1000 catchment, one channel sub-step (and the overland sweep), "
                            "float32"}
 
@@ -2548,6 +2573,410 @@ def k7_k8_check(torch):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-process step
+
+
+# ranks of phase 14 on phase 8's catchment (SHARDS shards, float32) and on
+# the synthetic 240x200 model (SYNTHETIC_SHARDS shards, float64, which has
+# channel edges between its ranks), its steps there, and each rank
+# process's timeout in seconds
+CATCHMENT_RANKS = 2
+SYNTHETIC_RANKS, SYNTHETIC_SHARDS, SYNTHETIC_STEPS = 4, 8, 3
+RANK_TIMEOUT = {"catchment": 600, "synthetic": 300}
+# the per-pixel reports each rank gathers beside the state
+RANK_REPORTS = ("ChanQAvg", "MBError", "MBErrorSplitRoutingM3")
+
+
+def rank_bound(n_real, L, dtype, n_edges):
+    """(bound_ms, bound_by) of one K6 launch over `n_real` real positions
+    with `n_edges` edges and L lanes, counted as sharded_bound counts the
+    whole schedule's."""
+    name = str(dtype).replace("torch.", "")
+    item = 4 if name == "float32" else 8
+    nbytes = 3 * L * n_real * item + 4 * n_real
+    if name == "float32":
+        per_row = FLOPS_SWEEP
+    else:
+        plain, pows = QSPACE_ROW(QSPACE_ITERS[name])
+        per_row = 1 + plain + pows * POW_FLOPS[name]
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (L * n_real * per_row + L * n_edges) / PEAK_FLOPS[name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def capture_rank_k6(torch, step, s, f):
+    """The local operands (const, adx) of the first channel sub-step's and
+    of the overland K6 launch in one step of a rank step, as they enter
+    the kernel (halo included). Every rank calls it: the step exchanges."""
+    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    captured = {}
+    real = kss.kinwave_sharded_sweep
+
+    def capture(*args):
+        key = "channel" if args[0].shape[0] == 2 else "overland"
+        if key not in captured:
+            captured[key] = (tuple(a.clone() for a in args[:2]), args[2])
+        return real(*args)
+    capture.launches, capture.last_plan = 0, None
+    kss.kinwave_sharded_sweep = capture
+    try:
+        step(s, f)
+    finally:
+        kss.kinwave_sharded_sweep = real
+    return captured
+
+
+def rank_k6_figures(torch, kss, captured, beta, dtype):
+    """K6 on one rank's tables (own positions plus halo) for each captured
+    launch: bitwise against its plain version (RankTiles.reference, the
+    one-process `_sweep_sharded` over the whole schedule with only the
+    rank's operands set), its time, bound and chain floor."""
+    out = {}
+    for name, (ops, tiles) in captured.items():
+        q = kss.kinwave_sharded_sweep(*ops, tiles, beta)
+        plan = dict(kss.kinwave_sharded_sweep.last_plan)
+        twice = same_bits({"q": q}, {"q": kss.kinwave_sharded_sweep(*ops, tiles, beta)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = tiles.reference(*ops, beta)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bitwise = same_bits({"q": q}, {"q": ref})
+        absd = float((q.double() - ref.double()).abs().max())
+        ms = cuda_ms(torch, lambda: kss.kinwave_sharded_sweep(*ops, tiles, beta), N_REP)
+        deep_ms, floor_ms, per_level = sharded_where(torch, kss, ops, tiles, beta,
+                                                     f"{name}, rank 0's tables")
+        real = int(tiles.count.sum())
+        n_edges = int((tiles.ups >= 0).sum())
+        bound_ms, bound_by = rank_bound(real, ops[0].shape[0], dtype, n_edges)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": absd, "bitwise": bitwise,
+                     "twice": twice, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "chain_floor_ms": floor_ms, "deep_tile_ms": deep_ms,
+                     "cycles_per_level": float(per_level), "positions": int(tiles.p_pad),
+                     "real": real, "edges": n_edges, "plan": sharded_plan_text(plan)}
+    return out
+
+
+def rank_child(spec_path, rank):
+    """One rank process of phase 14 (`python3 chip_smoke.py --rank-child
+    SPEC RANK`): builds the model on the host, its rank step on the card,
+    runs one warm-up step and spec["days"] timed steps, counts the kernel
+    launches, collectives, bytes and host synchronisations of those steps,
+    one more step under set_sync_debug_mode, rank 0 K6's figures on its own
+    tables while the others wait, then gathers the state and the reports;
+    rank 0 saves them. Writes its figures to spec["result"] % rank."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    from lisflood_tpu_torch.parallel import collectives, multihost
+    from lisflood_tpu_torch.parallel.shard_model import RankLayout, rank_device
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    t_start = time.perf_counter()
+    N, S, days = spec["nranks"], spec["shards"], spec["days"]
+    dtype = getattr(torch, spec["dtype"])
+    dev = rank_device(spec["device"], rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if spec["case"] == "catchment":
+        from lisflood_tpu_torch.config import load_settings
+        from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
+        settings = load_settings(spec["path"])
+        cfg, params, state, aux = build_model(settings)
+        forcing = meteo_forcing(settings, cfg, aux)[:1 + days]
+    else:
+        from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+        cfg, params, state, aux = build_synthetic_model(*spec["size"])
+        forcing = [synthetic_forcing(cfg.num_pixels)] * (1 + days)
+    cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=S)
+    t_model = time.perf_counter() - t_start
+    group = multihost.initialize(spec["init"], N, rank)
+    try:
+        t0 = time.perf_counter()
+        layout = RankLayout(cfg, aux, rank, N)
+        step = multihost.multihost_step((cfg, params, aux), layout, group, dtype, dev)
+        s = step.prepare_state(state)
+        fs = [step.shard_forcing(f) for f in forcing]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t_step = time.perf_counter() - t0
+        s, _ = step(s, fs[0])
+        collectives.barrier(group)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        reset_launches()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        reports = []
+        for f in fs[1:]:
+            s, d = step(s, f)
+            reports.append({k: d[k] for k in RANK_REPORTS if k in d})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        collectives.barrier(group)
+        step_ms = (time.perf_counter() - t0) / days * 1e3
+        launches = launch_counts()
+        stats = dict(collectives.STATS)
+        stats["collectives"] -= 1          # the closing barrier
+        # one more step under set_sync_debug_mode: the host synchronisations
+        # torch sees (the collectives' copies to the host among them)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(s, fs[1])
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        captured = capture_rank_k6(torch, step, s, fs[1])
+        collectives.barrier(group)
+        k6 = {}
+        if rank == 0 and spec.get("k6_figures"):
+            k6 = rank_k6_figures(torch, kss, captured, float(step.params["Beta"]), dtype)
+        del captured
+        collectives.barrier(group)
+        gathered = multihost.gather_state(step, s)
+        for i, r in enumerate(reports):
+            gathered.update({f"{k}@{i}": v.cpu().numpy()
+                             for k, v in step.gather(r, r).items()})
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    finally:
+        collectives.destroy_group()
+    if rank == 0:
+        np.savez(spec["out"], **gathered)
+    result = {"rank": rank, "pixels": int(layout.pixels.size), "graphs": layout.figures(),
+              "launches": launches, "stats": stats, "syncs_debug": syncs, "step_ms": step_ms,
+              "peak_bytes": peak, "seconds": {"model": t_model, "step": t_step,
+                                             **step.seconds,
+                                             "all": time.perf_counter() - t_start},
+              "k6": k6, "k6_per_step": cfg.no_rout_steps + (not step.routers["tochan"].no_edges)}
+    with open(spec["result"] % rank, "w") as fh:
+        json.dump(result, fh)
+    print(f"rank {rank} of {N} done in {time.perf_counter() - t_start:.1f} s", flush=True)
+    return 0
+
+
+def launch_ranks(spec, tmp):
+    """Runs the N rank processes of `spec` at once, each with its timeout;
+    one that dies or hangs fails the phase (the others are killed). Returns
+    (each rank's figures, rank 0's gathered arrays)."""
+    import numpy as np
+    tag = f"{spec['case']}{spec['nranks']}"
+    spec = dict(spec, init=f"file://{os.path.join(tmp, 'pg_' + tag)}",
+                out=os.path.join(tmp, f"ranks_{tag}.npz"),
+                result=os.path.join(tmp, f"rank_{tag}_%d.json"))
+    spec_path = os.path.join(tmp, f"spec_{tag}.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    logs = [open(os.path.join(tmp, f"rank_{tag}_{r}.log"), "w+") for r in range(spec["nranks"])]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-child",
+                               spec_path, str(r)], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(spec["nranks"])]
+    deadline = time.perf_counter() + RANK_TIMEOUT[spec["case"]]
+    failed = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                failed.append((r, rc))
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for fh in logs:
+        fh.seek(0)
+        texts.append(fh.read())
+        fh.close()
+    assert not failed, (f"rank process {failed[0][0]} of {tag} ended {failed[0][1]}:\n"
+                        + "\n".join(f"--- rank {r}:\n{t[-3000:]}" for r, t in enumerate(texts)))
+    results = []
+    for r in range(spec["nranks"]):
+        with open(spec["result"] % r) as fh:
+            results.append(json.load(fh))
+    return results, dict(np.load(spec["out"]))
+
+
+def ranks_bitwise(got, ref, what):
+    """Every array of `ref` against `got`, bit for bit (NaNs included)."""
+    import numpy as np
+    missing = sorted(set(ref) - set(got))
+    assert not missing, f"{what}: not gathered: {missing}"
+    bad = [k for k, v in ref.items()
+           if (v.shape, v.dtype) != (got[k].shape, got[k].dtype) or v.tobytes() != got[k].tobytes()]
+    print(f"  {what}: {len(ref)} arrays gathered from the ranks, bitwise equal to one process: "
+          f"{not bad}" + (f" (differ: {bad[:8]})" if bad else ""), flush=True)
+    assert not bad, f"{what}: {bad}"
+
+
+def rank_lines(results, days, k7_per_step):
+    """Per rank: its pixels, each graph's own and halo positions, what a
+    step exchanges, its host synchronisations, ms/step, peak memory and its
+    host seconds; each rank launches K6 NoRoutSteps (+ 1 where the overland
+    graph has edges) and K8 once a step, and K7 as often as one process
+    (`k7_per_step`)."""
+    for res in results:
+        st, g = res["stats"], res["graphs"]
+        per = lambda k: st[k] / days
+        lc = res["launches"]
+        print(f"  rank {res['rank']}: {res['pixels']} pixels; "
+              + "; ".join(f"{name} graph {g[k]['own']} own positions, halo {g[k]['halo']}, "
+                          f"sends {g[k]['send']} (exchange {'on' if g[k]['exchange'] else 'off'})"
+                          for name, k in (("channel", "kin"), ("overland", "tochan")))
+              + f"; a step: {per('collectives'):g} collectives, {per('bytes_sent') / 1e6:.3f} MB "
+              f"sent and {per('bytes_received') / 1e6:.3f} MB received through the host, "
+              f"{per('syncs'):g} host syncs for them ({res['syncs_debug']} synchronising calls "
+              f"in one step by set_sync_debug_mode); K6 {lc['kinwave_sharded'] / days:g}, K7 "
+              f"{lc['segment_sum'] / days:g}, K8 {lc['soil_tail'] / days:g} launches; "
+              f"{res['step_ms']:.1f} ms/step; peak device memory "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB; host seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items()), flush=True)
+        assert lc["kinwave_sharded"] == days * res["k6_per_step"], lc
+        assert lc["soil_tail"] == days and lc["segment_sum"] == days * k7_per_step, lc
+        assert lc["kinwave_substep"] == 0 and lc["kinwave_sweep"] == 0, lc
+
+
+def one_process_reference(torch, cfg, params, aux, state, forcing, days, dtype):
+    """The one-process sharded step on the card over one warm-up step and
+    `days` steps: the natural state and the reports, as NumPy arrays, and
+    K7's launches a step."""
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.step import build_step
+    step, _ = build_step(cfg, params, aux, dtype=dtype, device="cuda")
+    s = step.prepare_state(state)
+    fs = [to_device(f, "cuda", dtype) for f in forcing]
+    s, _ = step(s, fs[0])
+    out = {}
+    reset_launches()
+    for i, f in enumerate(fs[1:1 + days]):
+        s, d = step(s, f)
+        out.update({f"{k}@{i}": d[k].cpu().numpy() for k in RANK_REPORTS if k in d})
+    k7_per_step = launch_counts()["segment_sum"] / days
+    out.update({k: v.cpu().numpy() for k, v in step.natural_state(s).items()})
+    return out, k7_per_step
+
+
+def phase_ranks(torch, card, path, tmp, ref, single):
+    """Phase 14: the multi-process step (parallel/shard_model.py,
+    parallel/multihost.py); see the module docstring. `path` is phase 8's
+    settings, `ref` phase 10's one-process state and reports after one
+    warm-up day and SHARDED_DAYS days, `single` phase 10's figures."""
+    import dataclasses
+
+    from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
+    days = SHARDED_DAYS
+    t0 = time.perf_counter()
+    spec = {"case": "catchment", "path": path, "nranks": CATCHMENT_RANKS, "shards": SHARDS,
+            "days": days, "dtype": "float32", "device": "cuda", "k6_figures": True}
+    results, got = launch_ranks(spec, tmp)
+    wall = time.perf_counter() - t0
+    print(f"  {CATCHMENT_RANKS} rank processes on the one card over gloo (a file:// store), "
+          f"phase 8's catchment, {SHARDS} shards, float32, one warm-up day and {days} days: "
+          f"{wall:.1f} s in all", flush=True)
+    rank_lines(results, days, single["k7_per_step"])
+    ranks_bitwise(got, ref, f"{CATCHMENT_RANKS} ranks against phase 10's one-process step")
+    k6 = results[0]["k6"]
+    for name, fig in k6.items():
+        was = single["ms" if name == "channel" else "ms_overland"]
+        print(f"  K6 on rank 0's {name} tables ({fig['positions']} positions, {fig['real']} "
+              f"real, {fig['edges']} edges): {fig['ms']:.4f} ms a launch (mean of {N_REP}) "
+              f"against {was:.4f} ms on phase 10's whole tables; bound {fig['bound_ms']:.4f} ms "
+              f"({fig['bound_by']}); chain floor {fig['chain_floor_ms']:.4f} ms, the deepest "
+              f"tile alone {fig['deep_tile_ms']:.4f} ms; plain version {fig['plain_ms']:.1f} ms "
+              f"(one run); bitwise equal to it: {fig['bitwise']}, max abs "
+              f"{fig['max_abs_err']:.3e}; the same bits in two runs: {fig['twice']}; "
+              f"{fig['plan']}; card {card}", flush=True)
+        assert fig["bitwise"] and fig["twice"], (name, fig)
+    ms_two = max(r["step_ms"] for r in results)
+    print(f"  ms/step: one process {single['step_ms']:.1f} (phase 10), {CATCHMENT_RANKS} ranks "
+          f"{ms_two:.1f} (the slower rank; two processes time-slice one card, so no speed-up "
+          f"is expected or claimed); card {card}", flush=True)
+
+    # four ranks of the synthetic 240x200 model, float64: channel edges
+    # between ranks, the channel halo exchanged each sub-step
+    t0 = time.perf_counter()
+    size = (240, 200)
+    cfg, params, state, aux = build_synthetic_model(*size)
+    cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=SYNTHETIC_SHARDS)
+    ref2, k7_2 = one_process_reference(torch, cfg, params, aux, state,
+                                 [synthetic_forcing(cfg.num_pixels)] * (1 + SYNTHETIC_STEPS),
+                                 SYNTHETIC_STEPS, torch.float64)
+    torch.cuda.empty_cache()
+    spec2 = {"case": "synthetic", "size": size, "nranks": SYNTHETIC_RANKS,
+             "shards": SYNTHETIC_SHARDS, "days": SYNTHETIC_STEPS, "dtype": "float64",
+             "device": "cuda"}
+    results2, got2 = launch_ranks(spec2, tmp)
+    print(f"  {SYNTHETIC_RANKS} rank processes, synthetic {size[0]}x{size[1]}, "
+          f"{SYNTHETIC_SHARDS} shards, float64, one warm-up step and {SYNTHETIC_STEPS}: "
+          f"{time.perf_counter() - t0:.1f} s in all (the one-process reference included)",
+          flush=True)
+    rank_lines(results2, SYNTHETIC_STEPS, k7_2)
+    assert any(r["graphs"]["kin"]["halo"] for r in results2), "no channel halo"
+    ranks_bitwise(got2, ref2, f"{SYNTHETIC_RANKS} ranks against the one-process step")
+    launches = results[0]["launches"]["kinwave_sharded"]
+    ch, ov = k6["channel"], k6["overland"]
+    return {"ms": ch["ms"], "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
+            "bound_by": ch["bound_by"], "max_abs_err": max(ch["max_abs_err"],
+                                                           ov["max_abs_err"]),
+            "launches": launches, "ms_overland": ov["ms"], "plain_ms_overland": ov["plain_ms"],
+            "bound_ms_overland": ov["bound_ms"], "chain_floor_ms": ch["chain_floor_ms"],
+            "chain_floor_ms_overland": ov["chain_floor_ms"], "ms_phase10": single["ms"],
+            "ms_overland_phase10": single["ms_overland"], "step_ms_ranks": ms_two,
+            "step_ms_one_process": single["step_ms"],
+            "exchange_mb_per_step": [(r["stats"]["bytes_sent"] + r["stats"]["bytes_received"])
+                                     / days / 1e6 for r in results],
+            "plain_shape": f"1200x1000 catchment, rank 0 of {CATCHMENT_RANKS}, its own and halo "
+                           f"positions, one channel sub-step (and the overland sweep), float32"}
+
+
+def multi_process_check(torch):
+    """`python3 chip_smoke.py --multi-process`: phase 14 alone, on its own
+    1200x1000 catchment and phase 10's one-process step over the same days
+    as its reference."""
+    import dataclasses
+
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
+    from lisflood_tpu_torch.models.synthetic import write_catchment
+    from lisflood_tpu_torch.ops import _build
+    card = smi_line()
+    print(f"card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"  built {list(_build.SOURCES)} in {_build.build():.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_catchment(os.path.join(tmp, "catchment"), 1200, 1000, seed=0,
+                               n_steps=1 + SHARDED_DAYS, nc_format="classic")
+        settings = load_settings(path)
+        cfg, params, state, aux = build_model(settings)
+        cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=SHARDS)
+        forcing = meteo_forcing(settings, cfg, aux)
+        t0 = time.perf_counter()
+        ref, k7 = one_process_reference(torch, cfg, params, aux, state, forcing, SHARDED_DAYS,
+                                        torch.float32)
+        print(f"  the one-process reference in {time.perf_counter() - t0:.1f} s", flush=True)
+        del params, aux, forcing
+        torch.cuda.empty_cache()
+        fig = phase_ranks(torch, card, path, tmp, ref, {"ms": float("nan"),
+                                                        "ms_overland": float("nan"),
+                                                        "step_ms": float("nan"),
+                                                        "k7_per_step": k7})
+    print(json.dumps({k: v for k, v in fig.items() if k != "plain_shape"}), flush=True)
+    print(smi_line())
+    return 0
+
+
 # the start of each phase on the host clock, by phase
 STAMPS = {}
 # host synchronisations in one step of each path (sync_count), by path
@@ -2575,6 +3004,10 @@ def main():
         return side_flag_ab(torch)
     if sys.argv[1:] == ["--k7-k8"]:
         return k7_k8_check(torch)
+    if sys.argv[1:2] == ["--rank-child"]:
+        return rank_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:] == ["--multi-process"]:
+        return multi_process_check(torch)
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
     from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
@@ -2786,7 +3219,14 @@ def main():
             {"sharded": (sharded.pop("single_step"), sharded),
              "scan": (scan.pop("single_step"), scan)})
         k8_catchment = context["soil_tail"]
+        path = context["path"]
         del context
+        torch.cuda.empty_cache()
+        stamp(14)
+        print(f"phase 14: the multi-process step, {CATCHMENT_RANKS} ranks on phase 8's catchment "
+              f"and {SYNTHETIC_RANKS} on synthetic 240x200, float32 and float64", flush=True)
+        ranks = phase_ranks(torch, card, path, tmp, sharded.pop("ranks_reference"), sharded)
+        sharded.pop("k7_per_step")
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
@@ -2851,6 +3291,13 @@ def main():
              **{k: v for k, v in fig.items() if k not in ("step_ms", "syncs")},
              "plain_shape": f"1200x1000 catchment, {ROUTER_MEMBERS} members, one channel "
                             f"sub-step, float32"})
+    # K6 on one rank's own and halo tables (phase 14): a channel sub-step's
+    # launch on rank 0 of the catchment's two ranks, its launches in that
+    # rank's timed days; no PyTorch call computes it
+    figures["kernels"].append(
+        {"name": "kinwave_sharded_rank", "route": "cuda",
+         "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
+         "replaces": "lisflood_tpu/ops/kinwave_sharded.py:164", "library_ms": None, **ranks})
     print(f"host synchronisations in one step, by path: {SYNCS}", flush=True)
     SOIL_COUNTS.update({"main": k8_main, "catchment": k8_catchment})
     print("K8 lanes that sub-step / the largest count, by path: "

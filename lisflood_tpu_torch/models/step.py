@@ -643,8 +643,8 @@ def _waterbalance(cfg, p, s, d):
         water_out = catchtotal(pixel_out)
         dis_stru = torch.where(p["IsUpsOfStructureKinematicC"], d["ChanQ"] * cfg.dt_routing, 0.0)
         if cfg.simulate_lakes:
-            dis_stru = dis_stru + torch.zeros_like(dis_stru).index_copy_(
-                0, p["LakeIndex"], 0.5 * d["LakeInflowCC"] * cfg.dt_routing)
+            dis_stru = dis_stru + ph.place(torch.zeros_like(dis_stru), p["LakeIndex"],
+                                           0.5 * d["LakeInflowCC"] * cfg.dt_routing)
         dis_structures = catchtotal(dis_stru)
         dis_structures = dis_structures - s["DischargeM3StructuresIni"]
         mb_error = s["WaterInit"] + water_in - water_stored - water_out - dis_structures

@@ -35,6 +35,7 @@ import torch
 
 from ..device import resolve_device
 from ..graph.ldd import graph_levels
+from ..parallel.collectives import all_gather
 from .kinwave_packed import (SWEEP_THREADS, PackedRouter, PackedSchedule, SweepTiles,
                              newton_solve, sweep_fit)
 from .wavefront import SWEEP_CAP, sweep_tiles, upstream_table
@@ -532,6 +533,14 @@ kinwave_sharded_sweep.launches = 0
 kinwave_sharded_sweep.last_plan = None
 
 
+def _edges(ps):
+    """Whether the sharded schedule `ps` has no edge at all, and whether it
+    has cut edges."""
+    pad = ps.n_shards * ps.chunk
+    no_edges = bool((ps.down_local == ps.window * ps.chunk).all() and (ps.cut_src == pad).all())
+    return no_edges, bool((ps.cut_src != pad).any())
+
+
 class ShardedRouter:
     """Router over a subcatchment-sharded schedule, with the interface of
     ops/kinwave_packed.PackedRouter (pack / unpack / route_packed /
@@ -545,10 +554,7 @@ class ShardedRouter:
             ps = build_sharded_schedule(schedule_or_graph, shard_of, chunk_size)
         self.ps = ps
         self.device = resolve_device(device)
-        pad = ps.n_shards * ps.chunk
-        self.no_edges = bool((ps.down_local == ps.window * ps.chunk).all()
-                             and (ps.cut_src == pad).all())
-        self.has_cuts = bool((ps.cut_src != pad).any())
+        self.no_edges, self.has_cuts = _edges(ps)
         self.perm = torch.as_tensor(np.where(ps.perm < ps.num_pixels, ps.perm, ps.num_pixels),
                                     device=self.device)
         self.inv_perm = torch.as_tensor(ps.inv_perm, device=self.device)
@@ -594,3 +600,124 @@ class ShardedRouter:
         """Single-lane convenience wrapper."""
         return self.route_batched(discharge[None], lateral_inflow[None],
                                   a_dx_div_dt[None], beta)[0]
+
+
+# ---------------------------------------------------------------------------
+# one rank's part of the sweep (parallel/shard_model.py): its own positions
+# and its upstream halo
+
+
+@dataclass(frozen=True)
+class RankTiles(RingTiles):
+    """K6's tables of one rank's local graph: its block of the sharded
+    schedule's positions, then its halo (the positions of other ranks
+    upstream of them), `glob` (n_loc,) their positions in the schedule. The
+    plain version places the local operands at those positions of the whole
+    schedule (const 0 and adx 1 elsewhere), runs `_sweep_sharded` on the
+    schedule's source table `full_ups` and reads the local positions back:
+    what the one-process sweep gives there whenever the halo holds every
+    position upstream of the rank's own."""
+
+    glob: torch.Tensor
+    full_ups: torch.Tensor
+    n_chunks: int
+    n_shards: int
+    chunk: int
+
+    @property
+    def p_pad(self):
+        return self.glob.numel()
+
+    def reference(self, const_p, adx_p, beta):
+        L, n = const_p.shape[0], self.n_shards * self.n_chunks * self.chunk
+        full_c = const_p.new_zeros(L, n).index_copy_(1, self.glob, const_p)
+        full_a = adx_p.new_ones(L, n).index_copy_(1, self.glob, adx_p)
+        q = _sweep_sharded(full_c, full_a, self.full_ups.long(), self.n_chunks, self.n_shards,
+                           self.chunk, beta)
+        return q.index_select(1, self.glob)
+
+
+def rank_tables(ps, ups_np, full_ups, glob, cap=SWEEP_CAP):
+    """RankTiles of the positions `glob` (the rank's block, then its halo,
+    closed upstream) of the sharded schedule `ps` with source table `ups_np`
+    (K, p_pad) (upstream_positions; `full_ups` the same on the device):
+    local downstream positions (none where the downstream lies outside
+    `glob`) and local sources, in the table's order; the padding positions
+    solved apart."""
+    n = glob.size
+    loc_of = np.full(ps.p_pad + 1, -1, np.int64)
+    loc_of[glob] = np.arange(n)
+    down = loc_of[ps.down_pos[glob]]
+    down_loc = np.where(down >= 0, down, n).astype(np.int32)
+    src = ups_np[:, glob].astype(np.int64)
+    ups_loc = np.where(src >= 0, loc_of[np.where(src >= 0, src, ps.p_pad)], -1)
+    if ((src >= 0) & (ups_loc < 0)).any():
+        raise ValueError("rank_tables: a source of a local position lies outside them")
+    device = full_ups.device
+    ups_loc = torch.as_tensor(np.ascontiguousarray(ups_loc, np.int32), device=device)
+    return ring_tables(RankTiles, down_loc, ups_loc, n, cap, keep=ps.perm[glob] < ps.num_pixels,
+                       glob=torch.as_tensor(glob, device=device), full_ups=full_ups,
+                       n_chunks=ps.n_chunks, n_shards=ps.n_shards, chunk=ps.chunk)
+
+
+class RankRouter(ShardedRouter):
+    """One rank's ShardedRouter (parallel/shard_model.RankLayout): its
+    operands are (L, hi - lo) over its block [lo, hi) of the schedule's
+    positions, and pack / unpack map its own natural pixels (`nat_local`,
+    each pixel's index among its rank's, ascending) to that block. Before
+    each sweep the operands (const, adx) of its halo come from their owners,
+    one all_gather of every rank's `send` positions (padded to `send_max`),
+    when any rank has a halo; K6 then runs on the rank's own tables
+    (RankTiles) and the rank keeps its block. No value crosses ranks inside
+    a launch."""
+
+    def __init__(self, ps, part, nat_local, group, device):
+        self.ps = ps
+        self.device = torch.device(device)
+        self.group = group
+        self.no_edges, self.has_cuts = _edges(ps)
+        self.lo, self.hi = part["lo"], part["hi"]
+        self.halo = part["halo"]
+        self.exchange = part["exchange"]
+        self.send_max = part["send_max"]
+        P, n_own = ps.num_pixels, int((nat_local >= 0).sum())
+        block = ps.perm[self.lo:self.hi]
+        self.perm = torch.as_tensor(np.where(block < P, nat_local[np.minimum(block, P - 1)], n_own),
+                                    device=self.device)
+        own = np.flatnonzero(nat_local >= 0)
+        self.inv_perm = torch.as_tensor(ps.inv_perm[own] - self.lo, device=self.device)
+        self.send = torch.as_tensor(part["send"] - self.lo, device=self.device)
+        self.halo_src = torch.as_tensor(part["halo_src"], device=self.device)
+        self._ups = None
+        self._tiles = {}
+
+    def sweep_tiles(self, cap=SWEEP_CAP):
+        """K6's RankTiles at `cap`, built at first use, once per cap."""
+        if cap not in self._tiles:
+            if self._ups is None:
+                ups = upstream_positions(self.ps)
+                self._ups = (ups, torch.as_tensor(ups, device=self.device))
+            glob = np.r_[np.arange(self.lo, self.hi), self.halo]
+            self._tiles[cap] = rank_tables(self.ps, *self._ups, glob, cap)
+        return self._tiles[cap]
+
+    def with_halo(self, const_p, adx_p):
+        """(L, hi - lo) operands -> the local graph's (L, n_loc): the rank's
+        own, then its halo's from their owners (one all_gather)."""
+        if not self.exchange:
+            return const_p, adx_p
+        L = const_p.shape[0]
+        both = torch.cat([const_p, adx_p])
+        buf = both.new_zeros(2 * L, self.send_max)
+        buf[:, :self.send.numel()] = both.index_select(1, self.send)
+        got = all_gather(buf, self.group).transpose(0, 1).reshape(2 * L, -1)
+        halo = got.index_select(1, self.halo_src)
+        return (torch.cat([const_p, halo[:L]], 1).contiguous(),
+                torch.cat([adx_p, halo[L:]], 1).contiguous())
+
+    def sweep(self, constant, a_dx_div_dt, beta):
+        """The sweep on the rank's (L, hi - lo) operands: K6 on its tables."""
+        adx = a_dx_div_dt.expand_as(constant).contiguous()
+        const_l, adx_l = self.with_halo(constant.contiguous(), adx)
+        q = kinwave_sharded_sweep(const_l, adx_l, self.sweep_tiles(), float(beta))
+        return q[:, :self.hi - self.lo]

@@ -17,6 +17,19 @@ from .segment_sum import scatter_to_downstream, segment_spread  # noqa: F401
 from .soil_tail import soil_tail
 from .soil_tail import unsat_conductivity as _unsat_conductivity
 
+
+def take(x, idx):
+    """x[idx] for an index into x's last axis; a rank's index of the
+    multi-process step (parallel/shard_model.RankIndex) gathers the values
+    from the ranks that own them."""
+    return x[idx] if torch.is_tensor(idx) else idx.take(x)
+
+
+def place(base, idx, vals):
+    """base.index_copy_(0, idx, vals); a rank's index writes the entries its
+    rank owns."""
+    return base.index_copy_(0, idx.long(), vals) if torch.is_tensor(idx) else idx.place(base, vals)
+
 # ---------------------------------------------------------------------------
 # snow (snow.py:95-188)
 
@@ -491,10 +504,11 @@ def water_abstraction_step(cfg, p, s, d):
     out = {}
     if cfg.lakes:
         out["LakeStorageM3"] = s["LakeStorageM3"] - lake_abstraction
-        out["LakeStorageM3CC"] = s["LakeStorageM3CC"] - lake_abstraction[p["LakeIndex"]]
+        out["LakeStorageM3CC"] = s["LakeStorageM3CC"] - take(lake_abstraction, p["LakeIndex"])
     if cfg.reservoirs:
         out["ReservoirStorageM3"] = s["ReservoirStorageM3"] - res_abstraction
-        out["ReservoirStorageM3CC"] = s["ReservoirStorageM3CC"] - res_abstraction[p["ReservoirIndex"]]
+        out["ReservoirStorageM3CC"] = (s["ReservoirStorageM3CC"]
+                                       - take(res_abstraction, p["ReservoirIndex"]))
 
     # channel withdrawal (waterabstraction.py:470-498)
     areatotal_ch_req = torch.clamp_min(areatotal_withdrawal_sw_req - areatotal_lakres_act, 0.0)
@@ -731,7 +745,13 @@ def scatter_down_stencil(x, codes2d, land_idx, nrows, ncols):
     """scatter_to_downstream as a 2-D LDD stencil: decompress, 8 masked
     shifted adds, compress. Equal to the scatter up to the order of the
     additions at cells with several upstream neighbours; unlike the atomic
-    scatter its order is fixed, so two runs on the card agree bitwise."""
+    scatter its order is fixed, so two runs on the card agree bitwise. A
+    rank of the multi-process step (`land_idx` a parallel/shard_model.
+    GridIndex) runs it on the gathered grid and keeps its own pixels."""
+    if not torch.is_tensor(land_idx):
+        space = land_idx.space
+        return space.own_of(scatter_down_stencil(space.gather(x), codes2d, land_idx.index,
+                                                 nrows, ncols))
     g = x.new_zeros(nrows * ncols).index_copy_(0, land_idx, x).reshape(nrows, ncols)
     cd = codes2d.reshape(nrows, ncols)
     out = torch.zeros_like(g)

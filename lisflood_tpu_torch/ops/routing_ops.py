@@ -25,7 +25,7 @@ from .kinwave_packed import PackedRouter
 from .kinwave_sharded import ShardedRouter
 from .kinwave_substep import (WAVEFRONT_TABLES, SubstepSpec, _lake_step, _reservoir_step,
                               kinwave_substep)
-from .physics import segment_spread
+from .physics import place, segment_spread, take
 
 
 def overland_operands(cfg, p, s, d):
@@ -205,9 +205,9 @@ def channel_routing_substeps(cfg, p, s, d, routers):
     def structure_out(name, step):
         """The structures' outflow volumes, placed at their positions, from
         their inflow: the previous sub-step's discharge of their feeders."""
-        inflow = (c["ChanQ"][pk(name + "UpsIdx")] * pk(name + "UpsW")).sum(1)
+        inflow = (take(c["ChanQ"], pk(name + "UpsIdx")) * pk(name + "UpsW")).sum(1)
         q_out = step(xs, ys, every, inflow, dt_r)
-        return torch.zeros_like(zero).index_copy_(0, pk(name + "Pos").long(), q_out)
+        return place(torch.zeros_like(zero), pk(name + "Pos"), q_out)
 
     if cfg.rep_mbts:
         # in-loop catchment totals in position space, in the order built over
@@ -466,7 +466,7 @@ def _post_routing(cfg, p, s, d, carry, dtype):
 
     # expand structure state to (P,) (lakes.py:280-297, reservoir.py:307-322)
     def expand(idx, cc):
-        return torch.zeros(P, dtype=dtype, device=cc.device).index_copy_(0, idx, cc)
+        return place(torch.zeros(P, dtype=dtype, device=cc.device), idx, cc)
 
     if cfg.lakes:
         li = p["LakeIndex"]

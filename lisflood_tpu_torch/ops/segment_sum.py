@@ -294,7 +294,11 @@ def segment_total(values, order):
 
 def segment_spread(values, order):
     """np.bincount(seg, w)[seg]: each member's segment total, in the fixed
-    order; on the card on one stream per order, as segment_total."""
+    order; on the card on one stream per order, as segment_total. A rank's
+    order of the multi-process step (parallel/shard_model.RankOrder) sums
+    the gathered values in the one-process order and keeps its own part."""
+    if not isinstance(order, SegmentOrder):
+        return order.segment_spread(values)
     if order.count != order.num_segments:
         raise ValueError("segment_spread needs the totals of every segment")
     return _run(values, order, True)
@@ -303,7 +307,10 @@ def segment_spread(values, order):
 def scatter_to_downstream(values, order):
     """np.bincount(down, w)[:P]: values moved to the downstream pixel, the
     order built over the P + 1 segments of a downstream array with P (the
-    pits) left out (`SegmentOrder.build(down, P + 1, count=P)`)."""
+    pits) left out (`SegmentOrder.build(down, P + 1, count=P)`); a rank's
+    order as in segment_spread."""
+    if not isinstance(order, SegmentOrder):
+        return order.scatter_to_downstream(values)
     return _run(values, order, False)
 
 

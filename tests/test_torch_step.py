@@ -216,4 +216,4 @@ print(len([m for m in sys.modules if m.startswith("lisflood_tpu_torch")]))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=str(__import__("pathlib").Path(__file__).resolve().parent.parent))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 13
+    assert int(out.stdout.strip()) >= 48

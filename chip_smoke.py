@@ -205,9 +205,31 @@ script exits non-zero:
      and the deepest tile alone; then SYNTHETIC_RANKS = 4 ranks of the
      synthetic 240x200 model (SYNTHETIC_SHARDS = 8 shards, float64, channel
      edges between ranks: the channel halo exchanged every sub-step)
-     bitwise equal to the one-process step on the card. A rank process is
+     bitwise equal to the one-process step on the card. Then the same
+     processes, process group and host models run RoutingKernel packed
+     (the default router) across the ranks (shard_model.PackedRankLayout:
+     each rank's kept chunks of the whole packed schedules, the unchanged
+     sub-step kernel and K5 on them): the gathered state and reports
+     bitwise equal to phase 8's one-process packed step (the synthetic
+     model's on the card, float64: K4a), per rank its own and halo
+     positions and kept chunks of each graph, collectives, bytes and host
+     synchronisations a step, the sub-step kernel and K5 once a step; each
+     rank's sub-step launch on its kept chunks (captured in one step) the
+     same bits twice, bitwise equal at its own positions and structures to
+     the whole schedule's launch on the same step's operands, held to its
+     plain version on its first CATCHMENT_PREFIX kept chunks (1e-5 float32,
+     1e-12 float64), its time (the ranks one after the other) beside the
+     whole launch's in this run, and its bound; rank 0's K5 on its tables
+     bitwise equal to its plain version `_sweep`, in two runs and to the
+     whole sweep at its own pixels, its time and bound. A rank process is
      `python3 chip_smoke.py --rank-child SPEC RANK`; `python3 chip_smoke.py
      --multi-process` runs this phase alone on a catchment of its own.
+ 15. The sub-step kernel's plain versions queued by phases 2 and 4-7 (the
+     launch's operands and outputs kept on the host, plain_later), run
+     after every timed phase in PLAIN_WORKERS worker processes side by
+     side on the card (run_plain_jobs), each held within its tolerance;
+     their times are side-by-side figures. In line they held the card
+     ~550 s, the script's largest cost.
 Each driven path's step launches K8 once (its count is asserted with the
 routing kernels'; the lanes that sub-step and the largest count are printed
 by path), and one step of each path runs under
@@ -226,7 +248,8 @@ checks and times them at the continental grid's shapes (k7_k8_check).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
 scan router's natural tables, segment_sum, soil_tail, K6 on the two
-folded ensembles' tables and K6 on a rank's tables); then
+folded ensembles' tables, K6 on a rank's tables, and the sub-step kernel
+and K5 on a packed rank's kept chunks); then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
@@ -349,6 +372,63 @@ def max_rel_err(ys, ref):
     return rel[0], absd[0]
 
 
+# the sub-step kernel's plain versions of phases 2 and 4-7: queued with the
+# launch's operands and outputs on the host, run after every timed phase,
+# PLAIN_WORKERS worker processes side by side on the card
+PLAIN_WORKERS = 4
+PLAIN_JOBS = []
+
+
+def plain_later(spec, xs, ys, tol, what):
+    """Queues the plain version of the sub-step kernel's launch on `xs`
+    (its outputs `ys`, held within `tol`) for run_plain_jobs; returns the
+    job's index."""
+    import dataclasses
+    host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
+    PLAIN_JOBS.append((dataclasses.asdict(spec), host(xs), host(ys), tol, what))
+    return len(PLAIN_JOBS) - 1
+
+
+def plain_job(spec, xs, ys):
+    """One queued job, in a worker process: substep_reference on the card
+    and its outputs against the kernel's. Returns (max rel err, max abs
+    err, the plain version's milliseconds)."""
+    import torch
+    from lisflood_tpu_torch.ops import kinwave_substep as ks
+    xs = {k: torch.from_numpy(v).cuda() for k, v in xs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ks.substep_reference(ks.SubstepSpec(**spec), xs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with contextlib.redirect_stdout(io.StringIO()):
+        rel, absd = max_rel_err({k: torch.from_numpy(v) for k, v in ys.items()},
+                                {k: v.cpu() for k, v in ref.items()})
+    return rel, absd, plain_ms
+
+
+def run_plain_jobs():
+    """Runs every queued job, the largest first, PLAIN_WORKERS side by side
+    in worker processes on the card, and holds each within its tolerance.
+    Returns [(max rel err, max abs err, plain ms)] by job index."""
+    import concurrent.futures
+    import multiprocessing
+    t0 = time.perf_counter()
+    order = sorted(range(len(PLAIN_JOBS)), key=lambda i: -PLAIN_JOBS[i][0]["n_chunks"])
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(PLAIN_WORKERS, mp_context=ctx) as pool:
+        futures = {i: pool.submit(plain_job, *PLAIN_JOBS[i][:3]) for i in order}
+        results = [futures[i].result() for i in range(len(PLAIN_JOBS))]
+    for (_, _, _, tol, what), (rel, absd, ms) in zip(PLAIN_JOBS, results):
+        print(f"  {what}: kernel vs plain max rel err {rel:.3e} (tol {tol:g}), max abs "
+              f"{absd:.3e}; plain version {ms:.0f} ms (one run, {PLAIN_WORKERS} side by side)",
+              flush=True)
+        assert rel <= tol, f"{what}: kernel disagrees with the plain version: {rel}"
+    print(f"  {len(results)} plain-version runs, {PLAIN_WORKERS} side by side on the card: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 SCAN_BLOCKS = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 132)
 
 
@@ -399,14 +479,18 @@ def scan_text(scan):
     return ", ".join(f"{g}: {ms:.3f}" for g, ms in scan.items())
 
 
-def bound(xs, ys, spec):
+def bound(xs, ys, spec, n_real=None):
     """(bound_ms, bound_by): bytes of every input read once and every output
     written once over the HBM rate, against the operations this run's
-    inputs need over the non-tensor peak for their type."""
-    import torch
+    inputs need over the non-tensor peak for their type. With `n_real` (a
+    rank's kept chunks: its own and halo lanes, the other lanes padding)
+    the per-position operands, outputs and operations count those lanes
+    only."""
     from lisflood_tpu_torch.ops.kinwave_substep import _poly
-    nbytes = sum(v.numel() * v.element_size() for v in list(xs.values()) + list(ys.values()))
     p_pad = spec.n_chunks * spec.chunk
+    n = p_pad if n_real is None else n_real
+    nbytes = sum(v.numel() * v.element_size() * (n if v.numel() % p_pad == 0 else p_pad)
+                 // p_pad for v in list(xs.values()) + list(ys.values()))
     L = 2 if spec.split else 1
     n_ups = int((xs["ups"] >= 0).sum())
     n_ev = int((xs["ev_ups"] >= 0).sum()) if spec.E else 0
@@ -429,7 +513,7 @@ def bound(xs, ys, spec):
         every, masked, pows = FLOPS_TRANS
         per_substep += every
         flops += int((xs["uptrans"] != 0).sum()) * spec.T * (masked + pows * pow_flops)
-    flops += (p_pad * (spec.T * per_substep + spec.E * FLOPS_PER_HOP + per_lane)
+    flops += (n * (spec.T * per_substep + spec.E * FLOPS_PER_HOP + per_lane)
               + n_ups * spec.T * L + n_ev * max(spec.E - 1, 0))
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -484,28 +568,23 @@ def held_to_plain(torch, ks, spec, xs, tol, what):
     """The kernel against its plain version on the operands `xs`: outputs
     within `tol` of each output's max, bitwise equal for 1, 2 and the
     launcher's blocks and over ten launches, the launcher's plan above one
-    block. Returns the kernel's outputs and plan and the figures of the
-    comparison."""
+    block; the plain version is queued (plain_later, the figures'
+    "plain_job"). Returns the kernel's outputs and plan and the kernel's
+    figures."""
     ys, plan, by_blocks, bitwise = blocks_bitwise(torch, ks, spec, xs)
-    t0 = time.perf_counter()
-    ref = ks.substep_reference(spec, xs)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    rel, absd = max_rel_err(ys, ref)
     if "trans" in ys:
         assert bool(torch.isfinite(ys["trans"]).all()) and float(ys["trans"].max()) > 0
     name = str(xs["dx"].dtype).replace("torch.", "")
+    job = plain_later(spec, xs, ys, tol, f"{name} ({what})")
     kernel_ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), 10)
-    print(f"  {name} ({what}): kernel vs plain max rel err {rel:.3e} "
-          f"(tol {tol:g}), max abs {absd:.3e}; {plan_text(plan, spec)}; bitwise equal with "
+    print(f"  {name} ({what}): {plan_text(plan, spec)}; bitwise equal with "
           f"1, 2 and {plan['blocks']} blocks: {by_blocks}, over "
-          f"ten launches: {bitwise}; kernel {kernel_ms:.3f} ms, plain version {plain_s:.2f} s "
-          f"for {spec.n_chunks} chunks", flush=True)
-    assert rel <= tol, f"{name}: kernel disagrees with the plain version: {rel}"
+          f"ten launches: {bitwise}; kernel {kernel_ms:.3f} ms for {spec.n_chunks} chunks; "
+          f"held to the plain version after the timed phases", flush=True)
     assert by_blocks, "the outputs depend on the number of blocks"
     assert bitwise, "repeated kernel runs differ"
     assert plan["blocks"] > 1, plan
-    return ys, plan, {"ms": kernel_ms, "plain_ms": plain_s * 1e3, "max_abs_err": absd}
+    return ys, plan, {"ms": kernel_ms, "plain_job": job}
 
 
 def phase_mid(torch, ks, card):
@@ -740,24 +819,18 @@ def phase_prerun(torch, ks, model, card):
     spec, xs = kernel_operands(cfg, p, s, multi.step.land_phase(s, forcing[0]), multi.routers)
     assert not spec.split and spec.E == 0 and "eva" in xs and "lk_pos" not in xs, spec
     ys, fig = kernel_figures(torch, ks, spec, xs, "prerun launch at the continental shape")
-    t0 = time.perf_counter()
-    ref = ks.substep_reference(spec, xs)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    rel, absd = max_rel_err(ys, ref)
-    print(f"  prerun kernel {fig['ms']:.3f} ms/launch; plain version {plain_ms:.1f} ms (one run), "
-          f"kernel vs plain max rel err {rel:.3e} (tol 1e-05), max abs err {absd:.3e}, at the "
-          f"continental shape ({spec.n_chunks} chunks)", flush=True)
-    assert rel <= 1e-5, f"prerun kernel disagrees with the plain version: {rel}"
-    del multi, p, s, xs, ys, ref
+    job = plain_later(spec, xs, ys, 1e-5,
+                      f"prerun launch at the continental shape ({spec.n_chunks} chunks)")
+    print(f"  prerun kernel {fig['ms']:.3f} ms/launch, held to the plain version after the "
+          f"timed phases", flush=True)
+    del multi, p, s, xs, ys
     mid = build_synthetic_model(240, 200, no_rout_steps=24, chunk_size=512)
     mid = (dataclasses.replace(mid[0], init_lisflood=True),) + mid[1:]
     _, _, _, spec_m, xs_m = kernel_inputs(mid, "cuda", torch.float64)
     assert not spec_m.split and "eva" in xs_m, spec_m
     held_to_plain(torch, ks, spec_m, xs_m, 1e-12, "240x200, InitLisflood prerun")
     return {**fig, "launches": launches["kinwave_substep"], "step_ms": step_ms,
-            "plain_ms": plain_ms, "max_abs_err": absd,
-            "plain_shape": "1200x1000, InitLisflood, float32"}
+            "plain_job": job, "plain_shape": "1200x1000, InitLisflood, float32"}
 
 
 def held_on_prefix(torch, ks, spec, xs, ys, n):
@@ -906,17 +979,21 @@ SWEEP_CAPS = (256, 512, 2048, 4096, 8192)
 CATCHMENT_PREFIX = 256
 
 
-def sweep_bound(ops, q, n_edges):
+def sweep_bound(ops, q, n_edges, n_real=None):
     """(bound_ms, bound_by) of one overland sweep (float32): const and adx
     read once, q written once and the graph at its least, one int32
     downstream index per position (what the JAX `_sweep` reads as
     `down_local`), over the HBM rate, against FLOPS_SWEEP per lane-row and
     position and one add per edge and lane over the float32 peak. The
     kernel's padded source table and its dependency table are its own
-    design, not the function's inputs, and are not counted."""
+    design, not the function's inputs, and are not counted. With `n_real`
+    (a rank's own and halo positions of its kept chunks) only those
+    positions count."""
     n, L, C = q.shape
-    nbytes = sum(v.numel() * v.element_size() for v in (*ops, q)) + n * C * 4
-    flops = n * L * C * FLOPS_SWEEP + n_edges * L
+    pos = n * C if n_real is None else n_real
+    nbytes = (sum(v.numel() * v.element_size() for v in (*ops, q)) * pos // (n * C)
+              + pos * 4)
+    flops = pos * L * FLOPS_SWEEP + n_edges * L
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     print(f"  bound: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms; {flops / 1e9:.3f} GFLOP "
@@ -2658,28 +2735,215 @@ def rank_k6_figures(torch, kss, captured, beta, dtype):
     return out
 
 
-def rank_child(spec_path, rank):
-    """One rank process of phase 14 (`python3 chip_smoke.py --rank-child
-    SPEC RANK`): builds the model on the host, its rank step on the card,
-    runs one warm-up step and spec["days"] timed steps, counts the kernel
-    launches, collectives, bytes and host synchronisations of those steps,
-    one more step under set_sync_debug_mode, rank 0 K6's figures on its own
-    tables while the others wait, then gathers the state and the reports;
-    rank 0 saves them. Writes its figures to spec["result"] % rank."""
+def capture_packed(torch, step, s, f):
+    """The operands of the sub-step kernel's launch (spec, xs) and of the
+    overland sweep's (const, adx, tiles, beta) in one step of a packed
+    `step` (a rank's: every rank calls it, the step exchanges), as they
+    enter the kernels."""
+    from lisflood_tpu_torch.ops import kinwave_packed as kp
+    from lisflood_tpu_torch.ops import routing_ops
+    captured = {}
+    real_sub, real_sweep = routing_ops.kinwave_substep, kp.kinwave_sweep
+
+    def sub(spec, xs):
+        captured["substep"] = (spec, {k: v.clone() for k, v in xs.items()})
+        return real_sub(spec, xs)
+
+    def sweep(const, adx, tiles, beta):
+        captured["sweep"] = ((const.clone(), adx.clone()), tiles, beta)
+        return real_sweep(const, adx, tiles, beta)
+    # the sweep's launcher counts through its module's name: the wrapper's
+    sweep.launches, sweep.last_plan = 0, None
+    routing_ops.kinwave_substep, kp.kinwave_sweep = sub, sweep
+    try:
+        step(s, f)
+    finally:
+        routing_ops.kinwave_substep, kp.kinwave_sweep = real_sub, real_sweep
+    return captured
+
+
+def packed_rank_figures(torch, step, captured, group, out_path):
+    """The packed rank step's kernels on its own tables, from the operands
+    `captured` in one of its steps (every rank calls it): the sub-step
+    kernel's launch on the rank's kept chunks, the same bits twice, held to
+    its plain version on its first CATCHMENT_PREFIX kept chunks, and its
+    time (the ranks one after the other, the others waiting) and bound; on
+    rank 0 K5 on its tables against its plain version `_sweep`, bitwise,
+    twice, its time and bound. The outputs at the rank's own positions (and
+    of its own structures), and rank 0's overland discharge at its own
+    pixels, go to `out_path` for the whole launch to be compared with."""
+    import numpy as np
+    from lisflood_tpu_torch.ops import kinwave_packed as kp
+    from lisflood_tpu_torch.ops import kinwave_substep as ks
+    from lisflood_tpu_torch.parallel import collectives
+    layout, rank = step.layout, step.layout.rank
+    spec, xs = captured["substep"]
+    ys = ks.kinwave_substep(spec, xs)
+    plan = dict(ks.kinwave_substep.last_plan)
+    twice = same_bits(ys, ks.kinwave_substep(spec, xs))
+    n = min(CATCHMENT_PREFIX, spec.n_chunks)
+    tol = 1e-5 if xs["dx"].dtype == torch.float32 else 1e-12
+    with contextlib.redirect_stdout(io.StringIO()):
+        rel, absd, plain_ms = held_on_prefix(torch, ks, spec, xs, ys, n)
+    # the function the rank needs: its own and halo lanes; the other lanes
+    # of its kept chunks are padding of this design
+    part, loc_of = layout.part("kin"), layout.loc_of["kin"]
+    n_real = int(part["lanes"].size)
+    with contextlib.redirect_stdout(io.StringIO()):
+        bound_ms, bound_by = bound(xs, ys, spec, n_real)
+    ms = float("nan")
+    for r in range(layout.nranks + 1):
+        collectives.barrier(group)
+        if r == rank:
+            ms = cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), N_REP)
+    loc = torch.as_tensor(loc_of[part["own"]], device=xs["dx"].device)
+    own = {"pos": part["own"]}
+    for k, v in ys.items():
+        if v.dim() == 2:
+            own[k] = v.reshape(-1).index_select(0, loc).cpu().numpy()
+    for prefix, (mine, _, _) in step.routers["kin"].struct_src.items():
+        own[prefix + "$rows"] = layout.struct_rows[prefix][mine]
+        for k, v in ys.items():
+            if k.startswith(prefix + "_"):
+                own[k] = v[torch.as_tensor(mine, device=v.device)].cpu().numpy()
+    fig = {"ms": ms, "plain_ms": plain_ms, "rel_err": rel, "max_abs_err": absd,
+           "tol": tol, "twice": twice, "bound_ms": bound_ms, "bound_by": bound_by,
+           "chunks": spec.n_chunks, "prefix": n, "blocks": plan["blocks"], "lanes": n_real,
+           "padding": 1 - n_real / (spec.n_chunks * spec.chunk)}
+    assert rel <= tol and twice, ("rank sub-step launch", rank, fig)
+    k5 = {}
+    if rank == 0 and "sweep" in captured:
+        (const, adx), tiles, beta = captured["sweep"]
+        q = kp.kinwave_sweep(const, adx, tiles, beta)
+        k5_twice = same_bits({"q": q}, {"q": kp.kinwave_sweep(const, adx, tiles, beta)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = kp._sweep(const, adx, tiles.ups.long(), beta)
+        torch.cuda.synchronize()
+        k5_plain_ms = (time.perf_counter() - t0) * 1e3
+        bitwise = same_bits({"q": q}, {"q": ref})
+        tochan = step.routers["tochan"]
+        n_edges = int((tochan.ps.down_pos < tochan.ps.p_pad).sum())
+        k5_real = int(layout.part("tochan")["lanes"].size)
+        with contextlib.redirect_stdout(io.StringIO()):
+            k5_bound, k5_by = sweep_bound((const, adx), q, n_edges, k5_real)
+        k5 = {"ms": cuda_ms(torch, lambda: kp.kinwave_sweep(const, adx, tiles, beta), N_REP),
+              "plain_ms": k5_plain_ms, "bitwise": bitwise, "twice": k5_twice,
+              "max_abs_err": float((q.double() - ref.double()).abs().max()),
+              "bound_ms": k5_bound, "bound_by": k5_by, "tiles": tiles.n_tiles,
+              "positions": int(tochan.ps.p_pad), "chunks": tochan.ps.n_chunks,
+              "padding": 1 - k5_real / int(tochan.ps.p_pad)}
+        assert bitwise and k5_twice, ("rank 0's K5", k5)
+        L = q.shape[1]
+        own["k5$q"] = tochan.unpack(q.transpose(0, 1).reshape(L, -1)).cpu().numpy()
+        own["k5$pixels"] = layout.pixels
+    collectives.barrier(group)
+    np.savez(out_path, **own)
+    return fig, k5
+
+
+def rank_run(torch, spec, rank, group, model, forcing, dev, router):
+    """One router's run of a rank process: its rank step on the card, one
+    warm-up step and spec["days"] timed steps with the kernel launches,
+    collectives, bytes and host synchronisations of those steps counted, one
+    more step under set_sync_debug_mode, the kernels on the rank's own
+    tables (K6's figures on rank 0 for sharded, packed_rank_figures for
+    packed), then the gathered state and reports. Returns (figures, the
+    gathered arrays)."""
     import dataclasses
     import warnings
 
     import numpy as np
-    import torch
     from lisflood_tpu_torch.ops import kinwave_sharded as kss
     from lisflood_tpu_torch.parallel import collectives, multihost
-    from lisflood_tpu_torch.parallel.shard_model import RankLayout, rank_device
+    from lisflood_tpu_torch.parallel.shard_model import rank_layout
+    N, S, days = spec["nranks"], spec["shards"], spec["days"]
+    dtype = getattr(torch, spec["dtype"])
+    cfg, params, state, aux = model
+    cfg = dataclasses.replace(cfg, routing_kernel=router, num_shards=S)
+    t0 = time.perf_counter()
+    layout = rank_layout(cfg, params, aux, rank, N)
+    step = multihost.multihost_step((cfg, params, aux), layout, group, dtype, dev)
+    s = step.prepare_state(state)
+    fs = [step.shard_forcing(f) for f in forcing]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t_step = time.perf_counter() - t0
+    s, _ = step(s, fs[0])
+    collectives.barrier(group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    reports = []
+    for f in fs[1:]:
+        s, d = step(s, f)
+        reports.append({k: d[k] for k in RANK_REPORTS if k in d})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    collectives.barrier(group)
+    step_ms = (time.perf_counter() - t0) / days * 1e3
+    launches = launch_counts()
+    stats = dict(collectives.STATS)
+    stats["collectives"] -= 1          # the closing barrier
+    # one more step under set_sync_debug_mode: the host synchronisations
+    # torch sees (the collectives' copies to the host among them)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(s, fs[1])
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    kernels = {}
+    if router == "sharded":
+        captured = capture_rank_k6(torch, step, s, fs[1])
+        collectives.barrier(group)
+        if rank == 0 and spec.get("k6_figures"):
+            kernels["k6"] = rank_k6_figures(torch, kss, captured, float(step.params["Beta"]),
+                                            dtype)
+        per_step = {"kinwave_sharded": cfg.no_rout_steps + (not step.routers["tochan"].no_edges)}
+    else:
+        captured = capture_packed(torch, step, s, fs[1])
+        kernels["substep"], kernels["k5"] = packed_rank_figures(
+            torch, step, captured, group, spec["own"] % (router, rank))
+        per_step = {"kinwave_substep": 1, "kinwave_sweep": int(not step.routers["tochan"].no_edges)}
+    del captured
+    collectives.barrier(group)
+    gathered = multihost.gather_state(step, s)
+    for i, r in enumerate(reports):
+        gathered.update({f"{k}@{i}": v.cpu().numpy() for k, v in step.gather(r, r).items()})
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    result = {"rank": rank, "router": router, "pixels": int(layout.pixels.size),
+              "graphs": layout.figures(), "launches": launches, "stats": stats,
+              "syncs_debug": syncs, "step_ms": step_ms, "peak_bytes": peak,
+              "seconds": {"step": t_step, **step.seconds}, "per_step": per_step, **kernels}
+    del step, s, fs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return result, gathered
+
+
+def rank_child(spec_path, rank):
+    """One rank process of phase 14 (`python3 chip_smoke.py --rank-child
+    SPEC RANK`): builds the model on the host once, joins the process group
+    once, then runs each router of spec["routers"] in turn (rank_run); rank
+    0 saves each router's gathered arrays. Writes its figures by router to
+    spec["result"] % rank."""
+    import numpy as np
+    import torch
+    from lisflood_tpu_torch.parallel import collectives, multihost
+    from lisflood_tpu_torch.parallel.shard_model import rank_device
 
     with open(spec_path) as fh:
         spec = json.load(fh)
     t_start = time.perf_counter()
-    N, S, days = spec["nranks"], spec["shards"], spec["days"]
-    dtype = getattr(torch, spec["dtype"])
+    N, days = spec["nranks"], spec["days"]
     dev = rank_device(spec["device"], rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -2687,79 +2951,28 @@ def rank_child(spec_path, rank):
         from lisflood_tpu_torch.config import load_settings
         from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
         settings = load_settings(spec["path"])
-        cfg, params, state, aux = build_model(settings)
-        forcing = meteo_forcing(settings, cfg, aux)[:1 + days]
+        model = build_model(settings)
+        forcing = meteo_forcing(settings, model[0], model[3])[:1 + days]
     else:
         from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
-        cfg, params, state, aux = build_synthetic_model(*spec["size"])
-        forcing = [synthetic_forcing(cfg.num_pixels)] * (1 + days)
-    cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=S)
+        model = build_synthetic_model(*spec["size"])
+        forcing = [synthetic_forcing(model[0].num_pixels)] * (1 + days)
     t_model = time.perf_counter() - t_start
     group = multihost.initialize(spec["init"], N, rank)
+    results = {}
     try:
-        t0 = time.perf_counter()
-        layout = RankLayout(cfg, aux, rank, N)
-        step = multihost.multihost_step((cfg, params, aux), layout, group, dtype, dev)
-        s = step.prepare_state(state)
-        fs = [step.shard_forcing(f) for f in forcing]
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-        t_step = time.perf_counter() - t0
-        s, _ = step(s, fs[0])
-        collectives.barrier(group)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        reset_launches()
-        collectives.reset_stats()
-        t0 = time.perf_counter()
-        reports = []
-        for f in fs[1:]:
-            s, d = step(s, f)
-            reports.append({k: d[k] for k in RANK_REPORTS if k in d})
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        collectives.barrier(group)
-        step_ms = (time.perf_counter() - t0) / days * 1e3
-        launches = launch_counts()
-        stats = dict(collectives.STATS)
-        stats["collectives"] -= 1          # the closing barrier
-        # one more step under set_sync_debug_mode: the host synchronisations
-        # torch sees (the collectives' copies to the host among them)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if dev.type == "cuda":
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                step(s, fs[1])
-            finally:
-                if dev.type == "cuda":
-                    torch.cuda.set_sync_debug_mode(0)
-        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
-        captured = capture_rank_k6(torch, step, s, fs[1])
-        collectives.barrier(group)
-        k6 = {}
-        if rank == 0 and spec.get("k6_figures"):
-            k6 = rank_k6_figures(torch, kss, captured, float(step.params["Beta"]), dtype)
-        del captured
-        collectives.barrier(group)
-        gathered = multihost.gather_state(step, s)
-        for i, r in enumerate(reports):
-            gathered.update({f"{k}@{i}": v.cpu().numpy()
-                             for k, v in step.gather(r, r).items()})
-        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        for router in spec["routers"]:
+            res, gathered = rank_run(torch, spec, rank, group, model, forcing, dev, router)
+            res["seconds"]["model"] = t_model
+            results[router] = res
+            if rank == 0:
+                np.savez(spec["out"] % router, **gathered)
+            del gathered
     finally:
         collectives.destroy_group()
-    if rank == 0:
-        np.savez(spec["out"], **gathered)
-    result = {"rank": rank, "pixels": int(layout.pixels.size), "graphs": layout.figures(),
-              "launches": launches, "stats": stats, "syncs_debug": syncs, "step_ms": step_ms,
-              "peak_bytes": peak, "seconds": {"model": t_model, "step": t_step,
-                                             **step.seconds,
-                                             "all": time.perf_counter() - t_start},
-              "k6": k6, "k6_per_step": cfg.no_rout_steps + (not step.routers["tochan"].no_edges)}
+    results["seconds"] = time.perf_counter() - t_start
     with open(spec["result"] % rank, "w") as fh:
-        json.dump(result, fh)
+        json.dump(results, fh)
     print(f"rank {rank} of {N} done in {time.perf_counter() - t_start:.1f} s", flush=True)
     return 0
 
@@ -2767,11 +2980,13 @@ def rank_child(spec_path, rank):
 def launch_ranks(spec, tmp):
     """Runs the N rank processes of `spec` at once, each with its timeout;
     one that dies or hangs fails the phase (the others are killed). Returns
-    (each rank's figures, rank 0's gathered arrays)."""
+    (each rank's figures by router, rank 0's gathered arrays by router, the
+    path pattern of the ranks' own-position outputs, % (router, rank))."""
     import numpy as np
     tag = f"{spec['case']}{spec['nranks']}"
     spec = dict(spec, init=f"file://{os.path.join(tmp, 'pg_' + tag)}",
-                out=os.path.join(tmp, f"ranks_{tag}.npz"),
+                out=os.path.join(tmp, f"ranks_{tag}_%s.npz"),
+                own=os.path.join(tmp, f"own_{tag}_%s_%d.npz"),
                 result=os.path.join(tmp, f"rank_{tag}_%d.json"))
     spec_path = os.path.join(tmp, f"spec_{tag}.json")
     with open(spec_path, "w") as fh:
@@ -2807,7 +3022,8 @@ def launch_ranks(spec, tmp):
     for r in range(spec["nranks"]):
         with open(spec["result"] % r) as fh:
             results.append(json.load(fh))
-    return results, dict(np.load(spec["out"]))
+    return (results, {k: dict(np.load(spec["out"] % k)) for k in spec["routers"]},
+            spec["own"])
 
 
 def ranks_bitwise(got, ref, what):
@@ -2822,42 +3038,75 @@ def ranks_bitwise(got, ref, what):
     assert not bad, f"{what}: {bad}"
 
 
-def rank_lines(results, days, k7_per_step):
-    """Per rank: its pixels, each graph's own and halo positions, what a
-    step exchanges, its host synchronisations, ms/step, peak memory and its
-    host seconds; each rank launches K6 NoRoutSteps (+ 1 where the overland
-    graph has edges) and K8 once a step, and K7 as often as one process
+def rank_lines(results, router, days, k7_per_step, card, whole_ms=None):
+    """Per rank of `router`'s run, under the card's name and power limit:
+    its pixels, each graph's own and halo positions (and, packed, its kept
+    chunks of all), what a step exchanges, its host synchronisations,
+    ms/step, peak memory and its host seconds; packed, its sub-step
+    launch's ms beside the whole schedule's (`whole_ms`, the one-process
+    launch in this run) and rank 0's K5 ms. Each rank launches per step
+    what its `per_step` says (sharded: K6 NoRoutSteps + 1 where the overland
+    graph has edges; packed: the sub-step kernel once and K5 once where the
+    overland graph has edges), K8 once and K7 as often as one process
     (`k7_per_step`)."""
-    for res in results:
+    print(f"  {router} ranks on card {card}:", flush=True)
+    for res in (r[router] for r in results):
         st, g = res["stats"], res["graphs"]
         per = lambda k: st[k] / days
         lc = res["launches"]
-        print(f"  rank {res['rank']}: {res['pixels']} pixels; "
-              + "; ".join(f"{name} graph {g[k]['own']} own positions, halo {g[k]['halo']}, "
-                          f"sends {g[k]['send']} (exchange {'on' if g[k]['exchange'] else 'off'})"
-                          for name, k in (("channel", "kin"), ("overland", "tochan")))
-              + f"; a step: {per('collectives'):g} collectives, {per('bytes_sent') / 1e6:.3f} MB "
+        graphs = "; ".join(
+            f"{name} graph {g[k]['own']} own positions, halo {g[k]['halo']}, sends {g[k]['send']}"
+            + (f", {g[k]['chunks']} of {g[k]['of_chunks']} chunks kept" if "chunks" in g[k] else "")
+            + f" (exchange {'on' if g[k]['exchange'] else 'off'})"
+            for name, k in (("channel", "kin"), ("overland", "tochan")))
+        kernels = ""
+        if router == "packed":
+            sub, k5 = res["substep"], res["k5"]
+            kernels = (f"; sub-step launch on its {sub['chunks']} kept chunks {sub['ms']:.3f} ms "
+                       f"(mean of {N_REP}) against {whole_ms:.3f} ms for the whole schedule's "
+                       f"launch, bound {sub['bound_ms']:.4f} ms ({sub['bound_by']}) over its "
+                       f"{sub['lanes']} own and halo lanes (padding {sub['padding']:.3f} of the "
+                       f"kept chunks' lanes), the same "
+                       f"bits twice: {sub['twice']}, plain version on its first {sub['prefix']} "
+                       f"chunks {sub['plain_ms']:.0f} ms, max rel err {sub['rel_err']:.2e} "
+                       f"(tol {sub['tol']:g})")
+            if k5:
+                kernels += (f"; K5 on its {k5['chunks']} kept overland chunks ({k5['tiles']} "
+                            f"tiles) {k5['ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms "
+                            f"({k5['bound_by']}; padding {k5['padding']:.3f}), plain {k5['plain_ms']:.0f} ms, bitwise equal "
+                            f"to it: {k5['bitwise']}, twice: {k5['twice']}")
+        print(f"  rank {res['rank']}: {res['pixels']} pixels; {graphs}{kernels}"
+              f"; a step: {per('collectives'):g} collectives, {per('bytes_sent') / 1e6:.3f} MB "
               f"sent and {per('bytes_received') / 1e6:.3f} MB received through the host, "
               f"{per('syncs'):g} host syncs for them ({res['syncs_debug']} synchronising calls "
-              f"in one step by set_sync_debug_mode); K6 {lc['kinwave_sharded'] / days:g}, K7 "
-              f"{lc['segment_sum'] / days:g}, K8 {lc['soil_tail'] / days:g} launches; "
-              f"{res['step_ms']:.1f} ms/step; peak device memory "
+              f"in one step by set_sync_debug_mode); launches a step: "
+              + ", ".join(f"{k} {v / days:g}" for k, v in lc.items())
+              + f"; {res['step_ms']:.1f} ms/step; peak device memory "
               f"{res['peak_bytes'] / 2**30:.2f} GiB; host seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items()), flush=True)
-        assert lc["kinwave_sharded"] == days * res["k6_per_step"], lc
+        want = {"kinwave_substep": 0, "kinwave_sweep": 0, "kinwave_sharded": 0}
+        want.update({k: days * v for k, v in res["per_step"].items()})
+        assert routing_launches(lc) == want, (lc, want)
         assert lc["soil_tail"] == days and lc["segment_sum"] == days * k7_per_step, lc
-        assert lc["kinwave_substep"] == 0 and lc["kinwave_sweep"] == 0, lc
 
 
-def one_process_reference(torch, cfg, params, aux, state, forcing, days, dtype):
-    """The one-process sharded step on the card over one warm-up step and
-    `days` steps: the natural state and the reports, as NumPy arrays, and
-    K7's launches a step."""
+def one_process_reference(torch, cfg, params, aux, state, forcing, days, dtype, step=None):
+    """The one-process step (`step`, or built here) on the card over one
+    warm-up step and `days` steps: the natural state and the reports, as
+    NumPy arrays, and K7's launches a step. For the packed router also the
+    whole schedule's kernels on the operands of the step the ranks capture
+    (from the state after those days, with the first timed day's forcing),
+    under "whole": the sub-step launch's outputs (flat) and its ms, and the
+    overland sweep's discharge at the natural pixels."""
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_step
-    step, _ = build_step(cfg, params, aux, dtype=dtype, device="cuda")
+    from lisflood_tpu_torch.ops import kinwave_packed as kp
+    from lisflood_tpu_torch.ops import kinwave_substep as ks
+    if step is None:
+        step, _ = build_step(cfg, params, aux, dtype=dtype, device="cuda")
     s = step.prepare_state(state)
-    fs = [to_device(f, "cuda", dtype) for f in forcing]
+    fs = [f if torch.is_tensor(next(iter(f.values()))) else to_device(f, "cuda", dtype)
+          for f in forcing]
     s, _ = step(s, fs[0])
     out = {}
     reset_launches()
@@ -2866,29 +3115,79 @@ def one_process_reference(torch, cfg, params, aux, state, forcing, days, dtype):
         out.update({f"{k}@{i}": d[k].cpu().numpy() for k in RANK_REPORTS if k in d})
     k7_per_step = launch_counts()["segment_sum"] / days
     out.update({k: v.cpu().numpy() for k, v in step.natural_state(s).items()})
-    return out, k7_per_step
+    whole = None
+    if cfg.routing_kernel == "packed":
+        captured = capture_packed(torch, step, s, fs[1])
+        spec, xs = captured["substep"]
+        ys = ks.kinwave_substep(spec, xs)
+        whole = {"ms": cuda_ms(torch, lambda: ks.kinwave_substep(spec, xs), N_REP),
+                 "ys": {k: (v.reshape(-1) if v.dim() == 2 else v).cpu().numpy()
+                        for k, v in ys.items()}}
+        if "sweep" in captured:
+            (const, adx), tiles, beta = captured["sweep"]
+            q = kp.kinwave_sweep(const, adx, tiles, beta)
+            L = q.shape[1]
+            whole["q"] = step.routers["tochan"].unpack(
+                q.transpose(0, 1).reshape(L, -1)).cpu().numpy()
+            whole["k5_ms"] = cuda_ms(torch, lambda: kp.kinwave_sweep(const, adx, tiles, beta),
+                                     N_REP)
+        del captured, xs, ys
+    return out, k7_per_step, whole
 
 
-def phase_ranks(torch, card, path, tmp, ref, single):
+def packed_own_bitwise(whole, own_path, nranks, what):
+    """Each rank's sub-step launch on its kept chunks against the whole
+    schedule's launch on the same step's operands, at the rank's own
+    positions and its own structures, bit for bit; rank 0's K5 at its own
+    pixels against the whole sweep."""
+    import numpy as np
+    bad, n_pos, k5 = [], 0, None
+    for r in range(nranks):
+        own = dict(np.load(own_path % ("packed", r)))
+        pos = own.pop("pos")
+        n_pos += pos.size
+        if "k5$q" in own:
+            q, pixels = own.pop("k5$q"), own.pop("k5$pixels")
+            k5 = q.tobytes() == whole["q"][:, pixels].tobytes()
+            if not k5:
+                bad.append((r, "K5"))
+        rows = {k[:2]: own.pop(k) for k in list(own) if k.endswith("$rows")}
+        for k, v in own.items():
+            want = whole["ys"][k][rows[k[:2]]] if k[:2] in rows else whole["ys"][k][pos]
+            if v.tobytes() != want.tobytes():
+                bad.append((r, k))
+    print(f"  {what}: each rank's sub-step launch on its kept chunks bitwise equal to the whole "
+          f"schedule's launch on the same step's operands at its own positions ({n_pos} in all) "
+          f"and structures: {not bad}; rank 0's K5 on its tables equal to the whole sweep at its "
+          f"own pixels: {k5}", flush=True)
+    assert not bad and k5 is not False, bad
+
+
+def phase_ranks(torch, card, path, tmp, refs, single):
     """Phase 14: the multi-process step (parallel/shard_model.py,
     parallel/multihost.py); see the module docstring. `path` is phase 8's
-    settings, `ref` phase 10's one-process state and reports after one
-    warm-up day and SHARDED_DAYS days, `single` phase 10's figures."""
+    settings; `refs` by router the one-process state and reports after one
+    warm-up day and SHARDED_DAYS days (phase 10's sharded step, phase 8's
+    packed step, with its whole kernels under "whole"), `single` phase 10's
+    figures."""
     import dataclasses
 
     from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
     days = SHARDED_DAYS
     t0 = time.perf_counter()
     spec = {"case": "catchment", "path": path, "nranks": CATCHMENT_RANKS, "shards": SHARDS,
-            "days": days, "dtype": "float32", "device": "cuda", "k6_figures": True}
-    results, got = launch_ranks(spec, tmp)
+            "days": days, "dtype": "float32", "device": "cuda", "k6_figures": True,
+            "routers": ["sharded", "packed"]}
+    results, got, own_path = launch_ranks(spec, tmp)
     wall = time.perf_counter() - t0
     print(f"  {CATCHMENT_RANKS} rank processes on the one card over gloo (a file:// store), "
-          f"phase 8's catchment, {SHARDS} shards, float32, one warm-up day and {days} days: "
-          f"{wall:.1f} s in all", flush=True)
-    rank_lines(results, days, single["k7_per_step"])
-    ranks_bitwise(got, ref, f"{CATCHMENT_RANKS} ranks against phase 10's one-process step")
-    k6 = results[0]["k6"]
+          f"phase 8's catchment, {SHARDS} shards, float32, one warm-up day and {days} days, "
+          f"RoutingKernel sharded then packed in the same processes: {wall:.1f} s in all",
+          flush=True)
+    rank_lines(results, "sharded", days, single["k7_per_step"], card)
+    ranks_bitwise(got["sharded"], refs["sharded"][0],
+                  f"{CATCHMENT_RANKS} sharded ranks against phase 10's one-process step")
+    k6 = results[0]["sharded"]["k6"]
     for name, fig in k6.items():
         was = single["ms" if name == "channel" else "ms_overland"]
         print(f"  K6 on rank 0's {name} tables ({fig['positions']} positions, {fig['real']} "
@@ -2900,34 +3199,69 @@ def phase_ranks(torch, card, path, tmp, ref, single):
               f"{fig['max_abs_err']:.3e}; the same bits in two runs: {fig['twice']}; "
               f"{fig['plan']}; card {card}", flush=True)
         assert fig["bitwise"] and fig["twice"], (name, fig)
-    ms_two = max(r["step_ms"] for r in results)
+    ms_two = max(r["sharded"]["step_ms"] for r in results)
     print(f"  ms/step: one process {single['step_ms']:.1f} (phase 10), {CATCHMENT_RANKS} ranks "
           f"{ms_two:.1f} (the slower rank; two processes time-slice one card, so no speed-up "
           f"is expected or claimed); card {card}", flush=True)
+    pref, k7_packed, whole = refs["packed"]
+    rank_lines(results, "packed", days, k7_packed, card, whole["ms"])
+    ranks_bitwise(got["packed"], pref,
+                  f"{CATCHMENT_RANKS} packed ranks against phase 8's one-process packed step")
+    packed_own_bitwise(whole, own_path, CATCHMENT_RANKS, "catchment, packed")
+    packed_two = max(r["packed"]["step_ms"] for r in results)
+    print(f"  packed ms/step: {CATCHMENT_RANKS} ranks {packed_two:.1f} (the slower rank; no "
+          f"speed-up claimed); the whole schedule's sub-step launch {whole['ms']:.3f} ms and K5 "
+          f"{whole['k5_ms']:.4f} ms in this run; card {card}", flush=True)
 
     # four ranks of the synthetic 240x200 model, float64: channel edges
-    # between ranks, the channel halo exchanged each sub-step
+    # between ranks, the channel halo exchanged each sub-step (sharded) and
+    # before each launch (packed: K4a, the q-space solve)
     t0 = time.perf_counter()
     size = (240, 200)
     cfg, params, state, aux = build_synthetic_model(*size)
-    cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=SYNTHETIC_SHARDS)
-    ref2, k7_2 = one_process_reference(torch, cfg, params, aux, state,
-                                 [synthetic_forcing(cfg.num_pixels)] * (1 + SYNTHETIC_STEPS),
-                                 SYNTHETIC_STEPS, torch.float64)
-    torch.cuda.empty_cache()
+    forcing = [synthetic_forcing(cfg.num_pixels)] * (1 + SYNTHETIC_STEPS)
+    refs2 = {}
+    for router in ("sharded", "packed"):
+        cfg_r = dataclasses.replace(cfg, routing_kernel=router, num_shards=SYNTHETIC_SHARDS)
+        refs2[router] = one_process_reference(torch, cfg_r, params, aux, state, forcing,
+                                              SYNTHETIC_STEPS, torch.float64)
+        torch.cuda.empty_cache()
     spec2 = {"case": "synthetic", "size": size, "nranks": SYNTHETIC_RANKS,
              "shards": SYNTHETIC_SHARDS, "days": SYNTHETIC_STEPS, "dtype": "float64",
-             "device": "cuda"}
-    results2, got2 = launch_ranks(spec2, tmp)
+             "device": "cuda", "routers": ["sharded", "packed"]}
+    results2, got2, own2 = launch_ranks(spec2, tmp)
     print(f"  {SYNTHETIC_RANKS} rank processes, synthetic {size[0]}x{size[1]}, "
-          f"{SYNTHETIC_SHARDS} shards, float64, one warm-up step and {SYNTHETIC_STEPS}: "
-          f"{time.perf_counter() - t0:.1f} s in all (the one-process reference included)",
-          flush=True)
-    rank_lines(results2, SYNTHETIC_STEPS, k7_2)
-    assert any(r["graphs"]["kin"]["halo"] for r in results2), "no channel halo"
-    ranks_bitwise(got2, ref2, f"{SYNTHETIC_RANKS} ranks against the one-process step")
-    launches = results[0]["launches"]["kinwave_sharded"]
+          f"{SYNTHETIC_SHARDS} shards, float64, one warm-up step and {SYNTHETIC_STEPS}, sharded "
+          f"then packed: {time.perf_counter() - t0:.1f} s in all (the one-process references "
+          f"included)", flush=True)
+    rank_lines(results2, "sharded", SYNTHETIC_STEPS, refs2["sharded"][1], card)
+    assert any(r["sharded"]["graphs"]["kin"]["halo"] for r in results2), "no channel halo"
+    ranks_bitwise(got2["sharded"], refs2["sharded"][0],
+                  f"{SYNTHETIC_RANKS} sharded ranks against the one-process step")
+    rank_lines(results2, "packed", SYNTHETIC_STEPS, refs2["packed"][1], card,
+               refs2["packed"][2]["ms"])
+    assert any(r["packed"]["graphs"]["kin"]["halo"] for r in results2), "no packed channel halo"
+    ranks_bitwise(got2["packed"], refs2["packed"][0],
+                  f"{SYNTHETIC_RANKS} packed ranks against the one-process packed step")
+    packed_own_bitwise(refs2["packed"][2], own2, SYNTHETIC_RANKS, "synthetic, packed, float64")
+    launches = results[0]["sharded"]["launches"]["kinwave_sharded"]
     ch, ov = k6["channel"], k6["overland"]
+    sub0, k5 = results[0]["packed"]["substep"], results[0]["packed"]["k5"]
+    packed = {
+        "kinwave_substep_rank": {
+            "ms": sub0["ms"], "plain_ms": sub0["plain_ms"], "bound_ms": sub0["bound_ms"],
+            "bound_by": sub0["bound_by"], "max_abs_err": sub0["max_abs_err"],
+            "launches": results[0]["packed"]["launches"]["kinwave_substep"],
+            "ms_whole": whole["ms"], "chunks": sub0["chunks"], "padding": sub0["padding"],
+            "plain_shape": f"first {sub0['prefix']} of rank 0's {sub0['chunks']} kept chunks, "
+                           f"1200x1000 catchment, {CATCHMENT_RANKS} ranks, float32"},
+        "kinwave_sweep_rank": {
+            "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+            "bound_by": k5["bound_by"], "max_abs_err": k5["max_abs_err"],
+            "launches": results[0]["packed"]["launches"]["kinwave_sweep"],
+            "ms_whole": whole["k5_ms"], "chunks": k5["chunks"], "padding": k5["padding"],
+            "plain_shape": f"rank 0's {k5['chunks']} kept overland chunks, 1200x1000 "
+                           f"catchment, {CATCHMENT_RANKS} ranks, float32"}}
     return {"ms": ch["ms"], "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
             "bound_by": ch["bound_by"], "max_abs_err": max(ch["max_abs_err"],
                                                            ov["max_abs_err"]),
@@ -2935,17 +3269,19 @@ def phase_ranks(torch, card, path, tmp, ref, single):
             "bound_ms_overland": ov["bound_ms"], "chain_floor_ms": ch["chain_floor_ms"],
             "chain_floor_ms_overland": ov["chain_floor_ms"], "ms_phase10": single["ms"],
             "ms_overland_phase10": single["ms_overland"], "step_ms_ranks": ms_two,
-            "step_ms_one_process": single["step_ms"],
-            "exchange_mb_per_step": [(r["stats"]["bytes_sent"] + r["stats"]["bytes_received"])
-                                     / days / 1e6 for r in results],
+            "step_ms_one_process": single["step_ms"], "step_ms_packed_ranks": packed_two,
+            "exchange_mb_per_step": [(r["sharded"]["stats"]["bytes_sent"]
+                                      + r["sharded"]["stats"]["bytes_received"]) / days / 1e6
+                                     for r in results],
             "plain_shape": f"1200x1000 catchment, rank 0 of {CATCHMENT_RANKS}, its own and halo "
-                           f"positions, one channel sub-step (and the overland sweep), float32"}
+                           f"positions, one channel sub-step (and the overland sweep), float32",
+            "packed": packed}
 
 
 def multi_process_check(torch):
     """`python3 chip_smoke.py --multi-process`: phase 14 alone, on its own
-    1200x1000 catchment and phase 10's one-process step over the same days
-    as its reference."""
+    1200x1000 catchment, with the one-process sharded and packed steps over
+    the same days as its references."""
     import dataclasses
 
     from lisflood_tpu_torch.config import load_settings
@@ -2960,18 +3296,21 @@ def multi_process_check(torch):
                                n_steps=1 + SHARDED_DAYS, nc_format="classic")
         settings = load_settings(path)
         cfg, params, state, aux = build_model(settings)
-        cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=SHARDS)
         forcing = meteo_forcing(settings, cfg, aux)
         t0 = time.perf_counter()
-        ref, k7 = one_process_reference(torch, cfg, params, aux, state, forcing, SHARDED_DAYS,
-                                        torch.float32)
-        print(f"  the one-process reference in {time.perf_counter() - t0:.1f} s", flush=True)
+        refs = {}
+        for router in ("sharded", "packed"):
+            cfg_r = dataclasses.replace(cfg, routing_kernel=router, num_shards=SHARDS)
+            refs[router] = one_process_reference(torch, cfg_r, params, aux, state, forcing,
+                                                 SHARDED_DAYS, torch.float32)
+            torch.cuda.empty_cache()
+        print(f"  the one-process references in {time.perf_counter() - t0:.1f} s", flush=True)
         del params, aux, forcing
         torch.cuda.empty_cache()
-        fig = phase_ranks(torch, card, path, tmp, ref, {"ms": float("nan"),
-                                                        "ms_overland": float("nan"),
-                                                        "step_ms": float("nan"),
-                                                        "k7_per_step": k7})
+        fig = phase_ranks(torch, card, path, tmp, refs, {"ms": float("nan"),
+                                                         "ms_overland": float("nan"),
+                                                         "step_ms": float("nan"),
+                                                         "k7_per_step": refs["sharded"][1]})
     print(json.dumps({k: v for k, v in fig.items() if k != "plain_shape"}), flush=True)
     print(smi_line())
     return 0
@@ -3079,18 +3418,12 @@ def main():
     print(f"  parts of the {step_ms:.1f} ms step, each timed alone (they overlap in the step: "
           f"the host enqueues the next land phase while the routing kernel runs): land phase "
           f"+ surface routing {land_ms:.1f} ms, routing kernel {kernel_ms:.1f} ms", flush=True)
-    # the plain version at the main-path shape: the comparison that holds the
-    # kernel to it, and its time from this one run
-    t0 = time.perf_counter()
-    ref = ks.substep_reference(spec, xs)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    rel, absd = max_rel_err(ys, ref)
+    # the plain version at the main-path shape, after the timed phases: the
+    # comparison that holds the kernel to it, and its time from that run
+    main_job = plain_later(spec, xs, ys, 1e-5, f"main-path launch ({spec.n_chunks} chunks)")
     print(f"  kernel {kernel_ms:.3f} ms/launch (mean of {N_REP}); bound {bound_ms:.4f} ms "
-          f"({bound_by}); plain version {plain_ms:.1f} ms (one run), kernel vs plain max "
-          f"rel err {rel:.3e} (tol 1e-05), max abs err {absd:.3e}, at the main-path shape "
-          f"({spec.n_chunks} chunks); card {card}", flush=True)
-    assert rel <= 1e-5, f"kernel disagrees with the plain version: {rel}"
+          f"({bound_by}), at the main-path shape ({spec.n_chunks} chunks); card {card}",
+          flush=True)
     ops8, _ = soil_tail_operands(torch, multi.step, s, forcing[0])
     was = PREVIOUS_MS["soil_tail"]
     k8_main = {**soil_tail_figures(torch, card, ops8, 1e-5, "continental main path, float32",
@@ -3102,7 +3435,7 @@ def main():
     print(f"  the float64 q-space kernel at 240x200: {f64['ms']:.3f} ms with {f64['blocks']} "
           f"blocks ({f64['ms_one_block']:.3f} ms with one), bound "
           f"{f64['bound_ms']:.4f} ms "
-          f"({f64['bound_by']}), plain version {f64['plain_ms']:.0f} ms", flush=True)
+          f"({f64['bound_by']})", flush=True)
 
     stamp(5)
     print("phase 5: all-options path, continental 1200x1000, T=24, C=512, float32", flush=True)
@@ -3149,20 +3482,15 @@ def main():
           f"abstraction + surface routing {land5_ms:.1f} ms, routing kernel {kernel5_ms:.1f} ms; "
           f"operand build, post-routing and the mass balance's catchment totals are the rest",
           flush=True)
-    t0 = time.perf_counter()
-    ref5 = ks.substep_reference(spec5, xs5)
-    torch.cuda.synchronize()
-    plain5_ms = (time.perf_counter() - t0) * 1e3
-    assert "trans" in ref5 and bool(torch.isfinite(ys5["trans"]).all())
-    rel5, absd5 = max_rel_err(ys5, ref5)
+    assert "trans" in ys5 and bool(torch.isfinite(ys5["trans"]).all())
+    opts_job = plain_later(spec5, xs5, ys5, 1e-5,
+                           f"launch with the sideflow terms ({spec5.n_chunks} chunks)")
     side = mid["float32"]
     print(f"  kernel with the sideflow terms {kernel5_ms:.3f} ms/launch (mean of {N_REP}); bound "
-          f"{bound5_ms:.4f} ms ({bound5_by}); plain version {plain5_ms:.1f} ms (one run), kernel "
-          f"vs plain max rel err {rel5:.3e} (tol 1e-05), max abs err {absd5:.3e}, at this "
-          f"path's shape ({spec5.n_chunks} chunks, window {spec5.window}); at 240x200 (phase 2) "
-          f"kernel {side['ms']:.3f} ms, plain {side['plain_ms']:.0f} ms; card {card}", flush=True)
-    assert rel5 <= 1e-5, f"kernel with the sideflow terms disagrees with the plain version: {rel5}"
-    del xs5, ys5, ref5
+          f"{bound5_ms:.4f} ms ({bound5_by}), at this path's shape ({spec5.n_chunks} chunks, "
+          f"window {spec5.window}); at 240x200 (phase 2) kernel {side['ms']:.3f} ms; card "
+          f"{card}", flush=True)
+    del xs5, ys5
     print(f"  K7, the segment sums, on this grid's segments, float32 ("
           f"{counts5['segment_sum'] / STEPS_RUN:g} calls a step):", flush=True)
     was = PREVIOUS_MS["segment_sum"]
@@ -3186,7 +3514,7 @@ def main():
     print("phase 7: ensemble of the main path, continental 1200x1000, T=24, C=512, float32",
           flush=True)
     ensemble = phase_ensemble(torch, ks, model, multi.step, per_model_bytes, card)
-    del multi, p, s, model, d, xs, ys, ref
+    del multi, p, s, model, d, xs, ys
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3220,20 +3548,38 @@ def main():
              "scan": (scan.pop("single_step"), scan)})
         k8_catchment = context["soil_tail"]
         path = context["path"]
-        del context
+        # phase 14's packed ranks are held to phase 8's one-process packed
+        # step over the same days
+        cfg8, params8, state8, aux8 = context["model"]
+        packed_ref = one_process_reference(torch, cfg8, params8, aux8, state8,
+                                           context["forcing"], SHARDED_DAYS, torch.float32,
+                                           step=context["step"])
+        del context, params8, aux8
         torch.cuda.empty_cache()
         stamp(14)
         print(f"phase 14: the multi-process step, {CATCHMENT_RANKS} ranks on phase 8's catchment "
               f"and {SYNTHETIC_RANKS} on synthetic 240x200, float32 and float64", flush=True)
-        ranks = phase_ranks(torch, card, path, tmp, sharded.pop("ranks_reference"), sharded)
+        ranks = phase_ranks(torch, card, path, tmp,
+                            {"sharded": (sharded.pop("ranks_reference"), None, None),
+                             "packed": packed_ref}, sharded)
         sharded.pop("k7_per_step")
+        del packed_ref
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
-    main.update(launches=launches, max_abs_err=absd, plain_ms=plain_ms,
-                plain_shape="1200x1000, float32")
-    opts.update(launches=launches5, max_abs_err=absd5, plain_ms=plain5_ms,
+    # the plain versions, now that every device time is taken: every job
+    # checked, its time (PLAIN_WORKERS side by side) and the kernel's largest
+    # difference from it into the figures
+    stamp(15)
+    print("phase 15: the sub-step kernel's plain versions on the operands of phases 2 and 4-7",
+          flush=True)
+    plain = run_plain_jobs()
+    main.update(launches=launches, plain_job=main_job, plain_shape="1200x1000, float32")
+    opts.update(launches=launches5, plain_job=opts_job,
                 plain_shape="1200x1000, all options, float32")
+    for fig in (main, opts, prerun):
+        _, fig["max_abs_err"], fig["plain_ms"] = plain[fig.pop("plain_job")]
+        fig["plain_side_by_side"] = PLAIN_WORKERS
     # the sub-step kernel on the five paths and the overland sweep: ms,
     # launches and bound at each path's full-width shape, plain_ms and
     # max_abs_err at plain_shape
@@ -3294,10 +3640,23 @@ def main():
     # K6 on one rank's own and halo tables (phase 14): a channel sub-step's
     # launch on rank 0 of the catchment's two ranks, its launches in that
     # rank's timed days; no PyTorch call computes it
+    packed_ranks = ranks.pop("packed")
     figures["kernels"].append(
         {"name": "kinwave_sharded_rank", "route": "cuda",
          "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
          "replaces": "lisflood_tpu/ops/kinwave_sharded.py:164", "library_ms": None, **ranks})
+    # the sub-step kernel on rank 0's kept chunks and K5 on its overland
+    # tables (phase 14, packed ranks): ms beside the whole schedule's launch
+    # in this run (ms_whole), launches in rank 0's timed days; no PyTorch call
+    # computes either
+    figures["kernels"].append(
+        {"name": "kinwave_substep_rank", "route": "cuda", "source": source,
+         "replaces": replaces, "library_ms": None, **packed_ranks["kinwave_substep_rank"]})
+    figures["kernels"].append(
+        {"name": "kinwave_sweep_rank", "route": "cuda",
+         "source": "lisflood_tpu_torch/csrc/kinwave_sweep.cu",
+         "replaces": "lisflood_tpu/ops/kinwave_packed.py:211", "library_ms": None,
+         **packed_ranks["kinwave_sweep_rank"]})
     print(f"host synchronisations in one step, by path: {SYNCS}", flush=True)
     SOIL_COUNTS.update({"main": k8_main, "catchment": k8_catchment})
     print("K8 lanes that sub-step / the largest count, by path: "

@@ -173,6 +173,16 @@ def build_routers(cfg, aux, device):
     return routers
 
 
+# the padding fill of each per-position row of packed_routing_params: a
+# padded lane stays inert (parallel/shard_model.py fills the lanes of a rank's
+# chunks that it neither owns nor reads with them too)
+PACKED_FILLS = {"ChanLength": 1.0, "ChannelAlpha": 1.0, "IsChannelKinematic": False,
+                "AtLastPointC": False, "ChannelAlpha2": 1.0, "QLimit": 0.0,
+                "M3Limit": np.inf,      # padded lanes never count as over-limit
+                "Chan2M3Start": 0.0, "Chan2QStart": 0.0, "UpTrans": False,
+                "TransPower1": 1.0, "TransPower2": 1.0, "TransSub": 0.0}
+
+
 def packed_routing_params(cfg, params_np, ps):
     """Host-side schedule-order reorder of the per-pixel params the sub-step
     loop touches (p['kinp$...']), with padding fills that keep padded lanes
@@ -193,26 +203,22 @@ def packed_routing_params(cfg, params_np, ps):
     sequential = not isinstance(ps, PackedSchedule)
     chunk_of = lambda pos: pos // ps.chunk
 
-    def pk(name, fill=0.0):
-        out["kinp$" + name] = ps.pack_np(np.asarray(params_np[name], np.float64), fill)
+    def pk(name):
+        fill = PACKED_FILLS[name]
+        kind = bool if isinstance(fill, bool) else np.float64
+        out["kinp$" + name] = ps.pack_np(np.asarray(params_np[name], kind), fill)
 
-    pk("ChanLength", 1.0)
-    pk("ChannelAlpha", 1.0)
-    out["kinp$IsChannelKinematic"] = ps.pack_np(
-        np.asarray(params_np["IsChannelKinematic"], bool), False)
+    pk("ChanLength")
+    pk("ChannelAlpha")
+    pk("IsChannelKinematic")
     if not sequential:
-        out["kinp$AtLastPointC"] = ps.pack_np(np.asarray(params_np["AtLastPointC"], bool), False)
+        pk("AtLastPointC")
     if cfg.split:
-        pk("ChannelAlpha2", 1.0)
-        pk("QLimit", 0.0)
-        pk("M3Limit", np.inf)      # padded lanes never count as over-limit
-        pk("Chan2M3Start", 0.0)
-        pk("Chan2QStart", 0.0)
+        for name in ("ChannelAlpha2", "QLimit", "M3Limit", "Chan2M3Start", "Chan2QStart"):
+            pk(name)
     if cfg.trans_loss:
-        out["kinp$UpTrans"] = ps.pack_np(np.asarray(params_np["UpTrans"], bool), False)
-        pk("TransPower1", 1.0)
-        pk("TransPower2", 1.0)
-        pk("TransSub", 0.0)
+        for name in ("UpTrans", "TransPower1", "TransPower2", "TransSub"):
+            pk(name)
 
     if sequential and cfg.rep_mbts:
         out["kinp$Catchments"] = ps.pack_np(np.asarray(params_np["Catchments"], np.int64),
@@ -355,12 +361,15 @@ class Step:
     dict of tensors; `land_phase` runs the step up to the channel routing
     and returns the diagnostics the routing consumes."""
 
-    def __init__(self, cfg, params, routers, device):
+    def __init__(self, cfg, params, routers, device, gw_grid=None):
         check_options(cfg)
         self.cfg = cfg
         self.params = params
         self.routers = routers
         self.device = torch.device(device)
+        # a rank of the multi-process step smooths LZ on the whole grid
+        # (parallel/shard_model.GridPixels)
+        self.gw_grid = gw_grid
         self.pipeline = resolve_pipeline(cfg, routers, self.device)
         # the evaporation chain runs inside the routing kernel when its graph
         # fits the schedule window, else before the routing (evapowater_step),
@@ -380,6 +389,17 @@ class Step:
         """State entry `key` in natural space, from its pk$ form where the
         state is packed."""
         return self.routers["kin"].unpack(s["pk$" + key]) if "pk$" + key in s else s[key]
+
+    def smooth_lz(self, p, lz):
+        """groundwater_smooth of LZ; on a rank (gw_grid), the whole grid's
+        smoothing of the gathered LZ, in the one-process order, of which the
+        rank keeps its own pixels."""
+        cfg, g = self.cfg, self.gw_grid
+        if g is None:
+            return groundwater_smooth(cfg, p, lz, p["LandRows"], p["LandCols"],
+                                      cfg.grid_rows, cfg.grid_cols)
+        return g.space.own_of(groundwater_smooth(cfg, g.params, g.space.gather(lz), g.rows,
+                                                 g.cols, cfg.grid_rows, cfg.grid_cols))
 
     def step_params(self, f):
         """The parameters of the step with forcing `f`: with transient land
@@ -450,8 +470,7 @@ class Step:
             d["ChanQ"] = self._natural(s, "ChanQ")
             d.update(ph.water_abstraction_step(cfg, p, wa_state, d))
             if cfg.groundwater_smooth:
-                d["LZ"] = groundwater_smooth(cfg, p, d["LZ"], p["LandRows"], p["LandCols"],
-                                             cfg.grid_rows, cfg.grid_cols)
+                d["LZ"] = self.smooth_lz(p, d["LZ"])
         d.update(ph.soil_perpixel_step(cfg, p, s, d))
         d.update(ph.groundwater_step(cfg, p, s, d))
         if cfg.init_lisflood_without_split:
@@ -470,7 +489,7 @@ class Step:
                 out_eva = ph.evapowater_step(cfg, p, s_eva, eva_d)
                 if "pk$EvaCumM3" in s:
                     out_eva["pk$EvaCumM3"] = (s["pk$EvaCumM3"]
-                                              + routers["kin"].pack(out_eva["EvaAddM3"]))
+                                              + routers["kin"].pack_rows([out_eva["EvaAddM3"]])[0])
                 d.update(out_eva)
 
         d.update(surface_routing_step(cfg, p, s, d, routers))

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_gather
 from .wavefront import SWEEP_CAP, TILE_ALIGN, sweep_tiles, upstream_table
 
 NEWTON_TOL = 1e-12
@@ -447,6 +448,22 @@ class PackedRouter:
         """Packed (..., p_pad) -> natural (..., P)."""
         return xp[..., self.inv_perm]
 
+    def pack_rows(self, rows, fills=None):
+        """pack of each natural row of `rows`, with its fill of `fills` (0
+        by default). A rank's router (RankPackedRouter) takes its halo's
+        values from their owners here, for all the rows at once."""
+        return [self.pack(x, f) for x, f in zip(rows, fills or [0.0] * len(rows))]
+
+    def structures(self, prefix, x):
+        """The entries of the lake ("lk") or reservoir ("rs") array `x`
+        whose lanes the sub-step kernel runs: all of them."""
+        return x
+
+    def structure_state(self, ys):
+        """The sub-step kernel's outputs `ys` with every structure's state:
+        as they are."""
+        return ys
+
     def sweep_operands(self, discharge, lateral_inflow, a_dx_div_dt, beta):
         """(L, P) natural-order lanes -> the sweep's packed (const, adx)
         operands, each (n_chunks, L, C)."""
@@ -470,3 +487,126 @@ class PackedRouter:
         """Single-lane convenience wrapper."""
         return self.route_batched(discharge[None], lateral_inflow[None],
                                   a_dx_div_dt[None], beta)[0]
+
+
+# ---------------------------------------------------------------------------
+# one rank's part of the packed routers (parallel/shard_model.py): the whole
+# schedule's chunks that hold a position it owns or reads
+
+
+class RankPackedRouter(PackedRouter):
+    """One rank's PackedRouter (parallel/shard_model.PackedRankLayout). Its
+    schedule `ps` is the rank's kept chunks of the whole packed schedule:
+    every chunk that holds a position it owns or one of its halo (the
+    positions of other ranks upstream of its own), in order, each lane where
+    it was; the other lanes of those chunks are padding. So every edge of
+    the whole schedule between kept lanes ends 1..W chunks later, and every
+    source table keeps its order: the sub-step kernel and the sweep run on
+    them unchanged and give the one-process bits at the rank's own and halo
+    lanes.
+
+    `part` holds, as NumPy arrays: `perm` (p_pad,) each local position's
+    index among the rank's own pixels (n_own elsewhere) and `inv_perm` the
+    reverse; `halo` the halo's local positions and `halo_src` where their
+    values lie in the gathered send buffers (owner x send_max + index in
+    the owner's send list); `send` the own pixels other ranks read, as
+    indices among the rank's own; `send_max`; `exchange` (whether any rank
+    has a halo: every rank then takes part); `no_edges` (the whole graph's);
+    and for the channel `struct_rows` (prefix -> the structures on kept
+    lanes, ascending) and `struct_src` (prefix -> (owned, owner, index)):
+    each structure's owning rank and index among that rank's structures,
+    and the positions of this rank's own structures among its kept ones.
+    pack_rows takes the halo's rows from their owners (one all_gather of
+    every row), structure_state every structure's state from its owner (one
+    all_gather a step)."""
+
+    def __init__(self, ps, part, group, device):
+        self.ps = ps
+        self.device = torch.device(device)
+        self.group = group
+        self.no_edges = bool(part["no_edges"])
+        dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        self.perm, self.inv_perm = dev(part["perm"]), dev(part["inv_perm"])
+        self.exchange, self.send_max = bool(part["exchange"]), int(part["send_max"])
+        self.send, self.halo, self.halo_src = dev(part["send"]), dev(part["halo"]), dev(
+            part["halo_src"])
+        self.struct_rows = {k: dev(v) for k, v in part.get("struct_rows", {}).items()}
+        self.struct_src = part.get("struct_src", {})
+        self._struct_gather = None
+        self._tiles = {}
+
+    def pack_rows(self, rows, fills=None):
+        """The natural rows `rows` (each (..., n_own)) -> packed (...,
+        p_pad): the rank's own values, its halo's from their owners in one
+        all_gather of every row (when any rank has a halo), `fills` (0 by
+        default) on the other lanes."""
+        fills = fills or [0.0] * len(rows)
+        flat = [x.reshape(-1, x.shape[-1]) for x in rows]
+        x = torch.cat(flat)
+        fill = torch.cat([x.new_full((f.shape[0], 1), v) for f, v in zip(flat, fills)])
+        xp = torch.cat([x, fill], 1).index_select(1, self.perm)
+        if self.exchange:
+            buf = x.new_zeros(x.shape[0], self.send_max)
+            buf[:, :self.send.numel()] = x.index_select(1, self.send)
+            got = all_gather(buf, self.group).transpose(0, 1).reshape(x.shape[0], -1)
+            xp.index_copy_(1, self.halo, got.index_select(1, self.halo_src))
+        out, i = [], 0
+        for r, f in zip(rows, flat):
+            out.append(xp[i:i + f.shape[0]].reshape(r.shape[:-1] + (-1,)))
+            i += f.shape[0]
+        return out
+
+    def sweep_operands(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """(L, n_own) natural lanes -> the sweep's (const, adx) operands on
+        the kept chunks, (n_chunks, L, C), the halo's from their owners."""
+        ps = self.ps
+        constant = a_dx_div_dt * discharge ** beta + lateral_inflow
+        constant, adx = self.pack_rows([constant, a_dx_div_dt.expand_as(constant)], [0.0, 1.0])
+        shape = (constant.shape[0], ps.n_chunks, ps.chunk)
+        return (constant.reshape(shape).transpose(0, 1).contiguous(),
+                adx.reshape(shape).transpose(0, 1).contiguous())
+
+    def structures(self, prefix, x):
+        """The entries of `x` of the structures on kept lanes."""
+        return x.index_select(0, self.struct_rows[prefix])
+
+    def structure_state(self, ys):
+        """Every structure's entries of the kernel's outputs `ys` (the
+        structures on kept lanes) from the rank that owns its cell: one
+        all_gather of each rank's own structures' entries."""
+        if not self.struct_rows:
+            return ys
+        keys = {p: sorted(k for k in ys if k.startswith(p + "_")) for p in self.struct_rows}
+        if self._struct_gather is None:
+            self._struct_gather = self._gather_plan({p: len(k) for p, k in keys.items()})
+        width, owned, src = self._struct_gather
+        mine = [torch.stack([ys[k] for k in keys[p]]).index_select(1, owned[p]).reshape(-1)
+                for p in keys]
+        x = torch.cat(mine)
+        buf = x.new_zeros(width)
+        buf[:x.numel()] = x
+        got = all_gather(buf, self.group).reshape(-1)
+        out = dict(ys)
+        for p, ks in keys.items():
+            vals = got.index_select(0, src[p].reshape(-1)).reshape(src[p].shape)
+            out.update(zip(ks, vals))
+        return out
+
+    def _gather_plan(self, n_keys):
+        """(buffer width, the positions of the rank's own structures among
+        its kept ones, each structure's entries' places in the gathered
+        buffers) for `n_keys` entries of each prefix: rank o's buffer holds
+        its own structures' entries, prefix by prefix, key-major."""
+        n_ranks = max(int(o.max(initial=-1)) for _, o, _ in self.struct_src.values()) + 1
+        base = np.zeros(n_ranks, np.int64)
+        offset = {}
+        for p, (_, owner, index) in self.struct_src.items():
+            counts = np.bincount(owner, minlength=n_ranks)
+            offset[p] = base[owner] + np.arange(n_keys[p])[:, None] * counts[owner] + index
+            base += n_keys[p] * counts
+        width = max(int(base.max()), 1)
+        src = {p: torch.as_tensor(self.struct_src[p][1] * width + off, device=self.device)
+               for p, off in offset.items()}
+        owned = {p: torch.as_tensor(o, device=self.device)
+                 for p, (o, _, _) in self.struct_src.items()}
+        return width, owned, src

@@ -313,8 +313,21 @@ def kernel_operands(cfg, p, s, d, routers):
     split = cfg.split
     dtype = spk("ChanQKin").dtype
     c2 = lambda x: x.reshape(n, C)
+    # the land phase's per-pixel inputs of the loop, packed together (a rank
+    # takes its halo's from their owners there)
+    rows = {"ToChan": d["ToChanM3RunoffDt"]}
+    if "EvaUpstream0" in d:
+        rows["ev_up0"] = d["EvaUpstream0"]
+    elif cfg.open_water_evapo:
+        rows["eva"] = d["EvaAddM3Dt"]
+    if cfg.water_use:
+        rows["withdrawal"] = d["withdrawal_CH_actual_M3_routStep"]
+        rows["returnflow"] = d["returnflow_GwAbs2Channel_M3_routStep"]
+    if cfg.inflow:
+        rows["qin_old"], rows["qdelta"] = d["QInM3OldLoop"], d["QDelta"]
+    packed = dict(zip(rows, kin.pack_rows(list(rows.values()))))
     xs = {
-        "ToChan": c2(kin.pack(d["ToChanM3RunoffDt"])),
+        "ToChan": c2(packed["ToChan"]),
         "dx": c2(pk("ChanLength")),
         "adx1": c2(pk("ChannelAlpha") * pk("ChanLength") / cfg.dt_routing),
         "alpha1": c2(pk("ChannelAlpha")),
@@ -340,37 +353,39 @@ def kernel_operands(cfg, p, s, d, routers):
         # the whole evaporation chain runs in the kernel, its transfers over
         # the evaporation graph's upstream table
         E = int(cfg.max_no_eva)
-        xs["ev_up0"] = c2(kin.pack(d["EvaUpstream0"]))
+        xs["ev_up0"] = c2(packed["ev_up0"])
         xs["ev_ups"] = pk("EvaUpsTable")
     elif cfg.open_water_evapo:
         # the chain ran outside (physics.evapowater_step)
-        xs["eva"] = c2(kin.pack(d["EvaAddM3Dt"]))
+        xs["eva"] = c2(packed["eva"])
     if cfg.water_use:
-        xs["wuse"] = c2(kin.pack(d["withdrawal_CH_actual_M3_routStep"])
-                        - kin.pack(d["returnflow_GwAbs2Channel_M3_routStep"]))
+        xs["wuse"] = c2(packed["withdrawal"] - packed["returnflow"])
     if cfg.inflow:
-        xs["qin_old"] = c2(kin.pack(d["QInM3OldLoop"]))
-        xs["qdelta"] = c2(kin.pack(d["QDelta"]))
+        xs["qin_old"] = c2(packed["qin_old"])
+        xs["qdelta"] = c2(packed["qdelta"])
     if cfg.trans_loss:
         xs["uptrans"] = c2(pk("UpTrans").to(dtype))
         xs["tp1"] = c2(pk("TransPower1"))
         xs["tp2"] = c2(pk("TransPower2"))
         xs["tsub"] = c2(pk("TransSub"))
     # structure inflow at the start of the step: the previous sub-step's
-    # discharge of its <=8 feeders (pre-cut graph)
+    # discharge of its <=8 feeders (pre-cut graph); the structures are those
+    # on the router's lanes (a rank's: those on its kept lanes)
     buf0 = lambda name: (spk("ChanQ")[pk(name + "UpsIdx")] * pk(name + "UpsW")).sum(1)
-    xs.update(structure_params(cfg, p))
+    xs.update({k: kin.structures(k[:2], v) for k, v in structure_params(cfg, p).items()})
     if cfg.lakes:
+        lk = lambda key: kin.structures("lk", s[key])
         xs.update({
             "lk_pos": pk("LakePos"), "lk_fee": pk("LakeFee"), "lk_fee_w": pk("LakeUpsW"),
-            "lk_st0": s["LakeStorageM3CC"], "lk_inold0": s["LakeInflowOldCC"],
-            "lk_out0": s["LakeOutflowCC"], "lk_bal0": s["LakeStorageM3BalanceCC"],
+            "lk_st0": lk("LakeStorageM3CC"), "lk_inold0": lk("LakeInflowOldCC"),
+            "lk_out0": lk("LakeOutflowCC"), "lk_bal0": lk("LakeStorageM3BalanceCC"),
             "lk_buf0": buf0("Lake"),
         })
     if cfg.reservoirs:
         xs.update({
             "rs_pos": pk("ResPos"), "rs_fee": pk("ResFee"), "rs_fee_w": pk("ResUpsW"),
-            "rs_st0": s["ReservoirStorageM3CC"], "rs_fill0": s["ReservoirFillCC"],
+            "rs_st0": kin.structures("rs", s["ReservoirStorageM3CC"]),
+            "rs_fill0": kin.structures("rs", s["ReservoirFillCC"]),
             "rs_buf0": buf0("Res"),
         })
     # the kernel's dependency tables (the plain version does not read them)
@@ -390,7 +405,7 @@ def channel_routing_kernel(cfg, p, s, d, routers):
     kin = routers["kin"]
     T = cfg.no_rout_steps
     spec, xs = kernel_operands(cfg, p, s, d, routers)
-    ys = kinwave_substep(spec, xs)
+    ys = kin.structure_state(kinwave_substep(spec, xs))
 
     flat = lambda name: ys[name].reshape(-1)
     carry = {"ChanQKin": flat("q1"), "ChanM3Kin": flat("m31"),

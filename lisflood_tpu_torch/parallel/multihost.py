@@ -4,9 +4,10 @@ The JAX package brings up `jax.distributed`, makes a global mesh over every
 process's devices and lets GSPMD shard the pixel axis. Here N processes
 (ranks) join one torch.distributed process group (gloo,
 parallel/collectives.py), and each steps the part of the grid it owns
-(parallel/shard_model.py: whole logical shards of RoutingKernel sharded, K6
-on its own positions plus its upstream halo). The gathered state is the
-one-process state bit for bit, for any rank count at a fixed shard count.
+(parallel/shard_model.py: whole logical shards; RoutingKernel packed runs
+the sub-step kernel and K5 on the rank's kept chunks of the whole packed
+schedules, sharded K6 on its own positions, each with its upstream halo).
+The gathered state is the one-process state bit for bit.
 
 - `initialize(...)`: the process group;
 - `global_mesh()`: the world group;
@@ -16,14 +17,16 @@ one-process state bit for bit, for any rank count at a fixed shard count.
 - `gather_state(step, state)`: the whole natural state on every rank (the
   counterpart of `process_allgather`);
 - a command line, `python -m lisflood_tpu_torch.parallel.multihost --rank i
-  --nprocs N [--steps K --out state.npz --kernel sharded --shards S
+  --nprocs N [--steps K --out state.npz --kernel packed|sharded --shards S
   --device cuda|cpu --init-method file:///path]`, which runs the synthetic
   16x16 model in float64 for K steps and saves the gathered state on rank 0
-  (tests/test_torch_multihost.py holds N = 1, 2 and 4 bitwise equal).
+  (tests/test_torch_multihost.py and tests/test_torch_multihost_packed.py
+  hold N = 1, 2 and 4 bitwise equal).
 
 One process runs any router, as the one-process step does; more than one
-runs RoutingKernel sharded. With `--device cuda` (the default) rank r takes
-card r modulo the card count, so N ranks may share one card.
+runs RoutingKernel packed and sharded (every option but folded ensembles;
+scan is later work, ROADMAP.md). With `--device cuda` (the default) rank r
+takes card r modulo the card count, so N ranks may share one card.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from ..device import to_device
 from ..models.step import build_step
 from ..models.synthetic import build_synthetic_model, synthetic_forcing
 from . import collectives
-from .shard_model import RankLayout, check_ranks, rank_device, rank_step, shard_tree
+from .shard_model import check_ranks, rank_device, rank_layout, rank_step, shard_tree
 
 
 def initialize(init_method, world_size, rank, backend="gloo"):
@@ -65,7 +68,9 @@ def shard_tree_global(layout, tree, num_pixels=None):
 
 def multihost_step(model, layout, group, dtype=torch.float64, device=None):
     """The rank's step of the host model (cfg, params, aux) laid out by
-    `layout` (shard_model.RankLayout) over `group`: a shard_model.RankStep."""
+    `layout` (shard_model.rank_layout: a RankLayout for RoutingKernel
+    sharded, a PackedRankLayout for packed) over `group`: a
+    shard_model.RankStep."""
     cfg, params, aux = model
     return rank_step(cfg, params, aux, layout, group, dtype, device)
 
@@ -87,8 +92,9 @@ def run_demo(rank, nprocs, steps=3, out=None, device=None, init_method=None,
     `steps` steps; returns the gathered state, which rank 0 saves to `out`."""
     dev = rank_device(device, rank)
     cfg, params, state, aux = build_synthetic_model(16, 16)
-    if routing_kernel == "sharded":
-        cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=num_shards)
+    if routing_kernel in ("sharded", "packed"):
+        # the packed router's layout takes num_shards as its logical shard count
+        cfg = dataclasses.replace(cfg, routing_kernel=routing_kernel, num_shards=num_shards)
     elif routing_kernel:
         cfg = dataclasses.replace(cfg, routing_kernel=routing_kernel)
     check_ranks(cfg, nprocs)
@@ -96,7 +102,7 @@ def run_demo(rank, nprocs, steps=3, out=None, device=None, init_method=None,
     try:
         forcing = synthetic_forcing(cfg.num_pixels)
         if nprocs > 1:
-            layout = RankLayout(cfg, aux, rank, nprocs)
+            layout = rank_layout(cfg, params, aux, rank, nprocs)
             step = multihost_step((cfg, params, aux), layout, group, torch.float64, dev)
             s, f = step.prepare_state(state), step.shard_forcing(forcing)
         else:

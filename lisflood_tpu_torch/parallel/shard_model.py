@@ -1,5 +1,5 @@
-"""Ranks owning whole shards of RoutingKernel sharded — the port of
-lisflood_tpu/parallel/shard_model.py.
+"""Ranks owning whole logical shards of the pixel axis, on the packed and
+the sharded router — the port of lisflood_tpu/parallel/shard_model.py.
 
 The JAX package shards the pixel axis of its one-device step over a mesh
 with `with_sharding_constraint` and lets XLA insert the collectives. PyTorch
@@ -7,34 +7,47 @@ has no such partitioner, so here every rank says what it owns and what
 crosses ranks:
 
 - Rank r of N owns the logical shards [floor(r S / N), floor((r + 1) S / N))
-  of `catchment_partition` (parallel/partition.py), S = cfg.num_shards >= N.
-  In the shard-major position space of the sharded schedules (pos = s
-  n_chunks C + c C + l, ops/kinwave_sharded.py) that is one contiguous block
-  of each schedule, and its natural pixels are the real positions of the
-  block, in ascending natural order: the rank's pixel axis. Every rank builds
-  the whole model, partition and schedules on the host, as every JAX process
-  holds the host arrays, and moves only its own part, and its tables, to its
-  device (`RankLayout`, `rank_step`).
+  of `catchment_partition` (parallel/partition.py): S = cfg.num_shards >= N
+  for RoutingKernel sharded, S = max(cfg.num_shards, N) for packed. Its
+  natural pixels, ascending, are the rank's pixel axis. Every rank builds
+  the whole model, partition and schedules on the host, as every JAX
+  process holds the host arrays, and moves only its own part, and its
+  tables, to its device (`RankLayout`, `PackedRankLayout`, `rank_step`).
 - The column physics is pixel-local and runs on the rank's pixels alone.
-- Each sweep (K6) runs on the rank's own positions plus its upstream halo,
-  the positions of other ranks upstream of them, whose operands arrive
-  before the launch (ops/kinwave_sharded.RankRouter): every position's
-  sources are summed by the same kernel in the same table order, so the bits
-  are the one-process run's.
+- RoutingKernel sharded (`RankLayout`): the rank's positions are one
+  contiguous block of each shard-major sharded schedule (pos = s n_chunks C
+  + c C + l, ops/kinwave_sharded.py); each sweep (K6) runs on its own
+  positions plus its upstream halo, the positions of other ranks upstream
+  of them, whose operands arrive before the launch (RankRouter).
+- RoutingKernel packed, the default (`PackedRankLayout`): the rank runs the
+  unchanged sub-step kernel on its kept chunks of the whole packed
+  schedule, every chunk that holds a position it owns or one of its halo,
+  in order, each lane where it was (ops/kinwave_packed.RankPackedRouter).
+  The halo is closed upstream over every edge the kernel reads (the routing
+  graph, the evaporation chain in the kernel, the lakes' and reservoirs'
+  feeders), so dropping the other chunks only shortens distances and keeps
+  every order: the kernel's contract holds, its tables are the whole
+  schedule's remapped (rank_kinp), and the land phase's rows of the halo
+  arrive in one all_gather before the launch. The rank steps its halo's
+  routing state itself, bit for bit its owner's; each structure's state
+  comes from the rank that owns its cell, one gather a step. The overland
+  sweep (K5) runs on the rank's kept overland chunks the same way.
+- Either way every position's sources are summed by the same kernel in the
+  same table order, so the bits are the one-process run's.
 - Every other operation that reads across pixels gathers what it reads:
   segment sums (K7: catchment, region and evaporation totals) sum the
   gathered vector in the one-process order and keep the rank's part
-  (`RankOrder`); the lake and reservoir steps read their feeders' discharge
-  from the ranks that own them and run on every rank, and a structure's
-  owner writes its outflow (`RankIndex`); the evaporation stencil runs on the
-  gathered grid; the soil's Courant cap flag is a global OR.
+  (`RankOrder`); the lake and reservoir steps of the sharded router read
+  their feeders' discharge from the ranks that own them, and a structure's
+  owner writes its outflow (`RankIndex`); the evaporation stencil and
+  groundwater smoothing's window run on the gathered grid (`GridIndex`,
+  `GridPixels`); the soil's Courant cap flag is a global OR. Transient land
+  use reads per-pixel forcing, split as any other.
 So the gathered state of N ranks is that of one process bit for bit, for
-every N <= S.
+every N <= S (the packed router's bits do not depend on S at all).
 
-Options whose non-local operations are not made collective (groundwater
-smoothing's window, transient land use, folded ensembles) and the packed
-and scan routers raise NotImplementedError with more than one rank
-(ROADMAP.md).
+RoutingKernel scan and folded ensembles raise NotImplementedError with more
+than one rank (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,10 +59,14 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..graph.ldd import graph_levels
-from ..models.step import Step, packed_routing_params, segment_orders, sharded_schedules
+from ..models.step import (PACKED_FILLS, Step, packed_routing_keys, packed_routing_params,
+                           segment_orders, sharded_schedules)
+from ..ops.kinwave_packed import PackedSchedule, RankPackedRouter, pack_schedule
 from ..ops.kinwave_sharded import RankRouter, _rank_in_group
 from ..ops.segment_sum import scatter_to_downstream, segment_spread
+from ..ops.wavefront import WAVEFRONT_TABLES, wavefront_tables
 from .collectives import all_gather, all_reduce_max, world
+from .partition import catchment_partition
 
 # parameters that index natural pixels (RankIndex of the pixel space), that
 # index the channel schedule's positions (RankIndex of its position space),
@@ -75,13 +92,20 @@ def rank_shards(rank, nranks, n_shards):
     return rank * n_shards // nranks, (rank + 1) * n_shards // nranks
 
 
-def downstream_ranks(down, owner):
-    """(P,) int64: for every pixel of the graph `down` (-1 = none), the bit
-    set of the ranks that own a pixel on its way down (itself left out)."""
-    mask = np.zeros(down.size, np.int64)
+def rank_of_shards(nranks, n_shards):
+    """(n_shards,) the rank that owns each logical shard."""
+    return np.array([r for r in range(nranks) for _ in range(*rank_shards(r, nranks, n_shards))])
+
+
+def downstream_ranks(down, owner, nranks):
+    """(P, nranks) bool: for every pixel of the graph `down` (-1 = none),
+    the ranks that own a pixel on its way down (itself left out)."""
+    mask = np.zeros((down.size, nranks), bool)
     for lv in graph_levels(down)[1:]:
         d = down[lv]
-        mask[lv] = mask[d] | (np.int64(1) << owner[d].astype(np.int64))
+        m = mask[d]
+        m[np.arange(d.size), owner[d]] = True
+        mask[lv] = m
     return mask
 
 
@@ -106,9 +130,9 @@ def graph_parts(ps, down, owner_pix, rank_of_shard):
     rank has a halo (every rank then takes part in each exchange)."""
     N = int(rank_of_shard.max()) + 1
     B = ps.n_chunks * ps.chunk
-    mask = downstream_ranks(np.asarray(down, np.int64), owner_pix)
+    mask = downstream_ranks(np.asarray(down, np.int64), owner_pix, N)
     inv = np.asarray(ps.inv_perm, np.int64)
-    halos = [np.sort(inv[(owner_pix != r) & ((mask >> r) & 1).astype(bool)]) for r in range(N)]
+    halos = [np.sort(inv[(owner_pix != r) & mask[:, r]]) for r in range(N)]
     owner_pos = rank_of_shard[np.arange(ps.p_pad) // B]
     needed = np.zeros(ps.p_pad, bool)
     for h in halos:
@@ -128,7 +152,27 @@ def graph_parts(ps, down, owner_pix, rank_of_shard):
     return parts
 
 
-class RankLayout:
+class _Layout:
+    """What both layouts share: the natural pixel space (`natural`, a
+    SpaceMap), the rank and every rank's part of each graph (`parts`)."""
+
+    @property
+    def owned(self):
+        """(P,) each pixel's index among this rank's pixels, -1 elsewhere."""
+        return np.where(self.natural.owner == self.rank, self.natural.local, -1)
+
+    def part(self, key):
+        return self.parts[key][self.rank]
+
+    def cut_edges(self, key, aux):
+        """The edges of graph `key` ("kin" or "tochan", in `aux`) whose ends
+        lie on two ranks."""
+        down = np.asarray(aux["graph_" + key].downstream, np.int64)
+        src = np.flatnonzero(down >= 0)
+        return int((self.natural.owner[src] != self.natural.owner[down[src]]).sum())
+
+
+class RankLayout(_Layout):
     """Which pixels and positions rank `rank` of `nranks` owns, on the host:
     the sharded schedules (`sharded_schedules(cfg, aux)`, or `sched`), the
     natural pixel space and the channel schedule's position space as
@@ -146,8 +190,7 @@ class RankLayout:
             raise ValueError(f"{nranks} ranks for {S} logical shards: each rank owns whole shards")
         self.sched, self.rank, self.nranks = sched, int(rank), int(nranks)
         self.num_pixels, self.n_shards = P, S
-        rank_of_shard = np.array([r for r in range(nranks)
-                                  for _ in range(*rank_shards(r, nranks, S))])
+        rank_of_shard = rank_of_shards(nranks, S)
         self.shards = rank_shards(rank, nranks, S)
         owner = rank_of_shard[np.asarray(sched["shard_of"], np.int64)]
         self.natural = SpaceMap(owner, _rank_in_group(owner, nranks),
@@ -163,20 +206,11 @@ class RankLayout:
                                   np.array([p["hi"] - p["lo"] for p in self.parts["kin"]]))
         self.seconds = {"schedules": t1 - t0, "layout": time.perf_counter() - t1}
 
-    @property
-    def owned(self):
-        """(P,) each pixel's index among this rank's pixels, -1 elsewhere."""
-        return np.where(self.natural.owner == self.rank, self.natural.local, -1)
-
-    def part(self, key):
-        return self.parts[key][self.rank]
-
-    def cut_edges(self, key, aux):
-        """The edges of graph `key` ("kin" or "tochan", in `aux`) whose ends
-        lie on two ranks."""
-        down = np.asarray(aux["graph_" + key].downstream, np.int64)
-        src = np.flatnonzero(down >= 0)
-        return int((self.natural.owner[src] != self.natural.owner[down[src]]).sum())
+    def position_index(self):
+        """The rank's part of the channel schedule's position space: its
+        block."""
+        part = self.part("kin")
+        return slice(part["lo"], part["hi"])
 
     def figures(self):
         """Per graph, this rank's own, halo and sent positions, the send
@@ -190,19 +224,308 @@ class RankLayout:
         return out
 
 
+def owner_of_pixels(cfg, aux, nranks, n_shards=None):
+    """(owner (P,), n_shards): each pixel's rank when rank r
+    of `nranks` owns the logical shards rank_shards(r, nranks, S) of
+    catchment_partition(aux["graph_kin"], S), S = n_shards or
+    max(cfg.num_shards, nranks)."""
+    S = int(n_shards or max(cfg.num_shards, nranks))
+    if not 1 <= nranks <= S:
+        raise ValueError(f"{nranks} ranks for {S} logical shards: each rank owns whole shards")
+    shard_of, _ = catchment_partition(aux["graph_kin"], S)
+    return rank_of_shards(nranks, S)[np.asarray(shard_of, np.int64)], S
+
+
+def downstream_rank_sets(chunk, src, tgt, owner_pos, nranks):
+    """(p_pad, nranks) bool: for every position of a packed schedule with
+    the edges src -> tgt (positions of real pixels), each ending in a later
+    chunk, the ranks owning a position it reaches (itself left out). The
+    chunks are visited from the last: every target's set is final when
+    read."""
+    reach = np.zeros((owner_pos.size, nranks), bool)
+    if not src.size:
+        return reach
+    if (tgt // chunk <= src // chunk).any():
+        raise ValueError("an edge of the packed schedule does not end in a later chunk")
+    order = np.lexsort((src, -(src // chunk)))
+    src, tgt = src[order], tgt[order]
+    cut = np.flatnonzero(np.diff(src // chunk)) + 1
+    for a, b in zip(np.r_[0, cut], np.r_[cut, src.size]):
+        s, t = src[a:b], tgt[a:b]
+        v = reach[t]
+        v[np.arange(t.size), owner_pos[t]] = True
+        first = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+        reach[s[first]] |= np.logical_or.reduceat(v, first, axis=0)
+    return reach
+
+
+def packed_parts(ps, src, tgt, owner_pix, nranks):
+    """Each rank's part of the whole packed schedule `ps` whose lanes read
+    across along the edges src -> tgt (positions), as a dict: its own
+    positions, its halo (the other ranks' positions upstream of its own),
+    the kept chunks (every chunk that holds one of either, ascending) and
+    their positions `glob` (kept chunk j's lane l is local position j C +
+    l), the positions it sends (in other ranks' halos, ascending), and where
+    its halo's values lie in the gathered send buffers (`halo_src`, owner x
+    send_max + index in the owner's send list); `exchange`: whether any rank
+    has a halo."""
+    C, P = ps.chunk, ps.num_pixels
+    real = ps.perm < P
+    owner_pos = np.full(ps.p_pad, -1, np.int64)
+    owner_pos[real] = owner_pix[ps.perm[real]]
+    reach = downstream_rank_sets(C, np.asarray(src, np.int64), np.asarray(tgt, np.int64),
+                                 owner_pos, nranks)
+    halos = [np.flatnonzero((owner_pos >= 0) & (owner_pos != r) & reach[:, r])
+             for r in range(nranks)]
+    needed = np.zeros(ps.p_pad, bool)
+    for h in halos:
+        needed[h] = True
+    send = [np.flatnonzero(needed & (owner_pos == o)) for o in range(nranks)]
+    send_max = max(1, max(x.size for x in send))
+    j = np.zeros(ps.p_pad, np.int64)
+    for x in send:
+        j[x] = np.arange(x.size)
+    exchange = any(h.size for h in halos)
+    parts = []
+    for r in range(nranks):
+        own = np.flatnonzero(owner_pos == r)
+        lanes = np.union1d(own, halos[r])
+        chunks = np.unique(lanes // C)
+        parts.append({"own": own, "halo": halos[r], "lanes": lanes, "chunks": chunks,
+                      "glob": (chunks[:, None] * C + np.arange(C)).reshape(-1),
+                      "send": send[r], "send_max": send_max, "exchange": exchange,
+                      "halo_src": owner_pos[halos[r]] * send_max + j[halos[r]]})
+    return parts
+
+
+def kept_schedule(ps, part):
+    """(the PackedSchedule of a rank's kept chunks of `ps`, loc_of): each
+    kept lane where it was, the other lanes padding, the edges between kept
+    lanes (each still 1..W chunks long); loc_of (p_pad + 1,) each position's
+    local position, -1 where it is not kept (and at p_pad, none). Raises
+    where a kept lane lost one of its sources: the halo is not closed
+    upstream."""
+    C, P, glob = ps.chunk, ps.num_pixels, part["glob"]
+    n = glob.size
+    loc_of = np.full(ps.p_pad + 1, -1, np.int64)
+    loc_of[part["lanes"]] = np.searchsorted(glob, part["lanes"])
+    kept = loc_of[glob] >= 0
+    down = np.where(kept, loc_of[np.minimum(ps.down_pos[glob], ps.p_pad)], -1)
+    has = down >= 0
+    whole = np.bincount(ps.down_pos[ps.down_pos < ps.p_pad], minlength=ps.p_pad)[glob]
+    if (np.bincount(down[has], minlength=n) != np.where(kept, whole, 0)).any():
+        raise ValueError("a kept lane's upstream source is not kept: the halo is not closed")
+    perm = np.where(kept, ps.perm[glob], P)
+    inv_perm = np.full(P, -1, np.int64)
+    inv_perm[perm[kept]] = np.flatnonzero(kept)
+    src = np.flatnonzero(has)
+    down_local = np.full(n, ps.window * C, np.int32)
+    down_local[src] = down[src] - (src // C + 1) * C
+    down_pos = np.full(n, n, np.int32)
+    down_pos[src] = down[src]
+    return PackedSchedule(perm=perm, inv_perm=inv_perm, down_local=down_local.reshape(-1, C),
+                          down_pos=down_pos, n_chunks=n // C, chunk=C, window=ps.window,
+                          num_pixels=P), loc_of
+
+
+def _remap_sources(table, loc_of, kept, what):
+    """A (K, n) source table of the kept chunks' lanes in whole-schedule
+    positions -> local positions, in the same row order, -1 on lanes that
+    are not kept; raises where a kept lane lost a source."""
+    table = np.asarray(table, np.int64)
+    out = np.where(table >= 0, loc_of[np.where(table >= 0, table, -1)], -1)
+    if ((table >= 0) & (out < 0) & kept).any():
+        raise ValueError(f"{what}: a kept lane's source is not kept: the halo is not closed")
+    return np.where(kept, out, -1).astype(np.int32)
+
+
+def rank_kinp(kinp, ps, part, loc_of):
+    """The sub-step kernel's parameters (packed_routing_params of the whole
+    schedule `ps`) cut to a rank's kept chunks: the per-position rows, with
+    PACKED_FILLS on the lanes that are neither own nor halo; the upstream
+    tables remapped to local positions in the same row order; the lakes and
+    reservoirs whose cells are kept, their feeders remapped; then
+    wavefront_tables of the remapped tables. Returns (params, the kept
+    structures' indices by prefix "lk" / "rs")."""
+    glob = part["glob"]
+    kept = loc_of[glob] >= 0
+    out, rows = {}, {}
+    for k, v in kinp.items():
+        name = k[len("kinp$"):]
+        if name in PACKED_FILLS:
+            out[k] = np.where(kept, v[glob], PACKED_FILLS[name]).astype(v.dtype)
+        elif name in ("UpsTable", "EvaUpsTable"):
+            out[k] = _remap_sources(v[:, glob], loc_of, kept, name)
+    for name, prefix in (("Lake", "lk"), ("Res", "rs")):
+        if f"kinp${name}Pos" not in kinp:
+            continue
+        loc = loc_of[kinp[f"kinp${name}Pos"]]
+        idx = np.flatnonzero(loc >= 0)
+        rows[prefix] = idx
+        fee = kinp[f"kinp${name}Fee"][idx]
+        out[f"kinp${name}Pos"] = loc[idx].astype(np.int32)
+        out[f"kinp${name}Fee"] = _remap_sources(fee, loc_of, True, name + " feeders")
+        w = kinp[f"kinp${name}UpsW"][idx]
+        out[f"kinp${name}UpsW"] = w
+        out[f"kinp${name}UpsIdx"] = np.where(w > 0, loc_of[kinp[f"kinp${name}UpsIdx"][idx]],
+                                             0).astype(np.int32)
+    handled = set(out) | {"kinp$" + k for k in WAVEFRONT_TABLES}
+    if set(kinp) - handled:
+        raise ValueError(f"rank_kinp: no rule for {sorted(set(kinp) - handled)}")
+    if "kinp$wf_deps" in kinp:
+        tables = wavefront_tables(glob.size // ps.chunk, ps.chunk, ps.window,
+                                  out["kinp$UpsTable"], out.get("kinp$EvaUpsTable"),
+                                  out.get("kinp$LakePos"), out.get("kinp$LakeFee"),
+                                  out.get("kinp$ResPos"), out.get("kinp$ResFee"))
+        out.update({"kinp$" + k: v for k, v in tables.items()})
+    return out, rows
+
+
+def channel_edges(kinp, eva_window_ok):
+    """(src, tgt): the positions along which the sub-step kernel reads
+    across lanes of the whole schedule — the routing graph's hand-over
+    (kinp$UpsTable), the evaporation chain where it runs in the kernel
+    (kinp$EvaUpsTable) and every lake's and reservoir's feeders (the graph
+    before the structure cut)."""
+    src, tgt = [], []
+    tables = ["kinp$UpsTable"] + (["kinp$EvaUpsTable"] if eva_window_ok else [])
+    for k in tables:
+        t = np.asarray(kinp[k], np.int64)
+        row, col = np.nonzero(t >= 0)
+        src.append(t[row, col])
+        tgt.append(col)
+    for name in ("Lake", "Res"):
+        if f"kinp${name}Pos" in kinp:
+            fee = np.asarray(kinp[f"kinp${name}Fee"], np.int64)
+            i, f = np.nonzero(fee >= 0)
+            src.append(fee[i, f])
+            tgt.append(np.asarray(kinp[f"kinp${name}Pos"], np.int64)[i])
+    return np.concatenate(src), np.concatenate(tgt)
+
+
+class PackedRankLayout(_Layout):
+    """Which pixels and positions rank `rank` of `nranks` owns for the
+    packed router (RoutingKernel packed), on the host. The pixels are owned
+    as by RankLayout: rank r owns the logical shards rank_shards(r, nranks,
+    S) of catchment_partition(graph_kin, S), S = n_shards or
+    max(cfg.num_shards, nranks) (cfg.num_shards keeps its meaning: 1 unless
+    the settings say sharded). The positions are those of the whole packed
+    schedules (aux["schedule_kin"], ["schedule_tochan"]):
+
+    - channel ("kin"): the halo is the closure upstream of the rank's
+      positions over the edges the sub-step kernel reads (channel_edges:
+      the routing graph, the evaporation chain where it runs in the kernel,
+      the structures' feeders); the kernel's parameters are
+      packed_routing_params of the whole schedule (`kinp`, with
+      `feeders_earlier` and `eva_window_ok`), cut to the kept chunks
+      (rank_kinp: `kinp_local`, the kept structures in `struct_rows`);
+    - overland ("tochan"): the closure over its routing graph.
+
+    For each graph `parts` holds every rank's part (packed_parts) and
+    `local` this rank's kept-chunk schedule (kept_schedule); `router_part`
+    gives its RankPackedRouter's tables. `seconds` holds the host time of
+    the partition, the whole tables and the layout."""
+
+    def __init__(self, cfg, params_np, aux, rank, nranks, n_shards=None):
+        t0 = time.perf_counter()
+        owner, S = owner_of_pixels(cfg, aux, nranks, n_shards)
+        t1 = time.perf_counter()
+        self.rank, self.nranks, self.n_shards = int(rank), int(nranks), S
+        P = owner.size
+        self.num_pixels = P
+        self.natural = SpaceMap(owner, _rank_in_group(owner, nranks),
+                                np.bincount(owner, minlength=nranks))
+        self.pixels = np.flatnonzero(owner == rank)
+        self.ps = {key: pack_schedule(aux["schedule_" + key]) for key in ("kin", "tochan")}
+        self.kinp, self.feeders_earlier, self.eva_window_ok = packed_routing_params(
+            cfg, params_np, self.ps["kin"])
+        t2 = time.perf_counter()
+        tochan = self.ps["tochan"]
+        has = tochan.down_pos < tochan.p_pad
+        edges = {"kin": channel_edges(self.kinp, self.eva_window_ok),
+                 "tochan": (np.flatnonzero(has), tochan.down_pos[has].astype(np.int64))}
+        self.no_edges = {"kin": False, "tochan": not has.any()}
+        self.parts, self.local, self.loc_of = {}, {}, {}
+        for key, (src, tgt) in edges.items():
+            self.parts[key] = packed_parts(self.ps[key], src, tgt, owner, nranks)
+            self.local[key], self.loc_of[key] = kept_schedule(self.ps[key], self.part(key))
+        self.kinp_local, self.struct_rows = rank_kinp(self.kinp, self.ps["kin"], self.part("kin"),
+                                                      self.loc_of["kin"])
+        self.struct_owner = {}
+        for name, prefix in (("Lake", "lk"), ("Res", "rs")):
+            if prefix in self.struct_rows:
+                idx = np.asarray(params_np["LakeIndex" if prefix == "lk" else "ReservoirIndex"],
+                                 np.int64)
+                self.struct_owner[prefix] = owner[idx]
+        self.seconds = {"partition": t1 - t0, "tables": t2 - t1,
+                        "layout": time.perf_counter() - t2}
+
+    def position_index(self):
+        """The rank's part of the whole channel schedule's position space:
+        the positions of its kept chunks."""
+        return self.part("kin")["glob"]
+
+    def router_part(self, key):
+        """The tables of graph `key`'s RankPackedRouter (see there)."""
+        part, loc_of, ps = self.part(key), self.loc_of[key], self.ps[key]
+        nat = self.natural
+        n_own = int(self.pixels.size)
+        local = self.local[key]
+        real = local.perm < self.num_pixels
+        own = np.zeros(real.size, bool)
+        own[real] = nat.owner[local.perm[real]] == self.rank
+        perm = np.full(real.size, n_own, np.int64)
+        perm[own] = nat.local[local.perm[own]]
+        out = {"perm": perm, "inv_perm": loc_of[ps.inv_perm[self.pixels]],
+               "halo": loc_of[part["halo"]], "halo_src": part["halo_src"],
+               "send": nat.local[ps.perm[part["send"]]], "send_max": part["send_max"],
+               "exchange": part["exchange"], "no_edges": self.no_edges[key]}
+        if key == "kin":
+            out["struct_rows"] = self.struct_rows
+            out["struct_src"] = {}
+            for prefix, rows in self.struct_rows.items():
+                owner = self.struct_owner[prefix]
+                index = _rank_in_group(owner, self.nranks)
+                mine = np.flatnonzero(owner[rows] == self.rank)
+                out["struct_src"][prefix] = (mine, owner, index)
+        return out
+
+    def figures(self):
+        """Per graph, this rank's own, halo and sent positions, its kept
+        chunks of all, the send buffers' width and whether the graph
+        exchanges."""
+        out = {}
+        for key, parts in self.parts.items():
+            me = parts[self.rank]
+            out[key] = {"own": int(me["own"].size), "halo": int(me["halo"].size),
+                        "send": int(me["send"].size), "send_max": me["send_max"],
+                        "chunks": int(me["chunks"].size), "of_chunks": self.ps[key].n_chunks,
+                        "exchange": me["exchange"]}
+        return out
+
+
+def rank_layout(cfg, params_np, aux, rank, nranks, n_shards=None):
+    """The layout of rank `rank` of `nranks` for cfg's router: a
+    PackedRankLayout for RoutingKernel packed, a RankLayout (whole shards of
+    the sharded schedules) for sharded."""
+    if cfg.routing_kernel == "packed":
+        return PackedRankLayout(cfg, params_np, aux, rank, nranks, n_shards)
+    return RankLayout(cfg, aux, rank, nranks)
+
+
 def pixel_sharding(layout, arr, num_pixels=None, p_pad=None):
     """The index of `layout`'s rank's part of `arr` along its trailing axis:
     its pixels where that axis is the pixel axis (num_pixels, the layout's
-    by default), its block where it is the channel schedule's position space
-    (p_pad); None (the array is replicated) otherwise."""
+    by default), its part of the channel schedule's position space where
+    that is the axis (p_pad: a RankLayout's block, a PackedRankLayout's kept
+    chunks); None (the array is replicated) otherwise."""
     if getattr(arr, "ndim", 0) == 0:
         return None
     n = arr.shape[-1]
     if n == (num_pixels or layout.num_pixels):
         return layout.pixels
     if p_pad and n == p_pad:
-        part = layout.part("kin")
-        return slice(part["lo"], part["hi"])
+        return layout.position_index()
     return None
 
 
@@ -314,24 +637,35 @@ def check_ranks(cfg, nranks):
     """Refuses what the multi-process step does not run across ranks."""
     if nranks <= 1:
         return
-    if cfg.routing_kernel != "sharded":
+    if cfg.routing_kernel not in ("packed", "sharded"):
         raise NotImplementedError(
-            f"RoutingKernel {cfg.routing_kernel} across {nranks} ranks: only the sharded router "
-            "runs across ranks; packed and scan are later work (ROADMAP.md)")
-    for flag, what in (("groundwater_smooth", "groundwater smoothing (a window over the grid)"),
-                       ("transient_landuse", "transient land use")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{what} across ranks is later work (ROADMAP.md)")
+            f"RoutingKernel {cfg.routing_kernel} across {nranks} ranks: the packed and the "
+            "sharded router run across ranks; scan is later work (ROADMAP.md)")
     if cfg.members != 1:
         raise NotImplementedError("a folded ensemble across ranks is not in the JAX package "
                                   "(ROADMAP.md)")
 
 
-def rank_params(cfg, params_np, kinp, layout, group, device, dtype):
-    """The rank's parameters on its device: its pixels of every per-pixel
-    array, its block of the channel schedule's position-space arrays, the
-    structure indices as RankIndex, the evaporation grid whole, the rest
-    replicated (the types as models/step.device_params gives them)."""
+@dataclasses.dataclass
+class GridPixels:
+    """The whole grid's pixel rows and columns and the groundwater
+    smoothing's parameters (`params`), with the pixel space of one rank: a
+    rank's step (models/step.Step.smooth_lz) runs
+    ops/indicators.groundwater_smooth on the gathered LZ with the whole
+    grid's sums, in the one-process order, and keeps the rank's pixels."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    params: dict
+    space: RankSpace
+
+
+def rank_params(cfg, params_np, layout, group, device, dtype):
+    """The rank's natural parameters on its device: its pixels of every
+    per-pixel array, the structure indices as RankIndex, the evaporation
+    grid whole, the rest replicated (the types as models/step.device_params
+    gives them). Returns (params, the natural RankSpace, and with
+    groundwater smoothing the whole grid's GridPixels, else None)."""
     rank = layout.rank
     nat = RankSpace(layout.natural, rank, group, device)
     p = {}
@@ -345,17 +679,25 @@ def rank_params(cfg, params_np, kinp, layout, group, device, dtype):
         else:
             part = v if k in WHOLE else shard_tree(layout, {k: v})[k]
             p.update(to_device({k: part}, device, dtype))
-    p_pad = layout.sched["kin"].p_pad
+    grid = None
+    if cfg.groundwater_smooth:
+        whole = to_device({k: params_np[k] for k in ("LandRows", "LandCols", "GroundwaterBodies",
+                                                     "GroundwaterCatch")}, device, dtype)
+        whole["LZSmoothRangeCells"] = p["LZSmoothRangeCells"]
+        grid = GridPixels(whole.pop("LandRows"), whole.pop("LandCols"), whole, nat)
+    return p, nat, grid
+
+
+def _kinp_to_device(kinp, device, dtype):
+    """Position-space parameters on the device: integer tables keep their
+    type, bool stays bool, floats take `dtype` (as device_params)."""
+    p = {}
     for k, v in kinp.items():
-        if k in POSITION_INDEX:
-            p[k] = RankIndex(v, layout.positions, rank, group, device)
-            continue
-        part = shard_tree(layout, {k: v}, num_pixels=-1, p_pad=p_pad)[k]
-        if part.dtype.kind in "iu":
-            p[k] = torch.as_tensor(np.ascontiguousarray(part), device=device)
+        if v.dtype.kind in "iu":
+            p[k] = torch.as_tensor(np.ascontiguousarray(v), device=device)
         else:
-            p.update(to_device({k: part}, device, dtype))
-    return p, nat
+            p.update(to_device({k: v}, device, dtype))
+    return p
 
 
 class RankStep:
@@ -381,11 +723,29 @@ class RankStep:
 
     def prepare_state(self, state, dtype=None):
         """Whole natural host state (NumPy, or tensors) -> the rank's state on
-        its device; the entries split by pixel are remembered for gather."""
+        its device; the entries split by pixel are remembered for gather.
+        With the packed router the routing entries are packed over the
+        whole schedule and cut to the rank's kept chunks (its halo's state
+        with them); a whole packed state (pk$ entries) is cut as it is."""
         state = {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in state.items()}
+        layout = self.layout
+        if isinstance(layout, PackedRankLayout):
+            ps, glob = layout.ps["kin"], layout.position_index()
+            pk = set(packed_routing_keys(self.cfg))
+            self.pixel_keys = {k[3:] if k.startswith("pk$") else k for k, v in state.items()
+                               if k.startswith("pk$") or pixel_sharding(layout, v) is not None}
+            local = {}
+            for k, v in state.items():
+                if k.startswith("pk$"):
+                    local[k] = np.ascontiguousarray(np.asarray(v)[..., glob])
+                elif k in pk:
+                    local["pk$" + k] = np.ascontiguousarray(ps.pack_np(v)[..., glob])
+                else:
+                    local.update(shard_tree(layout, {k: v}))
+            return self.step.prepare_state(local, dtype)
         self.pixel_keys = {k for k, v in state.items()
-                           if pixel_sharding(self.layout, v) is not None}
-        return self.step.prepare_state(shard_tree(self.layout, state), dtype)
+                           if pixel_sharding(layout, v) is not None}
+        return self.step.prepare_state(shard_tree(layout, state), dtype)
 
     def shard_forcing(self, f, dtype=None):
         """A whole day's forcing (NumPy, or tensors) -> the rank's on its
@@ -408,38 +768,65 @@ class RankStep:
 def rank_step(cfg, params_np, aux, layout, group, dtype=torch.float64, device=None):
     """The RankStep of `layout`'s rank for the host model (cfg, params_np,
     aux) on `device` (rank_device: None is card rank modulo the card count,
-    raising without a card): the channel
-    schedule's position-space parameters (models/step.packed_routing_params)
-    and the segment orders of the whole model, built on the host, then the
-    rank's part of each moved to its device, its routers (RankRouter, with
-    K6's tables of its own positions and halo) and its step on them; the
-    step's config counts the rank's pixels."""
+    raising without a card). The whole model's tables are built on the
+    host and the rank's part of each moved to its device:
+
+    - RoutingKernel sharded (a RankLayout): the channel schedule's
+      position-space parameters (models/step.packed_routing_params) of the
+      rank's block, its routers (RankRouter, with K6's tables of its own
+      positions and halo);
+    - RoutingKernel packed (a PackedRankLayout): the sub-step kernel's
+      parameters of its kept chunks (rank_kinp) and its routers
+      (RankPackedRouter: the channel's on its kept chunks, the overland's
+      with K5's tables of its kept chunks);
+
+    then the segment orders of the whole model (RankOrder) and the step on
+    them; the step's config counts the rank's pixels."""
     device = rank_device(device, layout.rank)
     check_ranks(cfg, layout.nranks)
-    if cfg.routing_kernel != "sharded":
-        raise NotImplementedError("rank_step runs RoutingKernel sharded")
+    packed = isinstance(layout, PackedRankLayout)
+    if packed != (cfg.routing_kernel == "packed"):
+        raise ValueError(f"RoutingKernel {cfg.routing_kernel} on a {type(layout).__name__}")
     t0 = time.perf_counter()
-    kinp, feeders_earlier, _ = packed_routing_params(cfg, params_np, layout.sched["kin"])
-    p, nat = rank_params(cfg, params_np, kinp, layout, group, device, dtype)
+    p, nat, grid = rank_params(cfg, params_np, layout, group, device, dtype)
+    if packed:
+        p.update(_kinp_to_device(layout.kinp_local, device, dtype))
+        feeders_earlier, eva_window_ok = layout.feeders_earlier, layout.eva_window_ok
+        position_catchments = None
+    else:
+        kinp, feeders_earlier, _ = packed_routing_params(cfg, params_np, layout.sched["kin"])
+        eva_window_ok = False
+        p_pad = layout.sched["kin"].p_pad
+        for k, v in kinp.items():
+            if k in POSITION_INDEX:
+                p[k] = RankIndex(v, layout.positions, layout.rank, group, device)
+            else:
+                p.update(_kinp_to_device(shard_tree(layout, {k: v}, num_pixels=-1, p_pad=p_pad),
+                                         device, dtype))
+        position_catchments = kinp.get("kinp$Catchments")
     t1 = time.perf_counter()
-    orders = segment_orders(cfg, params_np, device, kinp.get("kinp$Catchments"), True)
-    pos = RankSpace(layout.positions, layout.rank, group, device)
+    eva_in_kernel = cfg.open_water_evapo and not cfg.init_lisflood and eva_window_ok
+    orders = segment_orders(cfg, params_np, device, position_catchments, not eva_in_kernel)
+    pos = nat if packed else RankSpace(layout.positions, layout.rank, group, device)
     p.update({k: RankOrder(v, pos if k == "seg$kinp$Catchments" else nat)
               for k, v in orders.items()})
     t2 = time.perf_counter()
-    owned = layout.owned
     routers = {}
     for key in ("kin", "tochan"):
-        r = RankRouter(layout.sched[key], layout.part(key), owned, group, device)
-        if not r.no_edges:
+        if packed:
+            r = RankPackedRouter(layout.local[key], layout.router_part(key), group, device)
+        else:
+            r = RankRouter(layout.sched[key], layout.part(key), layout.owned, group, device)
+        if not r.no_edges and (key == "tochan" or not packed):
             r.sweep_tiles()
         routers[key] = r
-    routers["kin"].struct_feeders_earlier, routers["kin"].eva_window_ok = feeders_earlier, False
+    routers["kin"].struct_feeders_earlier = feeders_earlier
+    routers["kin"].eva_window_ok = eva_window_ok
     t3 = time.perf_counter()
     cfg_r = dataclasses.replace(cfg, num_pixels=int(layout.pixels.size),
                                 eva_stencil=bool(cfg.use_eva_stencil(device)))
     seconds = dict(layout.seconds, params=t1 - t0, orders=t2 - t1, routers=t3 - t2)
-    return RankStep(Step(cfg_r, p, routers, device), layout, group, seconds)
+    return RankStep(Step(cfg_r, p, routers, device, grid), layout, group, seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -447,12 +834,13 @@ def rank_step(cfg, params_np, aux, layout, group, dtype=torch.float64, device=No
 
 
 def shard_runner_step(runner, group=None):
-    """The step of a models/driver.LisfloodRunner (RoutingKernel sharded)
-    for this process's rank of `group` (the world by default): returns
-    (step, state), the RankStep on the runner's device and dtype and the
-    rank's part of the runner's state."""
+    """The step of a models/driver.LisfloodRunner (RoutingKernel packed or
+    sharded) for this process's rank of `group` (the world by default):
+    returns (step, state), the RankStep on the runner's device and dtype and
+    the rank's part of the runner's state."""
     rank, nranks = world(group)
-    layout = RankLayout(runner.config, runner.aux, rank, nranks)
+    check_ranks(runner.config, nranks)
+    layout = rank_layout(runner.config, runner.params_np, runner.aux, rank, nranks)
     step = rank_step(runner.config, runner.params_np, runner.aux, layout, group, runner.dtype,
                      runner.device)
     return step, step.prepare_state(runner.step.natural_state(runner.state))
@@ -463,14 +851,15 @@ def build_sharded_model_step(group=None, nrows=16, ncols=16, dtype=torch.float32
                              **synth_kwargs):
     """The synthetic model's step for this process's rank of `group`:
     returns (step, state, forcing, cfg), the rank's state and forcing on its
-    device. `num_shards` defaults to the number of ranks."""
+    device. `num_shards` defaults to the number of ranks (the packed
+    router's layout takes it as its logical shard count)."""
     from ..models.synthetic import build_synthetic_model, synthetic_forcing
     rank, nranks = world(group)
     cfg, params, state, aux = build_synthetic_model(nrows, ncols, **synth_kwargs)
     cfg = dataclasses.replace(cfg, routing_kernel=routing_kernel,
                               num_shards=num_shards or nranks)
     check_ranks(cfg, nranks)
-    layout = RankLayout(cfg, aux, rank, nranks)
+    layout = rank_layout(cfg, params, aux, rank, nranks)
     step = rank_step(cfg, params, aux, layout, group, dtype, device)
     return (step, step.prepare_state(state, dtype),
             step.shard_forcing(synthetic_forcing(cfg.num_pixels), dtype), cfg)

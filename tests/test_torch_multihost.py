@@ -12,7 +12,8 @@ with gloo on the CPU.
   counterpart of tests/test_multihost.py:56): 1, 2 and 4 processes give the
   same gathered state bit for bit, at 4 and at 8 logical shards.
 - Two and four ranks of the all-options synthetic model (groundwater
-  smoothing off: its window is refused across ranks) and two ranks of a
+  smoothing off: tests/test_torch_multihost_packed.py runs it across ranks)
+  and two ranks of a
   48x40 catchment through shard_runner_step (overland halo, lakes,
   reservoirs, split routing, repMBTs) against the one-process step, bit for
   bit, state and reports.
@@ -431,15 +432,13 @@ def test_two_ranks_match_jax(cli_runs, tmp_path, dt):
 # what more than one rank refuses
 
 
-@pytest.mark.parametrize("change", [{"routing_kernel": "packed"}, {"routing_kernel": "scan"},
-                                    {"groundwater_smooth": True},
-                                    {"transient_landuse": True}, {"members": 2}],
+@pytest.mark.parametrize("change", [{"routing_kernel": "scan"}, {"members": 2}],
                          ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_refused_across_ranks(change, monkeypatch):
-    """Across ranks the packed and scan routers and the options whose
-    non-local operations are not made collective raise NotImplementedError
-    (one rank runs them); run_demo refuses before it joins a group; a rank
-    with no device given takes the CUDA card and raises without one."""
+    """Across ranks the scan router and a folded ensemble raise
+    NotImplementedError (one rank runs them); run_demo refuses before it
+    joins a group; a rank with no device given takes the CUDA card and
+    raises without one."""
     cfg, _ = _synthetic((16, 16))
     cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=4)
     bad = dataclasses.replace(cfg, **change)

@@ -157,7 +157,8 @@ script exits non-zero:
      SCAN_DAYS days against phase 8's packed state (printed only);
      lisfloodexe with RoutingKernel scan over SCAN_DAYS days; the float64
      scan step on the card against the CPU on a 96x80 catchment within
-     1e-10 of each field's max;
+     1e-10 of each field's max; the state and reports after the timed days,
+     which phase 14's scan ranks are held to;
  12. K7, the fixed-order segment sum (csrc/segment_sum.cu), on phase 8's
      catchment's Catchments, the sharded loop's kinp$Catchments, the
      water-use regions write_catchment writes (west and east halves) and
@@ -221,9 +222,20 @@ script exits non-zero:
      1e-12 float64), its time (the ranks one after the other) beside the
      whole launch's in this run, and its bound; rank 0's K5 on its tables
      bitwise equal to its plain version `_sweep`, in two runs and to the
-     whole sweep at its own pixels, its time and bound. A rank process is
-     `python3 chip_smoke.py --rank-child SPEC RANK`; `python3 chip_smoke.py
-     --multi-process` runs this phase alone on a catchment of its own.
+     whole sweep at its own pixels, its time and bound. Then the same
+     processes run RoutingKernel scan across the ranks
+     (shard_model.ScanRankLayout: K6 on each rank's own natural pixels plus
+     its upstream halo, ops/kinwave.RankScanRouter): the gathered state and
+     reports bitwise equal to phase 11's one-process scan step (the
+     synthetic model's on the card, float64), per rank its own and halo
+     pixels of each graph, collectives, bytes and host synchronisations a
+     step, K6 NoRoutSteps + 1 a step; K6 on rank 0's natural tables bitwise
+     equal to its plain version (RankScanTiles.reference, `_sweep_scan` on
+     the schedule's chunks cut to the rank's pixels) and in two runs, its
+     time against phase 11's launch, bound, chain floor and the deepest
+     tile alone. A rank process is `python3 chip_smoke.py --rank-child SPEC
+     RANK`; `python3 chip_smoke.py --multi-process` runs this phase alone on
+     a catchment of its own.
  15. The sub-step kernel's plain versions queued by phases 2 and 4-7 (the
      launch's operands and outputs kept on the host, plain_later), run
      after every timed phase in PLAIN_WORKERS worker processes side by
@@ -248,8 +260,9 @@ checks and times them at the continental grid's shapes (k7_k8_check).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
 scan router's natural tables, segment_sum, soil_tail, K6 on the two
-folded ensembles' tables, K6 on a rank's tables, and the sub-step kernel
-and K5 on a packed rank's kept chunks); then
+folded ensembles' tables, K6 on a rank's tables, the sub-step kernel and
+K5 on a packed rank's kept chunks, and K6 on a scan rank's natural tables);
+then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
 stops what it starts.
@@ -1835,7 +1848,7 @@ def phase_scan(torch, ks, card, ctx, tmp):
     cfg_s = dataclasses.replace(cfg, routing_kernel="scan", num_shards=1)
 
     t0 = time.perf_counter()
-    multi, p = build_multi_step(cfg_s, params, aux, output_keys=("ChanQAvg",),
+    multi, p = build_multi_step(cfg_s, params, aux, output_keys=("ChanQAvg",) + RANK_REPORTS[1:],
                                 dtype=torch.float32, device="cuda")
     s = multi.prepare_state(state)
     torch.cuda.synchronize()
@@ -1874,6 +1887,10 @@ def phase_scan(torch, ks, card, ctx, tmp):
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     assert not any(k.startswith("pk$") for k in s)
+    # the state and reports phase 14's scan ranks are held to, bit for bit
+    ranks_reference = {k: v.cpu().numpy() for k, v in multi.natural_state(s).items()}
+    ranks_reference.update({f"{k}@{i}": outs[k][i].cpu().numpy()
+                            for k in RANK_REPORTS for i in range(days)})
     q = outs["ChanQAvg"]
     assert q.shape == (days, cfg.num_pixels) and bool(torch.isfinite(q).all())
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
@@ -1997,7 +2014,8 @@ def phase_scan(torch, ks, card, ctx, tmp):
             "chain_floor_ms": floor_ms, "deep_tile_ms": deep_ms,
             "cycles_per_level": float(per_level), "tiles": plan_c["tiles"],
             "ring_tiles": plan_c["ring_tiles"], "tiles_overland": plan_o["tiles"],
-            "step_ms": step_ms, "single_step": single_step,
+            "step_ms": step_ms, "single_step": single_step, "ranks_reference": ranks_reference,
+            "k7_per_step": launches["segment_sum"] / (days + 1),
             "plain_shape": "1200x1000 catchment, natural tables, one channel sub-step (and the "
                            "overland sweep), float32"}
 
@@ -2682,25 +2700,27 @@ def rank_bound(n_real, L, dtype, n_edges):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def capture_rank_k6(torch, step, s, f):
+def capture_rank_k6(torch, step, s, f, module):
     """The local operands (const, adx) of the first channel sub-step's and
     of the overland K6 launch in one step of a rank step, as they enter
-    the kernel (halo included). Every rank calls it: the step exchanges."""
-    from lisflood_tpu_torch.ops import kinwave_sharded as kss
+    the kernel (halo included), through the name `module` (the router's:
+    ops/kinwave_sharded, ops/kinwave for scan) calls the sweep by. Every
+    rank calls it: the step exchanges."""
     captured = {}
-    real = kss.kinwave_sharded_sweep
+    real = module.kinwave_sharded_sweep
 
     def capture(*args):
         key = "channel" if args[0].shape[0] == 2 else "overland"
         if key not in captured:
             captured[key] = (tuple(a.clone() for a in args[:2]), args[2])
         return real(*args)
+    # the launcher counts through ops/kinwave_sharded's name: the wrapper's
     capture.launches, capture.last_plan = 0, None
-    kss.kinwave_sharded_sweep = capture
+    module.kinwave_sharded_sweep = capture
     try:
         step(s, f)
     finally:
-        kss.kinwave_sharded_sweep = real
+        module.kinwave_sharded_sweep = real
     return captured
 
 
@@ -2708,7 +2728,9 @@ def rank_k6_figures(torch, kss, captured, beta, dtype):
     """K6 on one rank's tables (own positions plus halo) for each captured
     launch: bitwise against its plain version (RankTiles.reference, the
     one-process `_sweep_sharded` over the whole schedule with only the
-    rank's operands set), its time, bound and chain floor."""
+    rank's operands set; RankScanTiles.reference, `_sweep_scan` on the
+    schedule's chunks cut to the rank's pixels), its time, bound and chain
+    floor."""
     out = {}
     for name, (ops, tiles) in captured.items():
         q = kss.kinwave_sharded_sweep(*ops, tiles, beta)
@@ -2847,13 +2869,14 @@ def rank_run(torch, spec, rank, group, model, forcing, dev, router):
     warm-up step and spec["days"] timed steps with the kernel launches,
     collectives, bytes and host synchronisations of those steps counted, one
     more step under set_sync_debug_mode, the kernels on the rank's own
-    tables (K6's figures on rank 0 for sharded, packed_rank_figures for
-    packed), then the gathered state and reports. Returns (figures, the
-    gathered arrays)."""
+    tables (K6's figures on rank 0 for sharded and scan,
+    packed_rank_figures for packed), then the gathered state and reports.
+    Returns (figures, the gathered arrays)."""
     import dataclasses
     import warnings
 
     import numpy as np
+    from lisflood_tpu_torch.ops import kinwave as kw
     from lisflood_tpu_torch.ops import kinwave_sharded as kss
     from lisflood_tpu_torch.parallel import collectives, multihost
     from lisflood_tpu_torch.parallel.shard_model import rank_layout
@@ -2901,8 +2924,8 @@ def rank_run(torch, spec, rank, group, model, forcing, dev, router):
                 torch.cuda.set_sync_debug_mode(0)
     syncs = sum("called a synchronizing" in str(w.message) for w in caught)
     kernels = {}
-    if router == "sharded":
-        captured = capture_rank_k6(torch, step, s, fs[1])
+    if router in ("sharded", "scan"):
+        captured = capture_rank_k6(torch, step, s, fs[1], kss if router == "sharded" else kw)
         collectives.barrier(group)
         if rank == 0 and spec.get("k6_figures"):
             kernels["k6"] = rank_k6_figures(torch, kss, captured, float(step.params["Beta"]),
@@ -3163,42 +3186,73 @@ def packed_own_bitwise(whole, own_path, nranks, what):
     assert not bad and k5 is not False, bad
 
 
-def phase_ranks(torch, card, path, tmp, refs, single):
+def rank_k6_lines(k6, single, tables, phase, card):
+    """The K6 figures of rank 0's launches on its `tables` (rank_k6_figures)
+    beside `phase`'s launch on the whole tables (`single`), under the card's
+    name and power limit; each must be bitwise equal to its plain version and
+    give the same bits twice."""
+    for name, fig in k6.items():
+        was = single["ms" if name == "channel" else "ms_overland"]
+        print(f"  K6 on rank 0's {tables}{name} tables ({fig['positions']} positions, "
+              f"{fig['real']} real, {fig['edges']} edges): {fig['ms']:.4f} ms a launch (mean of "
+              f"{N_REP}) against {was:.4f} ms on {phase}'s whole tables; bound "
+              f"{fig['bound_ms']:.4f} ms ({fig['bound_by']}); chain floor "
+              f"{fig['chain_floor_ms']:.4f} ms, the deepest tile alone {fig['deep_tile_ms']:.4f} "
+              f"ms; plain version {fig['plain_ms']:.1f} ms (one run); bitwise equal to it: "
+              f"{fig['bitwise']}, max abs {fig['max_abs_err']:.3e}; the same bits in two runs: "
+              f"{fig['twice']}; {fig['plan']}; card {card}", flush=True)
+        assert fig["bitwise"] and fig["twice"], (name, fig)
+
+
+def rank_k6_entry(results, router, k6, single, phase, days):
+    """The kernels line's figures of K6 on rank 0's tables of `router`'s
+    ranks: a channel sub-step's launch (the overland launch in *_overland),
+    its launches in rank 0's timed days, `phase`'s launch on the whole
+    tables in this run, ms/step of the ranks (the slower) and of one
+    process, and each rank's bytes each way a step."""
+    ch, ov = k6["channel"], k6["overland"]
+    return {"ms": ch["ms"], "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
+            "bound_by": ch["bound_by"], "max_abs_err": max(ch["max_abs_err"], ov["max_abs_err"]),
+            "launches": results[0][router]["launches"]["kinwave_sharded"],
+            "ms_overland": ov["ms"], "plain_ms_overland": ov["plain_ms"],
+            "bound_ms_overland": ov["bound_ms"], "chain_floor_ms": ch["chain_floor_ms"],
+            "chain_floor_ms_overland": ov["chain_floor_ms"], f"ms_{phase}": single["ms"],
+            f"ms_overland_{phase}": single["ms_overland"],
+            "step_ms_ranks": max(r[router]["step_ms"] for r in results),
+            "step_ms_one_process": single["step_ms"],
+            "exchange_mb_per_step": [(r[router]["stats"]["bytes_sent"]
+                                      + r[router]["stats"]["bytes_received"]) / days / 1e6
+                                     for r in results]}
+
+
+def phase_ranks(torch, card, path, tmp, refs, singles):
     """Phase 14: the multi-process step (parallel/shard_model.py,
     parallel/multihost.py); see the module docstring. `path` is phase 8's
     settings; `refs` by router the one-process state and reports after one
-    warm-up day and SHARDED_DAYS days (phase 10's sharded step, phase 8's
-    packed step, with its whole kernels under "whole"), `single` phase 10's
-    figures."""
+    warm-up day and SHARDED_DAYS days, and K7's launches a step (phase 10's
+    sharded step, phase 8's packed step, with its whole kernels under
+    "whole", phase 11's scan step), `singles` phase 10's and 11's figures
+    by router."""
     import dataclasses
 
     from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
     days = SHARDED_DAYS
+    single = singles["sharded"]
     t0 = time.perf_counter()
     spec = {"case": "catchment", "path": path, "nranks": CATCHMENT_RANKS, "shards": SHARDS,
             "days": days, "dtype": "float32", "device": "cuda", "k6_figures": True,
-            "routers": ["sharded", "packed"]}
+            "routers": ["sharded", "packed", "scan"]}
     results, got, own_path = launch_ranks(spec, tmp)
     wall = time.perf_counter() - t0
     print(f"  {CATCHMENT_RANKS} rank processes on the one card over gloo (a file:// store), "
           f"phase 8's catchment, {SHARDS} shards, float32, one warm-up day and {days} days, "
-          f"RoutingKernel sharded then packed in the same processes: {wall:.1f} s in all",
+          f"RoutingKernel sharded, packed then scan in the same processes: {wall:.1f} s in all",
           flush=True)
     rank_lines(results, "sharded", days, single["k7_per_step"], card)
     ranks_bitwise(got["sharded"], refs["sharded"][0],
                   f"{CATCHMENT_RANKS} sharded ranks against phase 10's one-process step")
     k6 = results[0]["sharded"]["k6"]
-    for name, fig in k6.items():
-        was = single["ms" if name == "channel" else "ms_overland"]
-        print(f"  K6 on rank 0's {name} tables ({fig['positions']} positions, {fig['real']} "
-              f"real, {fig['edges']} edges): {fig['ms']:.4f} ms a launch (mean of {N_REP}) "
-              f"against {was:.4f} ms on phase 10's whole tables; bound {fig['bound_ms']:.4f} ms "
-              f"({fig['bound_by']}); chain floor {fig['chain_floor_ms']:.4f} ms, the deepest "
-              f"tile alone {fig['deep_tile_ms']:.4f} ms; plain version {fig['plain_ms']:.1f} ms "
-              f"(one run); bitwise equal to it: {fig['bitwise']}, max abs "
-              f"{fig['max_abs_err']:.3e}; the same bits in two runs: {fig['twice']}; "
-              f"{fig['plan']}; card {card}", flush=True)
-        assert fig["bitwise"] and fig["twice"], (name, fig)
+    rank_k6_lines(k6, single, "", "phase 10", card)
     ms_two = max(r["sharded"]["step_ms"] for r in results)
     print(f"  ms/step: one process {single['step_ms']:.1f} (phase 10), {CATCHMENT_RANKS} ranks "
           f"{ms_two:.1f} (the slower rank; two processes time-slice one card, so no speed-up "
@@ -3212,6 +3266,16 @@ def phase_ranks(torch, card, path, tmp, refs, single):
     print(f"  packed ms/step: {CATCHMENT_RANKS} ranks {packed_two:.1f} (the slower rank; no "
           f"speed-up claimed); the whole schedule's sub-step launch {whole['ms']:.3f} ms and K5 "
           f"{whole['k5_ms']:.4f} ms in this run; card {card}", flush=True)
+    scan_ref, k7_scan, _ = refs["scan"]
+    rank_lines(results, "scan", days, k7_scan, card)
+    ranks_bitwise(got["scan"], scan_ref,
+                  f"{CATCHMENT_RANKS} scan ranks against phase 11's one-process scan step")
+    k6_scan = results[0]["scan"]["k6"]
+    rank_k6_lines(k6_scan, singles["scan"], "natural ", "phase 11", card)
+    scan_two = max(r["scan"]["step_ms"] for r in results)
+    print(f"  scan ms/step: one process {singles['scan']['step_ms']:.1f} (phase 11), "
+          f"{CATCHMENT_RANKS} ranks {scan_two:.1f} (the slower rank; no speed-up claimed); "
+          f"card {card}", flush=True)
 
     # four ranks of the synthetic 240x200 model, float64: channel edges
     # between ranks, the channel halo exchanged each sub-step (sharded) and
@@ -3221,19 +3285,19 @@ def phase_ranks(torch, card, path, tmp, refs, single):
     cfg, params, state, aux = build_synthetic_model(*size)
     forcing = [synthetic_forcing(cfg.num_pixels)] * (1 + SYNTHETIC_STEPS)
     refs2 = {}
-    for router in ("sharded", "packed"):
+    for router in ("sharded", "packed", "scan"):
         cfg_r = dataclasses.replace(cfg, routing_kernel=router, num_shards=SYNTHETIC_SHARDS)
         refs2[router] = one_process_reference(torch, cfg_r, params, aux, state, forcing,
                                               SYNTHETIC_STEPS, torch.float64)
         torch.cuda.empty_cache()
     spec2 = {"case": "synthetic", "size": size, "nranks": SYNTHETIC_RANKS,
              "shards": SYNTHETIC_SHARDS, "days": SYNTHETIC_STEPS, "dtype": "float64",
-             "device": "cuda", "routers": ["sharded", "packed"]}
+             "device": "cuda", "routers": ["sharded", "packed", "scan"]}
     results2, got2, own2 = launch_ranks(spec2, tmp)
     print(f"  {SYNTHETIC_RANKS} rank processes, synthetic {size[0]}x{size[1]}, "
-          f"{SYNTHETIC_SHARDS} shards, float64, one warm-up step and {SYNTHETIC_STEPS}, sharded "
-          f"then packed: {time.perf_counter() - t0:.1f} s in all (the one-process references "
-          f"included)", flush=True)
+          f"{SYNTHETIC_SHARDS} shards, float64, one warm-up step and {SYNTHETIC_STEPS}, sharded, "
+          f"packed then scan: {time.perf_counter() - t0:.1f} s in all (the one-process "
+          f"references included)", flush=True)
     rank_lines(results2, "sharded", SYNTHETIC_STEPS, refs2["sharded"][1], card)
     assert any(r["sharded"]["graphs"]["kin"]["halo"] for r in results2), "no channel halo"
     ranks_bitwise(got2["sharded"], refs2["sharded"][0],
@@ -3244,8 +3308,10 @@ def phase_ranks(torch, card, path, tmp, refs, single):
     ranks_bitwise(got2["packed"], refs2["packed"][0],
                   f"{SYNTHETIC_RANKS} packed ranks against the one-process packed step")
     packed_own_bitwise(refs2["packed"][2], own2, SYNTHETIC_RANKS, "synthetic, packed, float64")
-    launches = results[0]["sharded"]["launches"]["kinwave_sharded"]
-    ch, ov = k6["channel"], k6["overland"]
+    rank_lines(results2, "scan", SYNTHETIC_STEPS, refs2["scan"][1], card)
+    assert any(r["scan"]["graphs"]["kin"]["halo"] for r in results2), "no scan channel halo"
+    ranks_bitwise(got2["scan"], refs2["scan"][0],
+                  f"{SYNTHETIC_RANKS} scan ranks against the one-process scan step")
     sub0, k5 = results[0]["packed"]["substep"], results[0]["packed"]["k5"]
     packed = {
         "kinwave_substep_rank": {
@@ -3262,26 +3328,23 @@ def phase_ranks(torch, card, path, tmp, refs, single):
             "ms_whole": whole["k5_ms"], "chunks": k5["chunks"], "padding": k5["padding"],
             "plain_shape": f"rank 0's {k5['chunks']} kept overland chunks, 1200x1000 "
                            f"catchment, {CATCHMENT_RANKS} ranks, float32"}}
-    return {"ms": ch["ms"], "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
-            "bound_by": ch["bound_by"], "max_abs_err": max(ch["max_abs_err"],
-                                                           ov["max_abs_err"]),
-            "launches": launches, "ms_overland": ov["ms"], "plain_ms_overland": ov["plain_ms"],
-            "bound_ms_overland": ov["bound_ms"], "chain_floor_ms": ch["chain_floor_ms"],
-            "chain_floor_ms_overland": ov["chain_floor_ms"], "ms_phase10": single["ms"],
-            "ms_overland_phase10": single["ms_overland"], "step_ms_ranks": ms_two,
-            "step_ms_one_process": single["step_ms"], "step_ms_packed_ranks": packed_two,
-            "exchange_mb_per_step": [(r["sharded"]["stats"]["bytes_sent"]
-                                      + r["sharded"]["stats"]["bytes_received"]) / days / 1e6
-                                     for r in results],
+    scan = {**rank_k6_entry(results, "scan", k6_scan, singles["scan"], "phase11", days),
+            "halo": [{k: r["scan"]["graphs"][k]["halo"] for k in ("kin", "tochan")}
+                     for r in results],
+            "plain_shape": f"1200x1000 catchment, rank 0 of {CATCHMENT_RANKS}, its own and halo "
+                           f"pixels (natural tables), one channel sub-step (and the overland "
+                           f"sweep), float32"}
+    return {**rank_k6_entry(results, "sharded", k6, single, "phase10", days),
+            "step_ms_packed_ranks": packed_two,
             "plain_shape": f"1200x1000 catchment, rank 0 of {CATCHMENT_RANKS}, its own and halo "
                            f"positions, one channel sub-step (and the overland sweep), float32",
-            "packed": packed}
+            "packed": packed, "scan": scan}
 
 
 def multi_process_check(torch):
     """`python3 chip_smoke.py --multi-process`: phase 14 alone, on its own
-    1200x1000 catchment, with the one-process sharded and packed steps over
-    the same days as its references."""
+    1200x1000 catchment, with the one-process sharded, packed and scan steps
+    over the same days as its references."""
     import dataclasses
 
     from lisflood_tpu_torch.config import load_settings
@@ -3299,7 +3362,7 @@ def multi_process_check(torch):
         forcing = meteo_forcing(settings, cfg, aux)
         t0 = time.perf_counter()
         refs = {}
-        for router in ("sharded", "packed"):
+        for router in ("sharded", "packed", "scan"):
             cfg_r = dataclasses.replace(cfg, routing_kernel=router, num_shards=SHARDS)
             refs[router] = one_process_reference(torch, cfg_r, params, aux, state, forcing,
                                                  SHARDED_DAYS, torch.float32)
@@ -3307,10 +3370,9 @@ def multi_process_check(torch):
         print(f"  the one-process references in {time.perf_counter() - t0:.1f} s", flush=True)
         del params, aux, forcing
         torch.cuda.empty_cache()
-        fig = phase_ranks(torch, card, path, tmp, refs, {"ms": float("nan"),
-                                                         "ms_overland": float("nan"),
-                                                         "step_ms": float("nan"),
-                                                         "k7_per_step": refs["sharded"][1]})
+        nan = {"ms": float("nan"), "ms_overland": float("nan"), "step_ms": float("nan")}
+        fig = phase_ranks(torch, card, path, tmp, refs,
+                          {"sharded": {**nan, "k7_per_step": refs["sharded"][1]}, "scan": nan})
     print(json.dumps({k: v for k, v in fig.items() if k != "plain_shape"}), flush=True)
     print(smi_line())
     return 0
@@ -3561,7 +3623,10 @@ def main():
               f"and {SYNTHETIC_RANKS} on synthetic 240x200, float32 and float64", flush=True)
         ranks = phase_ranks(torch, card, path, tmp,
                             {"sharded": (sharded.pop("ranks_reference"), None, None),
-                             "packed": packed_ref}, sharded)
+                             "packed": packed_ref,
+                             "scan": (scan.pop("ranks_reference"), scan.pop("k7_per_step"),
+                                      None)},
+                            {"sharded": sharded, "scan": scan})
         sharded.pop("k7_per_step")
         del packed_ref
 
@@ -3640,7 +3705,7 @@ def main():
     # K6 on one rank's own and halo tables (phase 14): a channel sub-step's
     # launch on rank 0 of the catchment's two ranks, its launches in that
     # rank's timed days; no PyTorch call computes it
-    packed_ranks = ranks.pop("packed")
+    packed_ranks, scan_ranks = ranks.pop("packed"), ranks.pop("scan")
     figures["kernels"].append(
         {"name": "kinwave_sharded_rank", "route": "cuda",
          "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
@@ -3657,6 +3722,13 @@ def main():
          "source": "lisflood_tpu_torch/csrc/kinwave_sweep.cu",
          "replaces": "lisflood_tpu/ops/kinwave_packed.py:211", "library_ms": None,
          **packed_ranks["kinwave_sweep_rank"]})
+    # K6 on rank 0's natural tables of the catchment's two scan ranks (phase
+    # 14): a channel sub-step's launch beside phase 11's on the whole
+    # natural tables (ms_phase11), its launches in that rank's timed days
+    figures["kernels"].append(
+        {"name": "kinwave_sharded_scan_rank", "route": "cuda",
+         "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
+         "replaces": "lisflood_tpu/ops/kinwave.py:80", "library_ms": None, **scan_ranks})
     print(f"host synchronisations in one step, by path: {SYNCS}", flush=True)
     SOIL_COUNTS.update({"main": k8_main, "catchment": k8_catchment})
     print("K8 lanes that sub-step / the largest count, by path: "

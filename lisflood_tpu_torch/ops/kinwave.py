@@ -18,6 +18,13 @@ The Newton solve is `_newton_solve`, the one K6 and the packed routers
 solve with (ops/kinwave_packed.newton_solve): in float64, and for any beta
 but 3/5, the JAX package's 6 masked q-space iterations from the secant
 bounds (float32 4); in float32 at beta = 3/5 the polynomial v-space solve.
+
+One rank of the multi-process step (parallel/shard_model.ScanRankLayout)
+routes its own natural pixels with RankScanRouter: K6 on the natural graph
+cut to its own pixels and the other ranks' pixels upstream of them (its
+halo, closed upstream), whose operands arrive before each launch. Every
+local pixel keeps its sources in the whole table's order, so a rank's
+discharge is the one-process discharge bit for bit.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 
 from ..device import resolve_device
 from .kinwave_packed import PackedSchedule, newton_solve
-from .kinwave_sharded import RingTiles, kinwave_sharded_sweep, ring_tables
+from .kinwave_sharded import RankRouter, RingTiles, kinwave_sharded_sweep, ring_tables
 from .wavefront import SWEEP_CAP, upstream_table
 
 
@@ -106,6 +113,27 @@ class NaturalSchedule:
     pack_np = PackedSchedule.pack_np
 
 
+def natural_schedule(schedule):
+    """The NaturalSchedule of a natural-order schedule (anything with
+    `chunks`, `downstream` and `num_pixels`; a downstream of P or more is
+    none)."""
+    P = int(schedule.num_pixels)
+    chunks = np.asarray(schedule.chunks)
+    down = np.asarray(schedule.downstream, np.int64)[:P]
+    ident = np.arange(P)
+    return NaturalSchedule(perm=ident, inv_perm=ident,
+                           down_pos=np.minimum(down, P).astype(np.int32),
+                           n_chunks=chunks.shape[0], chunk=chunks.shape[1], num_pixels=P)
+
+
+def natural_upstream(ps):
+    """(K, P) int32: every pixel's sources of the NaturalSchedule `ps`,
+    ascending (upstream_table), the order the sweep sums them in."""
+    P = ps.num_pixels
+    has_down = ps.down_pos < P
+    return upstream_table(np.flatnonzero(has_down), ps.down_pos[has_down], P)
+
+
 class ScanRouter:
     """Router over a natural-order schedule (anything with `chunks`,
     `downstream` and `num_pixels`), with the interface of the packed and
@@ -114,19 +142,11 @@ class ScanRouter:
     solves elementwise."""
 
     def __init__(self, schedule, device=None):
-        P = int(schedule.num_pixels)
-        chunks = np.asarray(schedule.chunks, np.int64)
-        down = np.asarray(schedule.downstream, np.int64)[:P]
-        ident = np.arange(P)
-        self.ps = NaturalSchedule(perm=ident, inv_perm=ident, down_pos=down.astype(np.int32),
-                                  n_chunks=chunks.shape[0], chunk=chunks.shape[1],
-                                  num_pixels=P)
+        self.ps = natural_schedule(schedule)
         self.device = resolve_device(device)
-        has_down = down < P
-        self.no_edges = not bool(has_down.any())
-        self.chunks = torch.as_tensor(chunks, device=self.device)
-        self.ups = torch.as_tensor(upstream_table(np.flatnonzero(has_down), down[has_down], P),
-                                   device=self.device)
+        self.no_edges = not bool((self.ps.down_pos < self.ps.num_pixels).any())
+        self.chunks = torch.as_tensor(np.asarray(schedule.chunks, np.int64), device=self.device)
+        self.ups = torch.as_tensor(natural_upstream(self.ps), device=self.device)
         self._tiles = {}
 
     def sweep_tiles(self, cap=SWEEP_CAP):
@@ -163,6 +183,100 @@ class ScanRouter:
         """Single-lane convenience wrapper."""
         return self.route_batched(discharge[None], lateral_inflow[None],
                                   a_dx_div_dt[None], beta)[0]
+
+
+# ---------------------------------------------------------------------------
+# one rank's part of the sweep (parallel/shard_model.ScanRankLayout): its own
+# natural pixels and its upstream halo
+
+
+@dataclass(frozen=True)
+class RankScanTiles(ScanTiles):
+    """K6's tables of one rank's local natural graph (rank_scan_tables): its
+    own pixels, then its halo, `glob` (n_loc,) their natural pixels. The
+    plain version (ScanTiles.reference) runs `_sweep_scan` on the schedule's
+    chunks that hold a local pixel, cut to the local pixels: the halo is
+    closed upstream, so every source of a local pixel is local and lies in
+    an earlier chunk. Each local pixel keeps its lane, so every chunk solves
+    (L, C) lanes as in the whole sweep and the CPU's vector loops take each
+    pixel down the same path (their scalar remainder computes pow in another
+    last bit)."""
+
+    glob: torch.Tensor
+
+
+def rank_scan_tables(ps, ups_np, chunks_np, glob, device, cap=SWEEP_CAP):
+    """RankScanTiles of the pixels `glob` (a rank's own, then its halo,
+    closed upstream) of the NaturalSchedule `ps` with source table `ups_np`
+    (K, P) (natural_upstream) and chunks `chunks_np` (n_chunks, C; P =
+    padding), on `device`: local downstream pixels (none where the
+    downstream pixel is not local), each local pixel's sources in the whole
+    table's order (raises where one is not local), and the chunks that hold
+    a local pixel with every local pixel in its lane, the other lanes
+    padding (n_loc)."""
+    P, n = ps.num_pixels, glob.size
+    loc_of = np.full(P + 1, -1, np.int64)
+    loc_of[glob] = np.arange(n)
+    down = loc_of[ps.down_pos[glob]]
+    down_loc = np.where(down >= 0, down, n).astype(np.int32)
+    src = np.asarray(ups_np, np.int64)[:, glob]
+    ups_loc = np.where(src >= 0, loc_of[np.where(src >= 0, src, P)], -1)
+    if ((src >= 0) & (ups_loc < 0)).any():
+        raise ValueError("rank_scan_tables: a source of a local pixel is not local: the halo "
+                         "is not closed upstream")
+    loc = loc_of[np.minimum(np.asarray(chunks_np, np.int64), P)]
+    loc = loc[(loc >= 0).any(1)]
+    chunks = np.where(loc >= 0, loc, n)
+    ups_t = torch.as_tensor(np.ascontiguousarray(ups_loc, np.int32), device=device)
+    return ring_tables(RankScanTiles, down_loc, ups_t, n, cap,
+                       chunks=torch.as_tensor(chunks, device=device), num_pixels=n,
+                       glob=torch.as_tensor(glob, device=device))
+
+
+class RankScanRouter(ScanRouter):
+    """One rank's ScanRouter (parallel/shard_model.ScanRankLayout): its
+    operands are (L, n_own) over its own natural pixels (`part["own"]`,
+    ascending), pack / unpack the identity. Before each sweep the operands
+    (const, adx) of its halo come from their owners, one all_gather of every
+    rank's `send` pixels (padded to `send_max`), when any rank has a halo;
+    K6 then runs on the rank's local tables (RankScanTiles) and the rank
+    keeps its own pixels. No value crosses ranks inside a launch. An
+    edge-free graph (the whole graph's) solves elementwise."""
+
+    def __init__(self, schedule, part, group, device):
+        self.ps = natural_schedule(schedule)
+        self.device = torch.device(device)
+        self.group = group
+        self.no_edges = not bool((self.ps.down_pos < self.ps.num_pixels).any())
+        self.own, self.halo = part["own"], part["halo"]
+        self.exchange, self.send_max = part["exchange"], part["send_max"]
+        self.send = torch.as_tensor(np.searchsorted(self.own, part["send"]), device=self.device)
+        self.halo_src = torch.as_tensor(part["halo_src"], device=self.device)
+        self._chunks = np.asarray(schedule.chunks)
+        self._ups = None
+        self._tiles = {}
+
+    def sweep_tiles(self, cap=SWEEP_CAP):
+        """K6's RankScanTiles at `cap`, built at first use, once per cap."""
+        if cap not in self._tiles:
+            if self._ups is None:
+                self._ups = natural_upstream(self.ps)
+            self._tiles[cap] = rank_scan_tables(self.ps, self._ups, self._chunks,
+                                                np.r_[self.own, self.halo], self.device, cap)
+        return self._tiles[cap]
+
+    with_halo = RankRouter.with_halo
+
+    def route_batched(self, discharge, lateral_inflow, a_dx_div_dt, beta):
+        """The rank's (L, n_own) operands -> (L, n_own) routed discharge."""
+        const, adx = self.sweep_operands(discharge, lateral_inflow, a_dx_div_dt, beta)
+        if self.no_edges:
+            return _newton_solve(const, adx, beta)
+        const_l, adx_l = self.with_halo(const, adx)
+        q = kinwave_sharded_sweep(const_l, adx_l, self.sweep_tiles(), float(beta))
+        return q[:, :self.own.size]
+
+    route_packed = route_batched
 
 
 @dataclass

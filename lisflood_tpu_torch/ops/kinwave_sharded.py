@@ -702,8 +702,9 @@ class RankRouter(ShardedRouter):
         return self._tiles[cap]
 
     def with_halo(self, const_p, adx_p):
-        """(L, hi - lo) operands -> the local graph's (L, n_loc): the rank's
-        own, then its halo's from their owners (one all_gather)."""
+        """The rank's own (L, n_own) operands -> the local graph's (L,
+        n_loc): its own, then its halo's from their owners (one
+        all_gather)."""
         if not self.exchange:
             return const_p, adx_p
         L = const_p.shape[0]

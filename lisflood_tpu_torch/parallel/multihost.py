@@ -6,7 +6,8 @@ process's devices and lets GSPMD shard the pixel axis. Here N processes
 parallel/collectives.py), and each steps the part of the grid it owns
 (parallel/shard_model.py: whole logical shards; RoutingKernel packed runs
 the sub-step kernel and K5 on the rank's kept chunks of the whole packed
-schedules, sharded K6 on its own positions, each with its upstream halo).
+schedules, sharded K6 on its own positions, scan K6 on its own natural
+pixels, each with its upstream halo).
 The gathered state is the one-process state bit for bit.
 
 - `initialize(...)`: the process group;
@@ -17,16 +18,18 @@ The gathered state is the one-process state bit for bit.
 - `gather_state(step, state)`: the whole natural state on every rank (the
   counterpart of `process_allgather`);
 - a command line, `python -m lisflood_tpu_torch.parallel.multihost --rank i
-  --nprocs N [--steps K --out state.npz --kernel packed|sharded --shards S
-  --device cuda|cpu --init-method file:///path]`, which runs the synthetic
-  16x16 model in float64 for K steps and saves the gathered state on rank 0
-  (tests/test_torch_multihost.py and tests/test_torch_multihost_packed.py
-  hold N = 1, 2 and 4 bitwise equal).
+  --nprocs N [--steps K --out state.npz --kernel packed|sharded|scan
+  --shards S --device cuda|cpu --init-method file:///path]`, which runs the
+  synthetic 16x16 model in float64 for K steps and saves the gathered state
+  on rank 0 (tests/test_torch_multihost.py,
+  tests/test_torch_multihost_packed.py and
+  tests/test_torch_multihost_scan.py hold N = 1, 2 and 4 bitwise equal).
 
 One process runs any router, as the one-process step does; more than one
-runs RoutingKernel packed and sharded (every option but folded ensembles;
-scan is later work, ROADMAP.md). With `--device cuda` (the default) rank r
-takes card r modulo the card count, so N ranks may share one card.
+runs RoutingKernel packed, sharded and scan, every option but folded
+ensembles (which the JAX package does not run across devices either). With
+`--device cuda` (the default) rank r takes card r modulo the card count, so
+N ranks may share one card.
 """
 from __future__ import annotations
 
@@ -69,8 +72,8 @@ def shard_tree_global(layout, tree, num_pixels=None):
 def multihost_step(model, layout, group, dtype=torch.float64, device=None):
     """The rank's step of the host model (cfg, params, aux) laid out by
     `layout` (shard_model.rank_layout: a RankLayout for RoutingKernel
-    sharded, a PackedRankLayout for packed) over `group`: a
-    shard_model.RankStep."""
+    sharded, a PackedRankLayout for packed, a ScanRankLayout for scan) over
+    `group`: a shard_model.RankStep."""
     cfg, params, aux = model
     return rank_step(cfg, params, aux, layout, group, dtype, device)
 
@@ -92,11 +95,9 @@ def run_demo(rank, nprocs, steps=3, out=None, device=None, init_method=None,
     `steps` steps; returns the gathered state, which rank 0 saves to `out`."""
     dev = rank_device(device, rank)
     cfg, params, state, aux = build_synthetic_model(16, 16)
-    if routing_kernel in ("sharded", "packed"):
-        # the packed router's layout takes num_shards as its logical shard count
-        cfg = dataclasses.replace(cfg, routing_kernel=routing_kernel, num_shards=num_shards)
-    elif routing_kernel:
-        cfg = dataclasses.replace(cfg, routing_kernel=routing_kernel)
+    # the packed and the scan router's layouts take num_shards as their
+    # logical shard count
+    cfg = dataclasses.replace(cfg, routing_kernel=routing_kernel, num_shards=num_shards)
     check_ranks(cfg, nprocs)
     group = initialize(init_method or "tcp://localhost:29500", nprocs, rank)
     try:
@@ -129,7 +130,7 @@ def main(argv=None):
     ap.add_argument("--init-method", type=str, default="tcp://localhost:29500",
                     help="the process group's rendezvous: tcp://localhost:<port> or "
                          "file:///path (a file no other group uses)")
-    ap.add_argument("--kernel", type=str, default="sharded")
+    ap.add_argument("--kernel", choices=("packed", "sharded", "scan"), default="sharded")
     ap.add_argument("--shards", type=int, default=4)
     a = ap.parse_args(argv)
     run_demo(a.rank, a.nprocs, a.steps, a.out, a.device, a.init_method, a.kernel, a.shards)

@@ -1,5 +1,6 @@
-"""Ranks owning whole logical shards of the pixel axis, on the packed and
-the sharded router — the port of lisflood_tpu/parallel/shard_model.py.
+"""Ranks owning whole logical shards of the pixel axis, on the packed, the
+sharded and the scan router — the port of
+lisflood_tpu/parallel/shard_model.py.
 
 The JAX package shards the pixel axis of its one-device step over a mesh
 with `with_sharding_constraint` and lets XLA insert the collectives. PyTorch
@@ -8,11 +9,12 @@ crosses ranks:
 
 - Rank r of N owns the logical shards [floor(r S / N), floor((r + 1) S / N))
   of `catchment_partition` (parallel/partition.py): S = cfg.num_shards >= N
-  for RoutingKernel sharded, S = max(cfg.num_shards, N) for packed. Its
-  natural pixels, ascending, are the rank's pixel axis. Every rank builds
-  the whole model, partition and schedules on the host, as every JAX
-  process holds the host arrays, and moves only its own part, and its
-  tables, to its device (`RankLayout`, `PackedRankLayout`, `rank_step`).
+  for RoutingKernel sharded, S = max(cfg.num_shards, N) for packed and
+  scan. Its natural pixels, ascending, are the rank's pixel axis. Every
+  rank builds the whole model, partition and schedules on the host, as
+  every JAX process holds the host arrays, and moves only its own part,
+  and its tables, to its device (`RankLayout`, `PackedRankLayout`,
+  `ScanRankLayout`, `rank_step`).
 - The column physics is pixel-local and runs on the rank's pixels alone.
 - RoutingKernel sharded (`RankLayout`): the rank's positions are one
   contiguous block of each shard-major sharded schedule (pos = s n_chunks C
@@ -32,8 +34,14 @@ crosses ranks:
   routing state itself, bit for bit its owner's; each structure's state
   comes from the rank that owns its cell, one gather a step. The overland
   sweep (K5) runs on the rank's kept overland chunks the same way.
-- Either way every position's sources are summed by the same kernel in the
-  same table order, so the bits are the one-process run's.
+- RoutingKernel scan (`ScanRankLayout`): the position space is the natural
+  pixel space, so the rank's positions are its own pixels; each sweep (K6)
+  runs on the natural graph cut to its own pixels plus its upstream halo
+  (the other ranks' pixels upstream of them over the downstream of the
+  schedule it sweeps), whose operands arrive before the launch
+  (ops/kinwave.RankScanRouter).
+- Whatever the router, every position's sources are summed by the same
+  kernel in the same table order, so the bits are the one-process run's.
 - Every other operation that reads across pixels gathers what it reads:
   segment sums (K7: catchment, region and evaporation totals) sum the
   gathered vector in the one-process order and keep the rank's part
@@ -44,10 +52,11 @@ crosses ranks:
   `GridPixels`); the soil's Courant cap flag is a global OR. Transient land
   use reads per-pixel forcing, split as any other.
 So the gathered state of N ranks is that of one process bit for bit, for
-every N <= S (the packed router's bits do not depend on S at all).
+every N <= S (the packed and the scan router's bits do not depend on S at
+all).
 
-RoutingKernel scan and folded ensembles raise NotImplementedError with more
-than one rank (ROADMAP.md).
+A folded ensemble raises NotImplementedError with more than one rank (the
+JAX package has none across devices; ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ from ..device import resolve_device, to_device
 from ..graph.ldd import graph_levels
 from ..models.step import (PACKED_FILLS, Step, packed_routing_keys, packed_routing_params,
                            segment_orders, sharded_schedules)
+from ..ops.kinwave import RankScanRouter, natural_schedule
 from ..ops.kinwave_packed import PackedSchedule, RankPackedRouter, pack_schedule
 from ..ops.kinwave_sharded import RankRouter, _rank_in_group
 from ..ops.segment_sum import scatter_to_downstream, segment_spread
@@ -120,6 +130,25 @@ class SpaceMap:
     counts: np.ndarray
 
 
+def send_lists(halos, owner, nranks):
+    """The exchange of every rank's halo (entries of a space whose ranks
+    are `owner`, -1 = no rank): the entries each rank sends (`send`, in some
+    halo, ascending), the send buffers' width (`send_max`), where each
+    halo's values lie in the gathered send buffers (`halo_src`, owner x
+    send_max + index in the owner's send list) and whether any rank has a
+    halo (`exchange`)."""
+    needed = np.zeros(owner.size, bool)
+    for h in halos:
+        needed[h] = True
+    send = [np.flatnonzero(needed & (owner == o)) for o in range(nranks)]
+    send_max = max(1, max(x.size for x in send))
+    j = np.zeros(owner.size, np.int64)
+    for x in send:
+        j[x] = np.arange(x.size)
+    return {"send": send, "send_max": send_max, "exchange": any(h.size for h in halos),
+            "halo_src": [owner[h] * send_max + j[h] for h in halos]}
+
+
 def graph_parts(ps, down, owner_pix, rank_of_shard):
     """Each rank's part of the sharded schedule `ps` of the graph `down`
     (natural, -1 = none), as a dict: its block [lo, hi) of positions, its
@@ -133,27 +162,18 @@ def graph_parts(ps, down, owner_pix, rank_of_shard):
     mask = downstream_ranks(np.asarray(down, np.int64), owner_pix, N)
     inv = np.asarray(ps.inv_perm, np.int64)
     halos = [np.sort(inv[(owner_pix != r) & mask[:, r]]) for r in range(N)]
-    owner_pos = rank_of_shard[np.arange(ps.p_pad) // B]
-    needed = np.zeros(ps.p_pad, bool)
-    for h in halos:
-        needed[h] = True
-    send = [np.flatnonzero(needed & (owner_pos == o)) for o in range(N)]
-    send_max = max(1, max(s.size for s in send))
-    j = np.zeros(ps.p_pad, np.int64)
-    for s in send:
-        j[s] = np.arange(s.size)
-    exchange = any(h.size for h in halos)
+    ex = send_lists(halos, rank_of_shard[np.arange(ps.p_pad) // B], N)
     parts = []
     for r in range(N):
         lo_s, hi_s = np.flatnonzero(rank_of_shard == r)[[0, -1]]
         parts.append({"lo": int(lo_s) * B, "hi": (int(hi_s) + 1) * B, "halo": halos[r],
-                      "send": send[r], "send_max": send_max, "exchange": exchange,
-                      "halo_src": owner_pos[halos[r]] * send_max + j[halos[r]]})
+                      "send": ex["send"][r], "send_max": ex["send_max"],
+                      "exchange": ex["exchange"], "halo_src": ex["halo_src"][r]})
     return parts
 
 
 class _Layout:
-    """What both layouts share: the natural pixel space (`natural`, a
+    """What the layouts share: the natural pixel space (`natural`, a
     SpaceMap), the rank and every rank's part of each graph (`parts`)."""
 
     @property
@@ -163,6 +183,18 @@ class _Layout:
 
     def part(self, key):
         return self.parts[key][self.rank]
+
+    def figures(self):
+        """Per graph, this rank's own, halo and sent entries (positions or
+        pixels), the send buffers' width and whether the graph
+        exchanges."""
+        out = {}
+        for key, parts in self.parts.items():
+            me = parts[self.rank]
+            out[key] = {"own": me["hi"] - me["lo"] if "lo" in me else int(me["own"].size),
+                        "halo": int(me["halo"].size), "send": int(me["send"].size),
+                        "send_max": me["send_max"], "exchange": me["exchange"]}
+        return out
 
     def cut_edges(self, key, aux):
         """The edges of graph `key` ("kin" or "tochan", in `aux`) whose ends
@@ -211,17 +243,6 @@ class RankLayout(_Layout):
         block."""
         part = self.part("kin")
         return slice(part["lo"], part["hi"])
-
-    def figures(self):
-        """Per graph, this rank's own, halo and sent positions, the send
-        buffers' width and whether the graph exchanges."""
-        out = {}
-        for key, parts in self.parts.items():
-            me = parts[self.rank]
-            out[key] = {"own": me["hi"] - me["lo"], "halo": int(me["halo"].size),
-                        "send": int(me["send"].size), "send_max": me["send_max"],
-                        "exchange": me["exchange"]}
-        return out
 
 
 def owner_of_pixels(cfg, aux, nranks, n_shards=None):
@@ -277,15 +298,7 @@ def packed_parts(ps, src, tgt, owner_pix, nranks):
                                  owner_pos, nranks)
     halos = [np.flatnonzero((owner_pos >= 0) & (owner_pos != r) & reach[:, r])
              for r in range(nranks)]
-    needed = np.zeros(ps.p_pad, bool)
-    for h in halos:
-        needed[h] = True
-    send = [np.flatnonzero(needed & (owner_pos == o)) for o in range(nranks)]
-    send_max = max(1, max(x.size for x in send))
-    j = np.zeros(ps.p_pad, np.int64)
-    for x in send:
-        j[x] = np.arange(x.size)
-    exchange = any(h.size for h in halos)
+    ex = send_lists(halos, owner_pos, nranks)
     parts = []
     for r in range(nranks):
         own = np.flatnonzero(owner_pos == r)
@@ -293,8 +306,8 @@ def packed_parts(ps, src, tgt, owner_pix, nranks):
         chunks = np.unique(lanes // C)
         parts.append({"own": own, "halo": halos[r], "lanes": lanes, "chunks": chunks,
                       "glob": (chunks[:, None] * C + np.arange(C)).reshape(-1),
-                      "send": send[r], "send_max": send_max, "exchange": exchange,
-                      "halo_src": owner_pos[halos[r]] * send_max + j[halos[r]]})
+                      "send": ex["send"][r], "send_max": ex["send_max"],
+                      "exchange": ex["exchange"], "halo_src": ex["halo_src"][r]})
     return parts
 
 
@@ -491,25 +504,74 @@ class PackedRankLayout(_Layout):
         return out
 
     def figures(self):
-        """Per graph, this rank's own, halo and sent positions, its kept
-        chunks of all, the send buffers' width and whether the graph
-        exchanges."""
-        out = {}
-        for key, parts in self.parts.items():
-            me = parts[self.rank]
-            out[key] = {"own": int(me["own"].size), "halo": int(me["halo"].size),
-                        "send": int(me["send"].size), "send_max": me["send_max"],
-                        "chunks": int(me["chunks"].size), "of_chunks": self.ps[key].n_chunks,
-                        "exchange": me["exchange"]}
+        """_Layout.figures with each graph's kept chunks of all."""
+        out = super().figures()
+        for key, fig in out.items():
+            fig.update(chunks=int(self.part(key)["chunks"].size), of_chunks=self.ps[key].n_chunks)
         return out
+
+
+def scan_parts(down, owner, nranks):
+    """Each rank's part of the natural graph `down` (-1 = none) whose pixels'
+    ranks are `owner`, as a dict: its own pixels, its halo (the other ranks'
+    pixels upstream of its own, ascending) and its exchange (send_lists)."""
+    mask = downstream_ranks(down, owner, nranks)
+    halos = [np.flatnonzero((owner != r) & mask[:, r]) for r in range(nranks)]
+    ex = send_lists(halos, owner, nranks)
+    return [{"own": np.flatnonzero(owner == r), "halo": halos[r], "send": ex["send"][r],
+             "send_max": ex["send_max"], "exchange": ex["exchange"],
+             "halo_src": ex["halo_src"][r]} for r in range(nranks)]
+
+
+class ScanRankLayout(_Layout):
+    """Which pixels rank `rank` of `nranks` owns for the scan router
+    (RoutingKernel scan), on the host. The pixels are owned as by
+    PackedRankLayout (owner_of_pixels: S = n_shards or max(cfg.num_shards,
+    nranks)). The router's position space is the natural pixel space, so
+    `positions` is `natural` and a rank's positions are its own pixels. For
+    the channel ("kin") and overland ("tochan") graphs, by the downstream of
+    the schedules the router sweeps (`sched`: aux["schedule_kin"],
+    ["schedule_tochan"]), `parts` holds every rank's part (scan_parts).
+    `seconds` holds the host time of the partition and of the layout."""
+
+    def __init__(self, cfg, aux, rank, nranks, n_shards=None):
+        t0 = time.perf_counter()
+        owner, S = owner_of_pixels(cfg, aux, nranks, n_shards)
+        t1 = time.perf_counter()
+        self.rank, self.nranks, self.n_shards = int(rank), int(nranks), S
+        P = owner.size
+        self.num_pixels = P
+        self.natural = SpaceMap(owner, _rank_in_group(owner, nranks),
+                                np.bincount(owner, minlength=nranks))
+        self.positions = self.natural
+        self.pixels = np.flatnonzero(owner == rank)
+        self.sched = {key: aux["schedule_" + key] for key in ("kin", "tochan")}
+        self.parts = {}
+        for key, sched in self.sched.items():
+            down = natural_schedule(sched).down_pos.astype(np.int64)
+            self.parts[key] = scan_parts(np.where(down < P, down, -1), owner, nranks)
+        self.seconds = {"partition": t1 - t0, "layout": time.perf_counter() - t1}
+
+    def position_index(self):
+        """The rank's part of the natural position space: its pixels."""
+        return self.pixels
+
+
+# the layout of each router across ranks
+LAYOUTS = {"packed": PackedRankLayout, "sharded": RankLayout, "scan": ScanRankLayout}
 
 
 def rank_layout(cfg, params_np, aux, rank, nranks, n_shards=None):
     """The layout of rank `rank` of `nranks` for cfg's router: a
     PackedRankLayout for RoutingKernel packed, a RankLayout (whole shards of
-    the sharded schedules) for sharded."""
+    the sharded schedules) for sharded, a ScanRankLayout for scan (n_shards:
+    the logical shard count of packed and scan)."""
     if cfg.routing_kernel == "packed":
         return PackedRankLayout(cfg, params_np, aux, rank, nranks, n_shards)
+    if cfg.routing_kernel == "scan":
+        return ScanRankLayout(cfg, aux, rank, nranks, n_shards)
+    if cfg.routing_kernel != "sharded":
+        raise ValueError(f"unknown routing_kernel {cfg.routing_kernel!r}")
     return RankLayout(cfg, aux, rank, nranks)
 
 
@@ -518,7 +580,8 @@ def pixel_sharding(layout, arr, num_pixels=None, p_pad=None):
     its pixels where that axis is the pixel axis (num_pixels, the layout's
     by default), its part of the channel schedule's position space where
     that is the axis (p_pad: a RankLayout's block, a PackedRankLayout's kept
-    chunks); None (the array is replicated) otherwise."""
+    chunks, a ScanRankLayout's pixels); None (the array is replicated)
+    otherwise."""
     if getattr(arr, "ndim", 0) == 0:
         return None
     n = arr.shape[-1]
@@ -634,13 +697,10 @@ class RankOrder:
 
 
 def check_ranks(cfg, nranks):
-    """Refuses what the multi-process step does not run across ranks."""
+    """Refuses what the multi-process step does not run across ranks: a
+    folded ensemble (every router runs across ranks)."""
     if nranks <= 1:
         return
-    if cfg.routing_kernel not in ("packed", "sharded"):
-        raise NotImplementedError(
-            f"RoutingKernel {cfg.routing_kernel} across {nranks} ranks: the packed and the "
-            "sharded router run across ranks; scan is later work (ROADMAP.md)")
     if cfg.members != 1:
         raise NotImplementedError("a folded ensemble across ranks is not in the JAX package "
                                   "(ROADMAP.md)")
@@ -779,45 +839,53 @@ def rank_step(cfg, params_np, aux, layout, group, dtype=torch.float64, device=No
       parameters of its kept chunks (rank_kinp) and its routers
       (RankPackedRouter: the channel's on its kept chunks, the overland's
       with K5's tables of its kept chunks);
+    - RoutingKernel scan (a ScanRankLayout): the natural position space's
+      parameters (packed_routing_params of the NaturalSchedule) of its
+      pixels, its routers (ops/kinwave.RankScanRouter, with K6's tables of
+      its own pixels and halo);
 
-    then the segment orders of the whole model (RankOrder) and the step on
-    them; the step's config counts the rank's pixels."""
+    then the segment orders of the whole model (RankOrder; the sequential
+    loop's in-loop catchment totals over the sharded schedule's or the
+    natural space) and the step on them; the step's config counts the
+    rank's pixels."""
     device = rank_device(device, layout.rank)
     check_ranks(cfg, layout.nranks)
-    packed = isinstance(layout, PackedRankLayout)
-    if packed != (cfg.routing_kernel == "packed"):
-        raise ValueError(f"RoutingKernel {cfg.routing_kernel} on a {type(layout).__name__}")
+    kind = cfg.routing_kernel
+    if type(layout) is not LAYOUTS.get(kind):
+        raise ValueError(f"RoutingKernel {kind} on a {type(layout).__name__}")
     t0 = time.perf_counter()
     p, nat, grid = rank_params(cfg, params_np, layout, group, device, dtype)
-    if packed:
+    if kind == "packed":
         p.update(_kinp_to_device(layout.kinp_local, device, dtype))
         feeders_earlier, eva_window_ok = layout.feeders_earlier, layout.eva_window_ok
         position_catchments = None
     else:
-        kinp, feeders_earlier, _ = packed_routing_params(cfg, params_np, layout.sched["kin"])
+        ps = layout.sched["kin"] if kind == "sharded" else natural_schedule(layout.sched["kin"])
+        kinp, feeders_earlier, _ = packed_routing_params(cfg, params_np, ps)
         eva_window_ok = False
-        p_pad = layout.sched["kin"].p_pad
         for k, v in kinp.items():
             if k in POSITION_INDEX:
                 p[k] = RankIndex(v, layout.positions, layout.rank, group, device)
             else:
-                p.update(_kinp_to_device(shard_tree(layout, {k: v}, num_pixels=-1, p_pad=p_pad),
-                                         device, dtype))
+                p.update(_kinp_to_device(shard_tree(layout, {k: v}, num_pixels=-1,
+                                                    p_pad=ps.p_pad), device, dtype))
         position_catchments = kinp.get("kinp$Catchments")
     t1 = time.perf_counter()
     eva_in_kernel = cfg.open_water_evapo and not cfg.init_lisflood and eva_window_ok
     orders = segment_orders(cfg, params_np, device, position_catchments, not eva_in_kernel)
-    pos = nat if packed else RankSpace(layout.positions, layout.rank, group, device)
+    pos = RankSpace(layout.positions, layout.rank, group, device) if kind == "sharded" else nat
     p.update({k: RankOrder(v, pos if k == "seg$kinp$Catchments" else nat)
               for k, v in orders.items()})
     t2 = time.perf_counter()
     routers = {}
     for key in ("kin", "tochan"):
-        if packed:
+        if kind == "packed":
             r = RankPackedRouter(layout.local[key], layout.router_part(key), group, device)
+        elif kind == "scan":
+            r = RankScanRouter(layout.sched[key], layout.part(key), group, device)
         else:
             r = RankRouter(layout.sched[key], layout.part(key), layout.owned, group, device)
-        if not r.no_edges and (key == "tochan" or not packed):
+        if not r.no_edges and (key == "tochan" or kind != "packed"):
             r.sweep_tiles()
         routers[key] = r
     routers["kin"].struct_feeders_earlier = feeders_earlier
@@ -834,8 +902,8 @@ def rank_step(cfg, params_np, aux, layout, group, dtype=torch.float64, device=No
 
 
 def shard_runner_step(runner, group=None):
-    """The step of a models/driver.LisfloodRunner (RoutingKernel packed or
-    sharded) for this process's rank of `group` (the world by default):
+    """The step of a models/driver.LisfloodRunner (any RoutingKernel) for
+    this process's rank of `group` (the world by default):
     returns (step, state), the RankStep on the runner's device and dtype and
     the rank's part of the runner's state."""
     rank, nranks = world(group)
@@ -851,8 +919,8 @@ def build_sharded_model_step(group=None, nrows=16, ncols=16, dtype=torch.float32
                              **synth_kwargs):
     """The synthetic model's step for this process's rank of `group`:
     returns (step, state, forcing, cfg), the rank's state and forcing on its
-    device. `num_shards` defaults to the number of ranks (the packed
-    router's layout takes it as its logical shard count)."""
+    device. `num_shards` defaults to the number of ranks (the packed and
+    the scan router's layouts take it as their logical shard count)."""
     from ..models.synthetic import build_synthetic_model, synthetic_forcing
     rank, nranks = world(group)
     cfg, params, state, aux = build_synthetic_model(nrows, ncols, **synth_kwargs)

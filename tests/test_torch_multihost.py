@@ -8,6 +8,8 @@ with gloo on the CPU.
   halo give the one-process sweep's bits at its positions, through the
   tables' plain version and through an emulation of the kernel's launch
   (tests/test_torch_sharded_tiles.emulate). In-process, no process group.
+  The synthetic 240x200 case runs in tests/test_torch_multihost_sweep240.py
+  through this file's helpers.
 - The command line (`python -m lisflood_tpu_torch.parallel.multihost`, the
   counterpart of tests/test_multihost.py:56): 1, 2 and 4 processes give the
   same gathered state bit for bit, at 4 and at 8 logical shards.
@@ -19,7 +21,7 @@ with gloo on the CPU.
   bit, state and reports.
 - Two ranks held to the JAX package's one-device sharded step at the port's
   gates.
-- What more than one rank refuses.
+- What more than one rank refuses: a folded ensemble, on any router.
 
 Every process runs with ATEN_CPU_CAPABILITY=default: PyTorch's vectorised CPU
 loops compute a lane in the scalar remainder of a vector loop (pow) in
@@ -99,8 +101,11 @@ def catchment(tmp_path_factory):
     return write_catchment(str(tmp_path_factory.mktemp("ranks")), 48, 40, seed=0, n_steps=2)
 
 
-LAYOUT_CASES = [("synthetic", (16, 16), 4), ("synthetic", (240, 200), 8),
-                ("catchment", (48, 40), 4), ("catchment", (96, 80), 4)]
+# the synthetic 240x200 case runs in tests/test_torch_multihost_sweep240.py,
+# on another worker of the tier-1 run
+LAYOUT_CASES = [("synthetic", (16, 16), 4), ("catchment", (48, 40), 4),
+                ("catchment", (96, 80), 4)]
+case_id = lambda c: f"{c[0]}{c[1][0]}x{c[1][1]}S{c[2]}"
 
 
 def _downstream_owners(down, owner):
@@ -115,10 +120,10 @@ def _downstream_owners(down, owner):
     return bits
 
 
-@pytest.fixture(scope="module")
-def layouts(tmp_path_factory, catchment):
+def build_layouts(cases, tmp_path_factory, catchment):
+    """Each case's (cfg routed sharded on its S shards, aux, schedules)."""
     out = {}
-    for kind, size, S in LAYOUT_CASES:
+    for kind, size, S in cases:
         if kind == "synthetic":
             cfg, aux = _synthetic(size)
         else:
@@ -129,12 +134,11 @@ def layouts(tmp_path_factory, catchment):
     return out
 
 
-@pytest.fixture(scope="module")
-def rank_routers(layouts):
+def build_rank_routers(cases, layouts):
     """Each case's RankRouters (CPU, no group) for both graphs, N = 2, 4,
     with their tables at the default cap."""
     out = {}
-    for kind, size, S in LAYOUT_CASES:
+    for kind, size, S in cases:
         cfg, aux, sched = layouts[kind, size]
         for N in (2, 4):
             for r in range(N):
@@ -147,8 +151,17 @@ def rank_routers(layouts):
     return out
 
 
-@pytest.mark.parametrize("case", LAYOUT_CASES, ids=lambda c: f"{c[0]}{c[1][0]}x{c[1][1]}S{c[2]}")
-def test_layout_halo(layouts, case):
+@pytest.fixture(scope="module")
+def layouts(tmp_path_factory, catchment):
+    return build_layouts(LAYOUT_CASES, tmp_path_factory, catchment)
+
+
+@pytest.fixture(scope="module")
+def rank_routers(layouts):
+    return build_rank_routers(LAYOUT_CASES, layouts)
+
+
+def check_layout_halo(layouts, case):
     """For N = 1, 2, 4 ranks: the ranks' blocks partition each schedule's
     positions and their pixels the grid, every rank's halo is the set of
     other ranks' positions with one of its own downstream, the send lists
@@ -186,14 +199,13 @@ def test_layout_halo(layouts, case):
         assert shard_model.RankLayout(cfg, aux, 0, 4, sched=sched).cut_edges("kin", aux) > 0
 
 
-@pytest.mark.parametrize("case", LAYOUT_CASES, ids=lambda c: f"{c[0]}{c[1][0]}x{c[1][1]}S{c[2]}")
-@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_rank_sweep_bitwise(layouts, rank_routers, case, dt):
+def check_rank_sweep(layouts, rank_routers, case, dt):
     """K6 on each rank's tables (its own positions plus its halo, RankTiles)
     against the one-process `_sweep_sharded` at the rank's positions, bit for
     bit, for both graphs and N = 2, 4, with the halo's operands copied from
     their owners' positions: through the tables' plain version and, on the
-    smaller cases, through the kernel's emulated launch."""
+    smaller cases, through the kernel's emulated launch. A graph with no
+    edge (the synthetic overland graph) has no sweep."""
     kind, size, S = case
     cfg, aux, sched = layouts[kind, size]
     rng = np.random.default_rng(1)
@@ -203,13 +215,13 @@ def test_rank_sweep_bitwise(layouts, rank_routers, case, dt):
         L = 3 if key == "tochan" else 2
         const = torch.as_tensor(rng.uniform(0, 5, (L, ps.p_pad)), dtype=dt)
         adx = torch.as_tensor(rng.uniform(1e-2, 1e2, (L, ps.p_pad)), dtype=dt)
+        if rank_routers[kind, size, key, 2, 0].no_edges:
+            continue
         ups = torch.as_tensor(kss.upstream_positions(ps)).long()
         full = kss._sweep_sharded(const, adx, ups, ps.n_chunks, ps.n_shards, ps.chunk, 0.6)
         for N in (2, 4):
             for r in range(N):
                 router = rank_routers[kind, size, key, N, r]
-                if router.no_edges:
-                    continue
                 tiles = router.sweep_tiles()
                 glob = tiles.glob
                 q = tiles.reference(const[:, glob].contiguous(), adx[:, glob].contiguous(), 0.6)
@@ -220,6 +232,19 @@ def test_rank_sweep_bitwise(layouts, rank_routers, case, dt):
                     qe = emulate(const[:, glob].contiguous(), adx[:, glob].contiguous(), tiles,
                                  plan)
                     assert torch.equal(qe[:, :n_own], q[:, :n_own]), (key, N, r)
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=case_id)
+def test_layout_halo(layouts, case):
+    """check_layout_halo on the case."""
+    check_layout_halo(layouts, case)
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=case_id)
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rank_sweep_bitwise(layouts, rank_routers, case, dt):
+    """check_rank_sweep on the case."""
+    check_rank_sweep(layouts, rank_routers, case, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -432,22 +457,23 @@ def test_two_ranks_match_jax(cli_runs, tmp_path, dt):
 # what more than one rank refuses
 
 
-@pytest.mark.parametrize("change", [{"routing_kernel": "scan"}, {"members": 2}],
+@pytest.mark.parametrize("change", [{"routing_kernel": "scan", "members": 2}, {"members": 2}],
                          ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_refused_across_ranks(change, monkeypatch):
-    """Across ranks the scan router and a folded ensemble raise
-    NotImplementedError (one rank runs them); run_demo refuses before it
+    """Across ranks a folded ensemble raises NotImplementedError on the scan
+    and the sharded router (one rank runs it); run_demo refuses it before it
     joins a group; a rank with no device given takes the CUDA card and
     raises without one."""
-    cfg, _ = _synthetic((16, 16))
+    cfg, params, state, aux = build_synthetic_model(16, 16)
     cfg = dataclasses.replace(cfg, routing_kernel="sharded", num_shards=4)
     bad = dataclasses.replace(cfg, **change)
     shard_model.check_ranks(bad, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         shard_model.check_ranks(bad, 2)
-    if "routing_kernel" in change:
-        with pytest.raises(NotImplementedError):
-            multihost.run_demo(0, 2, device="cpu", routing_kernel=change["routing_kernel"])
+    monkeypatch.setattr(multihost, "build_synthetic_model",
+                        lambda *size: (bad, params, state, aux))
+    with pytest.raises(NotImplementedError):
+        multihost.run_demo(0, 2, device="cpu", routing_kernel=bad.routing_kernel)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         shard_model.rank_device(None, 0)

@@ -364,6 +364,7 @@ import sys
 import numpy as np
 import torch
 from lisflood_tpu_torch.ops import soil_tail as st
+torch.set_num_threads(1)
 {source}
 failed = []
 for name in {names!r}:
@@ -398,12 +399,15 @@ def test_tile_layout_bitwise_to_plain():
     ATEN_CPU_CAPABILITY=default: PyTorch's SIMD pow and the scalar one of a
     vector loop's remainder differ in the last bit, so with the SIMD kernels
     a lane's bits would depend on its position in the tensor; the card has
-    no such effect."""
+    no such effect. One intra-op thread, as the multi-process tests run
+    theirs (tests/test_torch_multihost.py), so that no part of the work
+    goes to another thread."""
     source = "\n\n".join(inspect.getsource(f) for f in (tail_operands, emulate_tiles,
                                                          layout_counts))
     code = _CHUNKED.format(source=source, names=["tiles", "cap", "members"])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900,
-                         env={**os.environ, "ATEN_CPU_CAPABILITY": "default"})
+                         env={**os.environ, "ATEN_CPU_CAPABILITY": "default",
+                              "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 

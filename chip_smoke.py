@@ -236,7 +236,24 @@ script exits non-zero:
      tile alone. A rank process is `python3 chip_smoke.py --rank-child SPEC
      RANK`; `python3 chip_smoke.py --multi-process` runs this phase alone on
      a catchment of its own.
- 15. The sub-step kernel's plain versions queued by phases 2 and 4-7 (the
+ 15. the operational run paths through lisfloodexe at float32, each run
+     with one launch of the sub-step kernel, K5 and K8 a day and K7 called:
+     a warm start on phase 8's catchment (WARM_DAYS days cold, WARM_HALF
+     days, and the rest warm from the half run's PCRaster end maps with LZ
+     from its state-map stack's last map and timestepInit that day): the
+     warm run's state held to the cold run's (WARM_BITWISE bit for bit, the
+     rest of WARM_KEYS within 1.5e-4 of each field's max, Sideflow1Chan
+     1e-2, as tests/test_torch_warmstart.py finds them) and its dis.tss rows
+     within 1.5e-4 of their largest (whether equal as printed, the CPU
+     test's gate at 48x40, is printed); then a geographic 1200x1000 write_catchment (0.05 degree
+     cells, the PixelLengthUser and PixelAreaUser maps, gauges as coordinate
+     pairs, classic netCDF meteo GEO_MARGIN cells wider than the mask and
+     latitude ascending) run twice for GEO_DAYS days with MapsCaching on and
+     the cache cleared before the first: build_model's host seconds, the
+     cache's entries and hits after each run (the second adds none and
+     hits), and the second run's state and output files the same bits as
+     the first's; ms per simulated day of every run.
+ 16. The sub-step kernel's plain versions queued by phases 2 and 4-7 (the
      launch's operands and outputs kept on the host, plain_later), run
      after every timed phase in PLAIN_WORKERS worker processes side by
      side on the card (run_plain_jobs), each held within its tolerance;
@@ -257,11 +274,15 @@ kernel launch against a build of the same source without the SIDE template
 flag (the optional sideflow terms then guarded by their null pointers alone).
 Run as `python3 chip_smoke.py --k7-k8` (~1 min) it only builds K7 and K8 and
 checks and times them at the continental grid's shapes (k7_k8_check).
+Run as `python3 chip_smoke.py --operational` it runs phase 15 alone on its
+own copy of phase 8's catchment (operational_check).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
 scan router's natural tables, segment_sum, soil_tail, K6 on the two
 folded ensembles' tables, K6 on a rank's tables, the sub-step kernel and
-K5 on a packed rank's kept chunks, and K6 on a scan rank's natural tables);
+K5 on a packed rank's kept chunks, and K6 on a scan rank's natural tables;
+phase 15's launches of each kernel its runs drive, by run, under
+launches_phase15);
 then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
@@ -1456,6 +1477,171 @@ def phase_driver(torch, ks, card, ctx, tmp):
           f"{DRIVER_FILTER_STEP}", flush=True)
     del runner, ens
     torch.cuda.empty_cache()
+
+
+# days of phase 15's warm start: the cold run, the half run it is split
+# into and the warm run from the half run's files; and of its geographic runs
+WARM_DAYS, WARM_HALF = 6, 3
+GEO_DAYS = 3
+# the geographic catchment's meteo window: GEO_MARGIN cells wider than the
+# mask on every side
+GEO_MARGIN = 2
+# the state of a warm start held to the cold run (tests/test_torch_warmstart.py):
+# WARM_BITWISE bit for bit, the rest within the float32 gate of the CPU tests
+WARM_KEYS = ("W1a", "W1b", "W2", "UZ", "LZ", "SnowCoverS", "FrostIndex", "ChanQKin",
+             "ChanM3Kin", "ChanQ", "DSLR", "CumInterception", "CumInterSealed", "Chan2QKin",
+             "Chan2M3Kin", "CrossSection2Area", "Sideflow1Chan", "LakeStorageM3CC",
+             "LakeInflowOldCC", "LakeOutflowCC", "ReservoirStorageM3CC", "ReservoirFillCC",
+             "OFM3Direct", "OFM3Other", "OFM3Forest")
+WARM_BITWISE = ("SnowCoverS", "FrostIndex", "DSLR", "CumInterception", "CumInterSealed")
+
+
+def operational_run(torch, card, what, path, out, days, **vars_to_set):
+    """lisfloodexe of the settings `path` at float32 into `out`, with
+    `vars_to_set`: the runner, its launches (one of the sub-step kernel, K5
+    and K8 a day, K7 called) and its figures, printed."""
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    os.makedirs(out)
+    settings = load_settings(path, sys_args=["-v"],
+                             vars_to_set={"Precision": "single", "PathOut": out, **vars_to_set})
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = lisfloodexe(settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    sec = runner.seconds
+    run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
+    fig = {"days": days, "build_model_s": sec["build_model"], "run_s": run_s,
+           "ms_per_day": run_s / days * 1e3, "launches": launches}
+    print(f"  {what}: {days} days at float32, {wall:.1f} s in all; host seconds build_model "
+          f"{sec['build_model']:.2f}, step built and state moved {sec['to_device']:.2f}, the "
+          f"run {run_s:.2f} ({fig['ms_per_day']:.1f} ms per simulated day); launches "
+          f"{launches}; card {card}", flush=True)
+    assert routing_launches(launches) == {"kinwave_substep": days, "kinwave_sweep": days,
+                                          "kinwave_sharded": 0}, (what, launches)
+    assert launches["segment_sum"] > 0 and launches["soil_tail"] == days, (what, launches)
+    assert runner.dtype == torch.float32 and runner.device.type == "cuda"
+    assert len(runner.dates) == days
+    return runner, fig
+
+
+def same_outputs(a, b):
+    """The output directories `a` and `b` hold the same files and every TSS
+    (ids, steps, rows) and map the same bits; the files compared."""
+    import numpy as np
+    from lisflood_tpu_torch.io import csf
+    from lisflood_tpu_torch.io.tss import read_tss
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b)), (names, sorted(os.listdir(b)))
+    for name in names:
+        fa, fb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".tss"):
+            (ia, ra, sa), (ib, rb, sb) = read_tss(fa), read_tss(fb)
+            assert ia == ib and np.array_equal(sa, sb) and np.array_equal(ra, rb), name
+        else:
+            ma, mb = csf.read_map(fa), csf.read_map(fb)
+            assert np.array_equal(ma.mv_mask, mb.mv_mask), name
+            assert np.array_equal(ma.data, mb.data, equal_nan=True), name
+    return names
+
+
+def phase_operational(torch, card, path, tmp, shape=(1200, 1000)):
+    """Phase 15: the operational run paths on the card; see the module
+    docstring. `path` is phase 8's catchment, `tmp` a scratch directory,
+    `shape` the geographic catchment's rows and columns."""
+    import numpy as np
+    from lisflood_tpu_torch.io.loadmap import MapsCache
+    from lisflood_tpu_torch.io.tss import read_tss
+    from lisflood_tpu_torch.models.synthetic import GEO_CELL, warm_start, write_catchment
+    day = lambda n: f"{n:02d}/01/2000 00:00"       # phase 8's catchment starts on 01/01/2000
+
+    # a warm start: WARM_DAYS cold against WARM_HALF days and a warm run from
+    # the half run's PCRaster end maps, LZ from its stack's map of the last
+    # day (lz000000.003), timestepInit that day
+    out = {k: os.path.join(tmp, "warm_" + k) for k in ("cold", "half", "warm")}
+    cold, cold_fig = operational_run(torch, card, "cold run", path, out["cold"], WARM_DAYS,
+                                     StepEnd=day(WARM_DAYS))
+    cold_state = {k: cold.state[k] for k in WARM_KEYS}
+    del cold
+    half, _ = operational_run(torch, card, "half run", path, out["half"], WARM_HALF,
+                              StepEnd=day(WARM_HALF))
+    del half
+    warm, warm_fig = operational_run(
+        torch, card, "warm run from the half run's end maps and LZ stack", path, out["warm"],
+        WARM_DAYS - WARM_HALF, StepStart=day(WARM_HALF + 1), StepEnd=day(WARM_DAYS),
+        timestepInit=day(WARM_HALF), **warm_start(out["half"], lz_step=WARM_HALF))
+    gates = []
+    for k in WARM_KEYS:
+        if k in WARM_BITWISE:
+            assert torch.equal(cold_state[k], warm.state[k]), k
+        else:
+            gates.append((field_gate(k, cold_state[k], warm.state[k], cold_state), k))
+    worst = max(gates, key=lambda g: g[0] / (1e-2 if g[1] == "Sideflow1Chan" else 1.5e-4))
+    (cold_rows, cold_steps), (warm_rows, warm_steps) = (
+        read_tss(os.path.join(out[k], "dis.tss"))[1:] for k in ("cold", "warm"))
+    sel = np.isin(cold_steps, warm_steps)
+    assert list(warm_steps) == list(range(WARM_HALF + 1, WARM_DAYS + 1)), warm_steps
+    # the rows as printed: equal on the CPU tests' 48x40, where the
+    # reference's gate (array_equal) holds; here a last printed digit may
+    # differ, and they are held to the float32 gate
+    rows = torch.as_tensor(cold_rows[sel]), torch.as_tensor(warm_rows)
+    rows_err = field_gate("dis.tss", *rows, None)
+    print(f"  the warm run's days {WARM_HALF + 1}-{WARM_DAYS} against the cold run's: "
+          f"{len(WARM_BITWISE)} state keys bit for bit, the other {len(gates)} worst "
+          f"{worst[0]:.3e} ({worst[1]}) of each field's max (tol 1.5e-4, Sideflow1Chan 1e-2); "
+          f"dis.tss rows {'equal' if torch.equal(*rows) else 'not equal'} as printed, "
+          f"{int((rows[0] != rows[1]).sum())} of {rows[0].numel()} values differ, worst "
+          f"{rows_err:.3e} of the largest (tol 1.5e-4); card {card}", flush=True)
+    assert all(e <= (1e-2 if k == "Sideflow1Chan" else 1.5e-4) for e, k in gates), gates
+    assert rows_err <= 1.5e-4, rows_err
+    del warm, cold_state
+    torch.cuda.empty_cache()
+
+    # the geographic catchment, run twice through MapsCaching
+    t0 = time.perf_counter()
+    geo = write_catchment(os.path.join(tmp, "geographic"), *shape, seed=0, n_steps=GEO_DAYS,
+                          grid="geographic", gauges="coords", meteo_format="netcdf",
+                          nc_format="classic", meteo_margin=GEO_MARGIN, lat_ascending=True,
+                          outputs=True)
+    print(f"  the geographic catchment ({shape[0]}x{shape[1]} cells of {GEO_CELL} degrees, "
+          f"user pixel maps, coordinate gauges, classic netCDF meteo {GEO_MARGIN} cells wider "
+          f"on every side and latitude ascending) written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    MapsCache.clear()
+    runs, cache = [], []
+    for i in (1, 2):
+        runner, fig = operational_run(torch, card, f"geographic run {i}, MapsCaching on", geo,
+                                      os.path.join(tmp, f"geographic_{i}"), GEO_DAYS,
+                                      MapsCaching="True")
+        fig.update(entries=MapsCache.size(), hits=MapsCache.values_found())
+        cache.append(fig)
+        runs.append(runner)
+    first, second = runs
+    assert first.grid.cell == GEO_CELL and first.grid.num_pixels > 0
+    length = first.params_np["PixelLength"]
+    assert 0 < length.min() < length.max() and length.max() > 1e3 * GEO_CELL
+    bad = [k for k, v in first.state.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    assert set(first.state) == set(second.state)
+    assert all(torch.equal(v, second.state[k]) for k, v in first.state.items())
+    names = same_outputs(os.path.join(tmp, "geographic_1"), os.path.join(tmp, "geographic_2"))
+    assert "dis.tss" in names and "chanqend.map" in names
+    ids = read_tss(os.path.join(tmp, "geographic_1", "dis.tss"))[0]
+    assert list(ids) == [1, 2, 3], ids
+    (a, b) = cache
+    print(f"  MapsCaching: build_model {a['build_model_s']:.2f} s with the cache empty, "
+          f"{b['build_model_s']:.2f} s from it; {a['entries']} entries after the first run, "
+          f"{b['entries']} after the second, hits {a['hits']} then {b['hits']}; the second "
+          f"run's state ({len(second.state)} entries) and its {len(names)} output files the "
+          f"same bits as the first's; card {card}", flush=True)
+    assert b["entries"] == a["entries"] > 20 and b["hits"] > a["hits"], cache
+    MapsCache.clear()
+    del runs, first, second, runner
+    torch.cuda.empty_cache()
+    return {"warm": {"cold": cold_fig, "warm": warm_fig}, "geographic": cache}
 
 
 # logical shards of phase 10 (the JAX package's RoutingShards default)
@@ -3378,6 +3564,25 @@ def multi_process_check(torch):
     return 0
 
 
+def operational_check(torch):
+    """`python3 chip_smoke.py --operational`: phase 15 alone, on its own copy
+    of phase 8's catchment."""
+    from lisflood_tpu_torch.models.synthetic import write_catchment
+    from lisflood_tpu_torch.ops import _build
+    card = smi_line()
+    print(f"card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"  built {list(_build.SOURCES)} in {_build.build():.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_catchment(os.path.join(tmp, "catchment"), 1200, 1000, seed=0,
+                               n_steps=STEPS_RUN, nc_format="classic", outputs=True)
+        fig = phase_operational(torch, card, path, tmp)
+    print(f"  phase 15 in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps(fig), flush=True)
+    print(smi_line())
+    return 0
+
+
 # the start of each phase on the host clock, by phase
 STAMPS = {}
 # host synchronisations in one step of each path (sync_count), by path
@@ -3409,6 +3614,8 @@ def main():
         return rank_child(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:] == ["--multi-process"]:
         return multi_process_check(torch)
+    if sys.argv[1:] == ["--operational"]:
+        return operational_check(torch)
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
     from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
@@ -3629,14 +3836,19 @@ def main():
                             {"sharded": sharded, "scan": scan})
         sharded.pop("k7_per_step")
         del packed_ref
+        torch.cuda.empty_cache()
+        stamp(15)
+        print("phase 15: the operational run paths: a warm start on phase 8's catchment, and a "
+              "geographic catchment run twice through MapsCaching, float32", flush=True)
+        operational = phase_operational(torch, card, path, tmp)
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
     # the plain versions, now that every device time is taken: every job
     # checked, its time (PLAIN_WORKERS side by side) and the kernel's largest
     # difference from it into the figures
-    stamp(15)
-    print("phase 15: the sub-step kernel's plain versions on the operands of phases 2 and 4-7",
+    stamp(16)
+    print("phase 16: the sub-step kernel's plain versions on the operands of phases 2 and 4-7",
           flush=True)
     plain = run_plain_jobs()
     main.update(launches=launches, plain_job=main_job, plain_shape="1200x1000, float32")
@@ -3729,6 +3941,17 @@ def main():
         {"name": "kinwave_sharded_scan_rank", "route": "cuda",
          "source": "lisflood_tpu_torch/csrc/kinwave_sharded.cu",
          "replaces": "lisflood_tpu/ops/kinwave.py:80", "library_ms": None, **scan_ranks})
+    # the launches of phase 15's warm run and geographic runs, by kernel,
+    # beside the entries of the kernels its step runs
+    runs15 = {"warm": operational["warm"]["warm"]["launches"],
+              **{f"geographic_{i}": fig["launches"]
+                 for i, fig in enumerate(operational["geographic"], 1)}}
+    for entry in figures["kernels"]:
+        kernel = {"kinwave_substep_catchment": "kinwave_substep"}.get(entry["name"],
+                                                                      entry["name"])
+        if entry["name"] in ("kinwave_substep_catchment", "kinwave_sweep", "segment_sum",
+                             "soil_tail"):
+            entry["launches_phase15"] = {run: counts[kernel] for run, counts in runs15.items()}
     print(f"host synchronisations in one step, by path: {SYNCS}", flush=True)
     SOIL_COUNTS.update({"main": k8_main, "catchment": k8_catchment})
     print("K8 lanes that sub-step / the largest count, by path: "

@@ -20,6 +20,7 @@ The port's copy of lisflood_tpu/io/csf.py.
 """
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 
@@ -75,6 +76,15 @@ class CsfMap:
     @property
     def north(self):
         return self.y_ul
+
+
+def is_csf(path):
+    """Whether `path` is a file that starts with the CSF signature, whatever
+    its name (a member of a PCRaster map stack, lz000000.003, has no .map)."""
+    if not os.path.isfile(path):
+        return False
+    with open(path, "rb") as f:
+        return f.read(27) == SIGNATURE[:27]
 
 
 def read_map(path) -> CsfMap:

@@ -73,8 +73,11 @@ class Grid:
         half = self.cell / 2.0
         x_edge = x_left - half
         y_edge = y_top + half
-        cut0 = int(abs(self.west - x_edge) / cell_x)
-        cut2 = int(abs(self.north - y_edge) / cell_y)
+        # the offsets are whole cells: rounded, not truncated, so that a
+        # quotient such as 1.9999999999999 on a 0.05 degree grid is 2 (the
+        # JAX package truncates, ROADMAP.md Queue 3)
+        cut0 = int(round(abs(self.west - x_edge) / cell_x))
+        cut2 = int(round(abs(self.north - y_edge) / cell_y))
         return cut0, cut0 + self.ncols, cut2, cut2 + self.nrows
 
     def coords_x(self):

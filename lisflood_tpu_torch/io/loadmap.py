@@ -194,7 +194,9 @@ class MapLoader:
         return self._read_2d_typed_uncached(name, value, timestampflag, averageyearflag)
 
     def _read_2d_typed_uncached(self, name, value, timestampflag, averageyearflag):
-        if value.endswith(".map") and os.path.exists(value):
+        # a PCRaster map under any name, as the reference's readmap takes it
+        # (the JAX package takes .map names only, ROADMAP.md Queue 3)
+        if (value.endswith(".map") and os.path.exists(value)) or csf.is_csf(value):
             m = csf.read_map(value)
             if (m.nrows, m.ncols) != (self.grid.nrows, self.grid.ncols):
                 raise LisfloodError(f"{value} has a different size than the clone map")

@@ -278,13 +278,31 @@ def append_time_step(f, varname, date, data2d):
     var[n] = data2d
 
 
-def write_classic(path, coords, name, data, fill_value=None, attrs=None):
+def add_grid_mapping(f, name, attrs):
+    """A scalar grid-mapping variable `name` (CF's `grid_mapping`) with its
+    attributes, in a netCDF-4 file open for writing."""
+    ds = f.create_dataset(name, data=np.int32(0))
+    for k, v in attrs.items():
+        ds.attrs[k] = v
+    return ds
+
+
+def write_classic(path, coords, name, data, fill_value=None, attrs=None, grid_mapping=None):
     """Write one variable `name` with its coordinate variables as a netCDF
     classic file (CDF-2, 64-bit offsets). `coords` lists (dimension name,
-    values, attributes) in the order of `data`'s axes."""
+    values, attributes) in the order of `data`'s axes; `grid_mapping`
+    (name, attributes) adds a scalar grid-mapping variable that `name`
+    names in its `grid_mapping` attribute."""
     from scipy.io import netcdf_file
     data = np.asarray(data)
+    if grid_mapping is not None:
+        attrs = {**(attrs or {}), "grid_mapping": grid_mapping[0]}
     with netcdf_file(path, "w", version=2) as f:
+        if grid_mapping is not None:
+            gm = f.createVariable(grid_mapping[0], np.int32, ())
+            gm[...] = 0
+            for k, v in grid_mapping[1].items():
+                setattr(gm, k, v)
         for dim, values, dim_attrs in coords:
             values = np.asarray(values)
             f.createDimension(dim, values.size)

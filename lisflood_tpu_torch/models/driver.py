@@ -146,7 +146,13 @@ class TemplateMeta:
                         self.coord_attrs[d] = {
                             k: v for k, v in nc.attrs(d).items()
                             if k not in _H5_INTERNAL_ATTRS}
-                    for name in ("laea", "lambert_azimuthal_equal_area"):
+                    # the grid mapping that the template's variable names
+                    # (a geographic grid's latitude_longitude too; the JAX
+                    # package looks for the laea names only, ROADMAP.md
+                    # Queue 3), else a variable of the laea names
+                    named = nc.attrs(nc.main_variable()).get("grid_mapping")
+                    for name in ((str(named),) if named else ()) + (
+                            "laea", "lambert_azimuthal_equal_area"):
                         if nc.has(name):
                             self.proj = (name, {
                                 k: v for k, v in nc.attrs(name).items()

@@ -570,6 +570,14 @@ LAEA_PROJ4 = ("+proj=laea +lat_0=52 +lon_0=10 +x_0=4321000 +y_0=3210000 +ellps=G
 # the option registry
 CATCHMENT_OPTIONS = {"InitLisflood": False, "SplitRouting": True, "simulateLakes": True,
                      "simulateReservoirs": True, "openwaterevapo": True, "repMBTs": True}
+# write_catchment(grid="geographic"): 0.05 degree cells from 5 E, 56 N, on
+# the sphere of EARTH_RADIUS [m], with the grid mapping of WGS 84 lat/lon
+GEO_CELL, GEO_WEST, GEO_NORTH = 0.05, 5.0, 56.0
+EARTH_RADIUS = 6371007.2
+GEO_MAPPING = ("wgs_1984", {"grid_mapping_name": "latitude_longitude",
+                            "longitude_of_prime_meridian": 0.0,
+                            "semi_major_axis": 6378137.0,
+                            "inverse_flattening": 298.257223563})
 METEO_STACKS = {"PrecipitationMaps": ("pr", 0.0, 15.0), "TavgMaps": ("ta", -5.0, 20.0),
                 "ET0Maps": ("et", 0.0, 5.0), "E0Maps": ("e0", 0.0, 6.0),
                 "ES0Maps": ("es", 0.0, 5.0)}
@@ -676,6 +684,46 @@ END_MAPS = ("ChSideEnd", "ChanCrossSectionEnd", "ChanQEnd", "CrossSection2End",
             "Theta1IrrigationEnd", "Theta2End", "Theta2ForestEnd", "Theta2IrrigationEnd",
             "Theta3End", "Theta3ForestEnd", "Theta3IrrigationEnd", "UZEnd", "UZForestEnd",
             "UZIrrigationEnd")
+# a warm start from a run of write_catchment(outputs=True): each initial
+# value binding and the end map (END_MAPS) that holds it
+WARM_START = {
+    "SnowCoverAInitValue": "SnowCoverAEnd", "SnowCoverBInitValue": "SnowCoverBEnd",
+    "SnowCoverCInitValue": "SnowCoverCEnd", "FrostIndexInitValue": "FrostIndexEnd",
+    "CumIntInitValue": "CumInterceptionEnd", "CumIntForestInitValue": "CumInterceptionForestEnd",
+    "CumIntIrrigationInitValue": "CumInterceptionIrrigationEnd",
+    "CumIntSealedInitValue": "CumIntSealedEnd",
+    "UZInitValue": "UZEnd", "UZForestInitValue": "UZForestEnd",
+    "UZIrrigationInitValue": "UZIrrigationEnd",
+    "DSLRInitValue": "DSLREnd", "DSLRForestInitValue": "DSLRForestEnd",
+    "DSLRIrrigationInitValue": "DSLRIrrigationEnd", "LZInitValue": "LZEnd",
+    "ThetaInit1Value": "Theta1End", "ThetaInit2Value": "Theta2End", "ThetaInit3Value": "Theta3End",
+    "ThetaForestInit1Value": "Theta1ForestEnd", "ThetaForestInit2Value": "Theta2ForestEnd",
+    "ThetaForestInit3Value": "Theta3ForestEnd",
+    "ThetaIrrigationInit1Value": "Theta1IrrigationEnd",
+    "ThetaIrrigationInit2Value": "Theta2IrrigationEnd",
+    "ThetaIrrigationInit3Value": "Theta3IrrigationEnd",
+    "TotalCrossSectionAreaInitValue": "ChanCrossSectionEnd", "PrevDischarge": "ChanQEnd",
+    "CrossSection2AreaInitValue": "CrossSection2End", "PrevSideflowInitValue": "ChSideEnd",
+    "OFDirectInitValue": "OFDirectEnd", "OFOtherInitValue": "OFOtherEnd",
+    "OFForestInitValue": "OFForestEnd", "LakeInitialLevelValue": "LakeLevelEnd",
+    "LakePrevInflowValue": "LakePrevInflowEnd", "LakePrevOutflowValue": "LakePrevOutflowEnd",
+    "ReservoirInitialFillValue": "ReservoirFillEnd"}
+
+
+def warm_start(out_dir, netcdf=False, lz_step=None):
+    """The bindings of a warm start from the end maps that a run of
+    write_catchment(outputs=True) wrote into `out_dir`: PCRaster maps
+    (`name.map`), or netCDF (`writeNetcdf`, the binding without its .nc).
+    `lz_step` n takes LZInitValue from the LZ state-map stack instead: its
+    n-th map (lz000000.00n) of a PCRaster stack, and for netCDF the stack
+    lz.nc, at the timestepInit the caller binds."""
+    out = {k: os.path.join(out_dir, v.lower() + ("" if netcdf else ".map"))
+           for k, v in WARM_START.items()}
+    if lz_step is not None:
+        out["LZInitValue"] = os.path.join(out_dir, "lz" if netcdf else f"lz000000.{lz_step:03d}")
+    return out
+
+
 OUTPUT_TSS = {"DisTS": "dis", "ChanqTS": "chanq", "WaterMassBalanceTSS": "mbError",
               "MassBalanceMMTSS": "mbErrorMM", "MBErrorStorageRatioTSS": "mbErrorStorage",
               "AverageFractionsCatchmentTSS": "averageFractions",
@@ -686,7 +734,8 @@ OUTPUT_TSS = {"DisTS": "dis", "ChanqTS": "chanq", "WaterMassBalanceTSS": "mbErro
 
 def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_format="netcdf4",
                     outputs=False, meteo_format="pcraster", start=datetime.date(2000, 1, 1),
-                    user=None):
+                    user=None, grid="laea", gauges="map", meteo_margin=0, lat_ascending=False,
+                    submask=False):
     """Write a catchment of nrows x ncols 5 km cells as LISFLOOD reads it
     from disk, into the directory `path`, and return its settings file.
 
@@ -731,26 +780,61 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         without), the indicators (population, land-use mask), transient
         land use (yearly netCDF stacks of the six fractions, one map a
         year from the year before the start, the fractions drifting year
-        by year) and the variable water fraction (twelve monthly maps)."""
+        by year) and the variable water fraction (twelve monthly maps);
+      - `grid` "geographic": a lat/lon grid of GEO_CELL degree cells from
+        GEO_WEST, GEO_NORTH, with gridSizeUserDefined on and the maps
+        PixelLengthUser and PixelAreaUser of each cell's size on the sphere
+        (the length the square root of the area); the channel lengths and
+        AvgDis follow them, and every netCDF file is on lon/lat with the
+        `latitude_longitude` grid mapping GEO_MAPPING;
+      - `gauges` "coords": bind Gauges to the "x1 y1 x2 y2 ..." centres of
+        the gauge cells (Gauges.map is written all the same);
+      - `meteo_margin` k (netCDF meteo): each forcing stack covers the
+        mask's window and k cells more on every side (the edge's values);
+      - `lat_ascending` (netCDF meteo): the forcing stacks' latitude (or y)
+        axis runs south to north;
+      - `submask`: also write SubMask.map, true on the land cells upstream
+        of the second gauge and on that cell, missing elsewhere."""
     if nc_format not in ("netcdf4", "classic"):
         raise ValueError(f"nc_format {nc_format!r}: 'netcdf4' or 'classic'")
+    if grid not in ("laea", "geographic"):
+        raise ValueError(f"grid {grid!r}: 'laea' or 'geographic'")
+    if gauges not in ("map", "coords"):
+        raise ValueError(f"gauges {gauges!r}: 'map' or 'coords'")
+    if (meteo_margin or lat_ascending) and meteo_format != "netcdf":
+        raise ValueError("meteo_margin and lat_ascending need meteo_format='netcdf'")
+    geographic = grid == "geographic"
     rng = np.random.default_rng([seed, 11])
     root = os.path.abspath(path)
     dirs = {k: os.path.join(root, k) for k in ("maps", "tables", "meteo", "out")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     P = nrows * ncols
-    cell, west, north = 5000.0, 2_500_000.0, 5_500_000.0
+    if geographic:
+        cell, west, north = GEO_CELL, GEO_WEST, GEO_NORTH
+    else:
+        cell, west, north = 5000.0, 2_500_000.0, 5_500_000.0
     rows, cols = np.divmod(np.arange(P, dtype=np.int64), ncols)
     land = (rows / nrows) ** 2 + (cols / ncols) ** 2 >= 0.04
     ldd, down = synthetic_drainage(nrows, ncols, seed)
     codes, _ = direction_codes(down, np.arange(P), nrows, ncols)
     codes[codes == 0] = 5
-    ups = FlowGraph(downstream=down, ldd=ldd, num_pixels=P).accuflux(np.ones(P))
+    flow = FlowGraph(downstream=down, ldd=ldd, num_pixels=P)
+    ups = flow.accuflux(np.ones(P))
     channel = land & (ups >= np.quantile(ups[land], 0.8))
     order = np.argsort(np.where(channel, ups, -1.0), kind="stable")[::-1]
-    lakes, reservoirs, gauges = order[4:6], order[8:10], order[:3]
+    lakes, reservoirs, gauge_cells = order[4:6], order[8:10], order[:3]
     binding = {}
+    if geographic:
+        # each cell's area on the sphere [m2] and a length of the same square
+        lat_n = np.radians(north - cell * rows)
+        lat_s = np.radians(north - cell * (rows + 1))
+        pixel_area = EARTH_RADIUS**2 * np.radians(cell) * (np.sin(lat_n) - np.sin(lat_s))
+        metres = np.sqrt(pixel_area)
+        up_area = flow.accuflux(pixel_area)
+    else:
+        metres = cell
+        up_area = ups * cell * cell
 
     def write(name, values, scale=csf.VS_SCALAR, missing=None):
         """A map of the grid; `values` per cell, NaN (or `missing`) = MV."""
@@ -773,7 +857,24 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
     write("Channels", channel.astype(np.uint8), csf.VS_BOOLEAN)
     sites("LakeSites", lakes)
     sites("ReservoirSites", reservoirs)
-    sites("Gauges", gauges)
+    sites("Gauges", gauge_cells)
+    if gauges == "coords":
+        g_rows, g_cols = np.divmod(gauge_cells, ncols)
+        binding["Gauges"] = " ".join(f"{float(west + cell * (c + 0.5))!r} "
+                                     f"{float(north - cell * (r + 0.5))!r}"
+                                     for r, c in zip(g_rows, g_cols))
+    if submask:
+        # the land cells that drain through the second gauge's cell
+        inside = np.zeros(P, bool)
+        inside[gauge_cells[1]] = True
+        for i in np.argsort(-ups, kind="stable"):
+            if down[i] >= 0 and inside[down[i]]:
+                inside[i] = True
+        inside &= land
+        write("SubMask", inside.astype(np.uint8), csf.VS_BOOLEAN, missing=~inside)
+    if geographic:
+        write("PixelLengthUser", metres.astype(np.float32))
+        write("PixelAreaUser", pixel_area.astype(np.float32))
     lake_mask = np.isin(np.arange(P), lakes) | np.isin(down, lakes)
     write("LakeMask", lake_mask.astype(np.uint8), csf.VS_BOOLEAN)
     fr = rng.dirichlet(np.ones(5), P).T * 0.2      # water, direct, forest, irrigated, rice
@@ -791,11 +892,11 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
                          ("ChanGrad", 1e-4, 0.01), ("ChanMan", 0.02, 0.06),
                          ("LZAvInflowMap", 0.1, 1.0)):
         write(name, field(lo, hi))
-    write("ChanLength", np.where(land, cell * (1 + 0.4 * rng.random(P)), np.nan).astype(np.float32))
+    write("ChanLength", np.where(land, metres * (1 + 0.4 * rng.random(P)), np.nan).astype(np.float32))
     write("ChanBottomWidth", np.where(land, 2 + 98 * size, np.nan).astype(np.float32))
     write("ChanDepthThreshold", np.where(land, 0.5 + 7.5 * size, np.nan).astype(np.float32))
     # the average discharge of 1 mm/day of runoff from the upstream area
-    write("AvgDis", np.where(land, ups * cell * cell * 1e-3 / 86400.0, np.nan).astype(np.float32))
+    write("AvgDis", np.where(land, up_area * 1e-3 / 86400.0, np.nan).astype(np.float32))
 
     tables = {
         "TabLakeArea": (lakes, rng.uniform(1e7, 1e8, 2)),
@@ -814,25 +915,40 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
             fh.writelines(f"{i} {float(v)!r}\n" for i, v in enumerate(values, 1))
         binding[name] = f"$(PathTables)/{name}.txt"
 
-    # netCDF on the projected grid: x ascending, y descending (north first)
-    x = west + cell * (np.arange(ncols) + 0.5)
-    y = north - cell * (np.arange(nrows) + 0.5)
-    xy = [("y", y, {"standard_name": "projection_y_coordinate", "units": "m"}),
-          ("x", x, {"standard_name": "projection_x_coordinate", "units": "m"})]
+    # netCDF on the projected grid (or lon/lat): x ascending, y descending
+    # (north first)
+    def axes(k=0):
+        """The grid's y and x coordinates, k cells more on every side."""
+        x = west + cell * (np.arange(-k, ncols + k) + 0.5)
+        y = north - cell * (np.arange(-k, nrows + k) + 0.5)
+        if geographic:
+            return [("lat", y, {"standard_name": "latitude", "units": "degrees_north"}),
+                    ("lon", x, {"standard_name": "longitude", "units": "degrees_east"})]
+        return [("y", y, {"standard_name": "projection_y_coordinate", "units": "m"}),
+                ("x", x, {"standard_name": "projection_x_coordinate", "units": "m"})]
+
+    xy = axes()
     days = ("time", np.arange(36, dtype=np.float64) * 10.0,
             {"units": "days since 2000-01-01", "calendar": "proleptic_gregorian"})
+    mapping = GEO_MAPPING if geographic else None
 
     def write_nc(file, coords, var, data):
-        """A netCDF file of one variable, in `nc_format`."""
+        """A netCDF file of one variable, in `nc_format` (with the grid
+        mapping on a geographic grid)."""
         if nc_format == "classic":
-            ncdf.write_classic(file, coords, var, data, fill_value=-9999.0)
+            ncdf.write_classic(file, coords, var, data, fill_value=-9999.0,
+                               grid_mapping=mapping)
         else:
             f = ncdf.create_nc(file)
             try:
                 for dim, values, attrs in coords:
                     ncdf.add_dimension(f, dim, values, attrs)
+                attrs = None
+                if mapping is not None:
+                    ncdf.add_grid_mapping(f, *mapping)
+                    attrs = {"grid_mapping": mapping[0]}
                 ncdf.add_variable(f, var, tuple(c[0] for c in coords), data.dtype,
-                                  fill_value=-9999.0)[...] = data
+                                  fill_value=-9999.0, attrs=attrs)[...] = data
             finally:
                 f.close()
 
@@ -853,11 +969,20 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
     start = datetime.datetime(start.year, start.month, start.day)
     daily = ("time", np.arange(n_steps, dtype=np.float64),
              {"units": f"days since {start:%Y-%m-%d}", "calendar": "proleptic_gregorian"})
+    meteo_axes = axes(meteo_margin)
+    if lat_ascending:
+        meteo_axes[0] = (meteo_axes[0][0], meteo_axes[0][1][::-1], meteo_axes[0][2])
     for key, (prefix, lo, hi) in METEO_STACKS.items():
         maps = [field(lo, hi).reshape(nrows, ncols) for _ in range(n_steps)]
         if meteo_format == "netcdf":
-            write_nc(os.path.join(dirs["meteo"], prefix + ".nc"), [daily] + xy, prefix,
-                     np.where(np.isnan(maps), -9999.0, maps).astype(np.float32))
+            data = np.where(np.isnan(maps), -9999.0, maps).astype(np.float32)
+            if meteo_margin:
+                k = meteo_margin
+                data = np.pad(data, ((0, 0), (k, k), (k, k)), mode="edge")
+            if lat_ascending:
+                data = data[:, ::-1]
+            write_nc(os.path.join(dirs["meteo"], prefix + ".nc"), [daily] + meteo_axes, prefix,
+                     np.ascontiguousarray(data))
         else:
             for step, data in enumerate(maps, 1):
                 nr = str(step)
@@ -866,7 +991,8 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
                               west, north, cell)
         binding[key] = f"$(PathMeteo)/{prefix}"
 
-    opts = {**CATCHMENT_OPTIONS, **(options or {})}
+    opts = {**CATCHMENT_OPTIONS, **({"gridSizeUserDefined": True} if geographic else {}),
+            **(options or {})}
     _option_inputs(binding, opts, np.random.default_rng([seed, 12]), dirs, nrows, ncols,
                    n_steps, start, land, channel, order, fractions, write, write_nc, xy)
     if outputs:
@@ -879,7 +1005,7 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         "CalendarDayStart": start.strftime("%d/%m/%Y %H:%M"),
         "StepStart": start.strftime("%d/%m/%Y %H:%M"),
         "StepEnd": end.strftime("%d/%m/%Y %H:%M"), "DtSec": "86400", "DtSecChannel": "3600",
-        "PathOut": "$(PathOut)", "proj4_params": LAEA_PROJ4,
+        "PathOut": "$(PathOut)", **({} if geographic else {"proj4_params": LAEA_PROJ4}),
         "GwLoss": "0", "GwPercValue": "0.5", "PrScaling": "1", "CalEvaporation": "1",
         "TemperatureLapseRate": "0.0065", "SnowSeasonAdj": "1.0", "TempSnow": "1.0",
         "SnowFactor": "1.0", "SnowMeltCoef": "4.0", "TempMelt": "0.0",

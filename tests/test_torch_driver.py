@@ -209,9 +209,10 @@ def _nc_attrs(nc, name=None, skip=()):
             if k not in _H5_SCALES and k not in skip}
 
 
-def _nc_held(a, b, scale=None):
+def _nc_held(a, b, scale=None, state=None):
     """Both packages' NcFile read the same variables, shapes, attributes
-    (but the creation date and software) and values from `a` and `b`."""
+    (but the creation date and software) and values from `a` and `b`
+    (`state` gives CrossSection2Area its scale, as in _gate)."""
     with JaxNcFile(a) as ja, NcFile(b) as pa:
         assert sorted(ja.variables) == sorted(pa.variables), a
         assert ja.spatial_dims == pa.spatial_dims and ja.has_time == pa.has_time
@@ -222,7 +223,7 @@ def _nc_held(a, b, scale=None):
             x, y = np.asarray(ja.read(name)), np.asarray(pa.read(name))
             assert x.dtype == y.dtype and x.shape == y.shape, name
             if x.dtype.kind == "f" and x.ndim >= 2:
-                _held(name, x, y, False)
+                _held(name, x, y, False, state)
                 if scale is not None:
                     assert np.nanmax(np.abs(x - y)) / scale <= 1e-10, name
             else:

@@ -253,7 +253,30 @@ script exits non-zero:
      cache's entries and hits after each run (the second adds none and
      hits), and the second run's state and output files the same bits as
      the first's; ms per simulated day of every run.
- 16. The sub-step kernel's plain versions queued by phases 2 and 4-7 (the
+ 16. every option read from maps through the production run: a 1200x1000
+     write_catchment with the inputs of every option (synthetic.EVERY_OPTION:
+     inflow, water use with transient average-year demand, water regions
+     and groundwater smoothing, the indicators, transient land use, the
+     variable water fraction, rice, polders, pF, water levels, drained
+     irrigation, temperature in kelvin, transmission loss) and the reports
+     they switch on, classic netCDF, EVERY_DAYS days from EVERY_START
+     (a month and a year end) through lisfloodexe at float32: build_model's
+     host seconds, ms per simulated day, the launches of each kernel (the
+     sub-step kernel once a day in its sideflow instantiation, with water
+     use, the inflow ramp and transmission loss among its operands, K5 and
+     K8 once a day, K7 more than PHASE15_K7_PER_DAY times a day), the end
+     state and every output finite where the mask is, and the output files
+     the registry rule's (synthetic.expected_outputs); the last day's
+     sub-step launch timed (by block count), bounded and held to its plain
+     version on its first CATCHMENT_PREFIX chunks (float32, 3e-5 of each
+     output's max, the transmission loss `trans` on the volume the largest
+     discharge passes in a sub-step: the CPU tests' one-step gates of the
+     all-options step); then the same options at
+     96x80 in float64 with -l on the card and on the CPU: the printed lines
+     and file sets equal, the TSS and end state within 1e-10 of each
+     field's max. `python3 chip_smoke.py --every-option` runs this phase
+     alone.
+ 17. The sub-step kernel's plain versions queued by phases 2 and 4-7 (the
      launch's operands and outputs kept on the host, plain_later), run
      after every timed phase in PLAIN_WORKERS worker processes side by
      side on the card (run_plain_jobs), each held within its tolerance;
@@ -275,14 +298,16 @@ flag (the optional sideflow terms then guarded by their null pointers alone).
 Run as `python3 chip_smoke.py --k7-k8` (~1 min) it only builds K7 and K8 and
 checks and times them at the continental grid's shapes (k7_k8_check).
 Run as `python3 chip_smoke.py --operational` it runs phase 15 alone on its
-own copy of phase 8's catchment (operational_check).
+own copy of phase 8's catchment (operational_check), and as
+`python3 chip_smoke.py --every-option` phase 16 alone (every_option_check).
 The line before the last but one is a JSON object of per-kernel figures (the
 sub-step kernel on its five paths, kinwave_sweep, kinwave_sharded, K6 on the
 scan router's natural tables, segment_sum, soil_tail, K6 on the two
 folded ensembles' tables, K6 on a rank's tables, the sub-step kernel and
 K5 on a packed rank's kept chunks, and K6 on a scan rank's natural tables;
 phase 15's launches of each kernel its runs drive, by run, under
-launches_phase15);
+launches_phase15, and phase 16's under launches_phase16; the sub-step
+kernel's sideflow launch on phase 16's catchment);
 then
 the card's name
 and power limit; the last is {"ok": true, "device": {...}}. Needs no network;
@@ -394,13 +419,15 @@ def cuda_ms(torch, fn, n_rep):
     return start.elapsed_time(stop) / n_rep
 
 
-def max_rel_err(ys, ref):
-    """Largest over outputs of max |y - ref| / max |ref|, and the largest
-    absolute difference; both printed with the output they come from."""
+def max_rel_err(ys, ref, scales=None):
+    """Largest over outputs of max |y - ref| / max |ref| (or / scales[k]),
+    and the largest absolute difference; both printed with the output they
+    come from."""
     rel, absd = (0.0, ""), (0.0, "")
     for k, r in ref.items():
         d = (ys[k].double() - r.double()).abs().max().item()
-        rel = max(rel, (d / max(r.double().abs().max().item(), 1e-300), k))
+        scale = (scales or {}).get(k) or max(r.double().abs().max().item(), 1e-300)
+        rel = max(rel, (d / scale, k))
         absd = max(absd, (d, k))
     print(f"  worst output: rel {rel[0]:.3e} ({rel[1]}), abs {absd[0]:.3e} ({absd[1]})", flush=True)
     return rel[0], absd[0]
@@ -867,12 +894,12 @@ def phase_prerun(torch, ks, model, card):
             "plain_job": job, "plain_shape": "1200x1000, InitLisflood, float32"}
 
 
-def held_on_prefix(torch, ks, spec, xs, ys, n):
+def held_on_prefix(torch, ks, spec, xs, ys, n, scales=None):
     """The kernel's outputs `ys` on the operands `xs` against the plain
     version run over the first `n` chunks alone: every dependence points to a
     lower chunk, so the outputs of those chunks' lanes, and of the
     structures they own, are final there. Returns (max rel err, max abs err,
-    the plain version's milliseconds)."""
+    the plain version's milliseconds); `scales` as max_rel_err's."""
     import dataclasses
     C = spec.chunk
     part = {k: v for k, v in xs.items() if k not in ks.WAVEFRONT_TABLES}
@@ -893,7 +920,7 @@ def held_on_prefix(torch, ks, spec, xs, ys, n):
                 got[k], want[k] = ys[k][owned], r[owned]
         else:
             got[k], want[k] = ys[k][:n], r
-    rel, absd = max_rel_err(got, want)
+    rel, absd = max_rel_err(got, want, scales)
     return rel, absd, plain_ms
 
 
@@ -1642,6 +1669,204 @@ def phase_operational(torch, card, path, tmp, shape=(1200, 1000)):
     del runs, first, second, runner
     torch.cuda.empty_cache()
     return {"warm": {"cold": cold_fig, "warm": warm_fig}, "geographic": cache}
+
+
+# days of phase 16's runs, from EVERY_START: the 30th and 31st of December
+# and the 1st of January, so a month and a year end in the run
+EVERY_DAYS = 3
+EVERY_START = (1999, 12, 30)
+# K7's calls a day on phase 15's runs: phase 16's must be more
+PHASE15_K7_PER_DAY = 13
+
+
+def sideflow_groups(ks):
+    """Record, launch by launch, the optional sideflow operand groups
+    (kinwave_substep.SIDEFLOW_GROUPS) of the sub-step kernel's launches
+    through the CUDA wrapper `ks._launch`, and keep the last launch's
+    operands: returns the list it fills, the dict that holds (spec, xs) of
+    the last launch and a function that puts the wrapper back. The count
+    stays the wrapper's."""
+    seen, last, launch = [], {}, ks._launch
+
+    def recording(spec, xs, blocks=None):
+        seen.append(tuple(g[0] for g in ks.SIDEFLOW_GROUPS if g[0] in xs))
+        last["operands"] = spec, xs
+        return launch(spec, xs, blocks=blocks)
+
+    ks._launch = recording
+    return seen, last, lambda: setattr(ks, "_launch", launch)
+
+
+def outputs_finite(out):
+    """Every output file in `out` finite: each TSS row, and each map where
+    it is not missing (the mask); the files, by name."""
+    import numpy as np
+    from lisflood_tpu_torch.io import csf
+    from lisflood_tpu_torch.io.tss import read_tss
+    names = sorted(os.listdir(out))
+    for name in names:
+        if name.endswith(".tss"):
+            rows = read_tss(os.path.join(out, name))[1]
+            assert np.isfinite(rows).all(), name
+        else:
+            m = csf.read_map(os.path.join(out, name))
+            assert np.isfinite(m.data[~m.mv_mask]).all(), name
+    return names
+
+
+def phase_every_option(torch, card, ks, tmp, shape=(1200, 1000), small=(96, 80)):
+    """Phase 16: every option read from maps through the production run; see
+    the module docstring. `tmp` is a scratch directory, `shape` the
+    catchment's rows and columns, `small` the card-against-CPU catchment's."""
+    import datetime
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.io.tss import read_tss
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    from lisflood_tpu_torch.models.synthetic import (EVERY_OPTION, expected_outputs,
+                                                     write_catchment)
+    start = datetime.date(*EVERY_START)
+    t0 = time.perf_counter()
+    path = write_catchment(os.path.join(tmp, "every"), *shape, seed=0, n_steps=EVERY_DAYS,
+                           nc_format="classic", outputs=True, options=EVERY_OPTION, start=start)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "every_out")
+    os.makedirs(out)
+    settings = load_settings(path, sys_args=["-v"],
+                             vars_to_set={"Precision": "single", "PathOut": out})
+    on = sorted(k for k, v in EVERY_OPTION.items() if v)
+    print(f"  the catchment ({shape[0]}x{shape[1]}, {len(on)} options on: {', '.join(on)}) "
+          f"written in {write_s:.1f} s", flush=True)
+    seen, last, restore = sideflow_groups(ks)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        runner = lisfloodexe(settings)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    sec = runner.seconds
+    run_s = sum(v for k, v in sec.items() if k not in ("build_model", "to_device"))
+    cfg = runner.config
+    fig = {"days": EVERY_DAYS, "build_model_s": sec["build_model"], "run_s": run_s,
+           "ms_per_day": run_s / EVERY_DAYS * 1e3, "launches": launches,
+           "sideflow": sorted(set(seen))}
+    print(f"  lisfloodexe, {EVERY_DAYS} days from {start:%d/%m/%Y} at float32: {wall:.1f} s in "
+          f"all; host seconds build_model {sec['build_model']:.2f}, step built and state moved "
+          f"{sec['to_device']:.2f}, the run {run_s:.2f} (forcing {sec['forcing']:.2f}, step calls "
+          f"{sec['steps']:.2f}, copies to the host {sec['to_host']:.2f}, reports "
+          f"{sec['report']:.2f}, close {sec['close']:.2f}): {fig['ms_per_day']:.1f} ms per "
+          f"simulated day; {cfg.num_pixels} cells, {cfg.num_wregions - 1} water regions; "
+          f"{len(runner.outputs.map_writers)} map outputs, {len(runner.outputs.tss_writers)} "
+          f"TSS; card {card}", flush=True)
+    print(f"  launches by kernel: {launches} for {EVERY_DAYS} days ("
+          f"{launches['segment_sum'] / EVERY_DAYS:g} of K7 a day, phase 15's runs "
+          f"{PHASE15_K7_PER_DAY}); the sub-step kernel's sideflow operands by launch: {seen}",
+          flush=True)
+    assert runner.device.type == "cuda" and runner.dtype == torch.float32
+    assert routing_launches(launches) == {"kinwave_substep": EVERY_DAYS,
+                                          "kinwave_sweep": EVERY_DAYS,
+                                          "kinwave_sharded": 0}, launches
+    assert launches["soil_tail"] == EVERY_DAYS, launches
+    assert launches["segment_sum"] > PHASE15_K7_PER_DAY * EVERY_DAYS, launches
+    assert len(seen) == EVERY_DAYS and all({"wuse", "qin_old", "uptrans"} <= set(g)
+                                           for g in seen), seen
+    bad = [k for k, v in runner.state.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    assert not bad, f"non-finite state: {bad}"
+    names = outputs_finite(out)
+    expected = expected_outputs(settings)
+    assert set(names) == expected, (sorted(set(names) - expected), sorted(expected - set(names)))
+    trans = runner.state["TransCum"]
+    print(f"  every state entry finite ({len(runner.state)} entries, TransCum max "
+          f"{float(trans.max()):.4g} m3, PolderStorageM3 sum "
+          f"{float(runner.state['PolderStorageM3'].double().sum()):.4g} m3); the {len(names)} "
+          f"output files finite where the mask is and the registry rule's set "
+          f"(expected_outputs)", flush=True)
+    assert float(trans.max()) > 0
+    del runner
+    torch.cuda.empty_cache()
+
+    # the last day's launch of the sub-step kernel, the sideflow terms on
+    # (K4b) on the map-built schedule: its time, bound and plain version
+    spec, xs = last.pop("operands")
+    assert spec.chunk == 256 and spec.split and "lk_pos" in xs, spec
+    ys, k4b = kernel_figures(torch, ks, spec, xs, "catchment launch with the sideflow terms")
+    n = CATCHMENT_PREFIX
+    # `trans`, the transmission loss, sums differences chanq - (chanq**tp2 -
+    # tsub)**tp1 of near-equal operands (TransSub 1e-3 takes ~1e-4 of the
+    # discharge): in float32 one ulp of pow moves it by ~1e-4 of its own max.
+    # It is held on the scale of those operands, the volume the launch's
+    # largest discharge passes in one routing sub-step, as the CPU tests
+    # hold TransCum (tests/test_torch_options.py::_f32_scales); the lanes'
+    # sideflow carries the loss, so every output is held to the CPU tests'
+    # float32 gate of the all-options step after one step, 3e-5 of its max
+    volume = float(ys["chanq"][:n].abs().max()) * spec.dt_routing
+    rel, absd, plain_ms = held_on_prefix(torch, ks, spec, xs, ys, n, {"trans": volume})
+    print(f"  that launch vs the plain version on its first {n} of {spec.n_chunks} chunks: max "
+          f"rel err {rel:.3e} (tol 3e-05; trans on {volume:.4g} m3, a sub-step's volume of "
+          f"the largest discharge), max abs err {absd:.3e}; plain version {plain_ms:.1f} ms "
+          f"(one run); card {card}", flush=True)
+    assert rel <= 3e-5, f"the sideflow launch disagrees with the plain version: {rel}"
+    assert "trans" in ys and bool(torch.isfinite(ys["trans"]).all())
+    fig["kinwave_substep"] = {
+        **k4b, "launches": launches["kinwave_substep"], "plain_ms": plain_ms,
+        "max_abs_err": absd,
+        "plain_shape": f"first {n} of the {spec.n_chunks} chunks of this launch, float32"}
+    del spec, xs, ys
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: the same options at `small`, float64, -l
+    tiny = write_catchment(os.path.join(tmp, "every_small"), *small, seed=0,
+                           n_steps=EVERY_DAYS, nc_format="classic", outputs=True,
+                           options=EVERY_OPTION, start=start)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d_out = os.path.join(tmp, f"every_small_{device}")
+        os.makedirs(d_out)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            r = lisfloodexe(load_settings(tiny, sys_args=["-l"], vars_to_set={"PathOut": d_out}),
+                            device=None if device == "cuda" else "cpu")
+        runs[device] = (r, printed.getvalue().splitlines(), d_out, time.perf_counter() - t0)
+    (gpu, gpu_lines, gpu_out, gpu_s), (cpu, cpu_lines, cpu_out, cpu_s) = runs["cuda"], runs["cpu"]
+    assert gpu.dtype == cpu.dtype == torch.float64 and gpu.device.type == "cuda"
+    assert gpu_lines == cpu_lines and len(gpu_lines) == EVERY_DAYS, (gpu_lines, cpu_lines)
+    files = sorted(os.listdir(gpu_out))
+    assert files == sorted(os.listdir(cpu_out)) and set(files) == expected_outputs(gpu.settings)
+    errs = [(field_gate(n, torch.as_tensor(read_tss(os.path.join(cpu_out, n))[1]),
+                        torch.as_tensor(read_tss(os.path.join(gpu_out, n))[1]), None), n)
+            for n in files if n.endswith(".tss")]
+    errs += [(field_gate(k, v, gpu.state[k].cpu(), cpu.state), k) for k, v in cpu.state.items()
+             if v.is_floating_point()]
+    print(f"  -l at {small[0]}x{small[1]}, float64, every option: the card's {len(gpu_lines)} "
+          f"lines equal the CPU's ({gpu_lines[-1].strip()}), the same {len(files)} files; "
+          f"{len(errs)} TSS and state fields worst {max(errs)[0]:.3e} ({max(errs)[1]}) of each "
+          f"field's max (tol 1e-10); {gpu_s:.1f} s on the card, {cpu_s:.1f} s on the CPU",
+          flush=True)
+    assert max(errs)[0] <= 1e-10, errs
+    fig["small_worst"] = max(errs)[0]
+    del gpu, cpu, runs
+    torch.cuda.empty_cache()
+    return fig
+
+
+def every_option_check(torch):
+    """`python3 chip_smoke.py --every-option`: phase 16 alone."""
+    from lisflood_tpu_torch.ops import _build
+    from lisflood_tpu_torch.ops import kinwave_substep as ks
+    card = smi_line()
+    print(f"card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"  built {list(_build.SOURCES)} in {_build.build():.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fig = phase_every_option(torch, card, ks, tmp)
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps(fig), flush=True)
+    print(smi_line())
+    return 0
 
 
 # logical shards of phase 10 (the JAX package's RoutingShards default)
@@ -3616,6 +3841,8 @@ def main():
         return multi_process_check(torch)
     if sys.argv[1:] == ["--operational"]:
         return operational_check(torch)
+    if sys.argv[1:] == ["--every-option"]:
+        return every_option_check(torch)
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
     from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
@@ -3841,14 +4068,19 @@ def main():
         print("phase 15: the operational run paths: a warm start on phase 8's catchment, and a "
               "geographic catchment run twice through MapsCaching, float32", flush=True)
         operational = phase_operational(torch, card, path, tmp)
+        stamp(16)
+        print("phase 16: every option read from maps through the production run, 1200x1000, "
+              "float32, and at 96x80 in float64 on the card against the CPU", flush=True)
+        every = phase_every_option(torch, card, ks, tmp)
+        torch.cuda.empty_cache()
 
     source = "lisflood_tpu_torch/csrc/kinwave_substep.cu"
     replaces = "lisflood_tpu/ops/kinwave_pallas.py:654"
     # the plain versions, now that every device time is taken: every job
     # checked, its time (PLAIN_WORKERS side by side) and the kernel's largest
     # difference from it into the figures
-    stamp(16)
-    print("phase 16: the sub-step kernel's plain versions on the operands of phases 2 and 4-7",
+    stamp(17)
+    print("phase 17: the sub-step kernel's plain versions on the operands of phases 2 and 4-7",
           flush=True)
     plain = run_plain_jobs()
     main.update(launches=launches, plain_job=main_job, plain_shape="1200x1000, float32")
@@ -3872,6 +4104,11 @@ def main():
         {"name": "kinwave_sweep", "route": "cuda",
          "source": "lisflood_tpu_torch/csrc/kinwave_sweep.cu",
          "replaces": "lisflood_tpu/ops/kinwave_packed.py:211", "library_ms": None, **sweep})
+    # the sub-step kernel in its sideflow instantiation on phase 16's
+    # map-built catchment with every option: the last day's launch
+    figures["kernels"].append(
+        {"name": "kinwave_substep_catchment_sideflow", "route": "cuda", "source": source,
+         "replaces": replaces, "library_ms": None, **every["kinwave_substep"]})
     # K6: ms, bound and plain_ms of a channel sub-step's launch (and of the
     # overland launch, *_overland); launches of both in phase 10's run; no
     # PyTorch call computes it either
@@ -3952,6 +4189,10 @@ def main():
         if entry["name"] in ("kinwave_substep_catchment", "kinwave_sweep", "segment_sum",
                              "soil_tail"):
             entry["launches_phase15"] = {run: counts[kernel] for run, counts in runs15.items()}
+            # phase 16's production run with every option, the sub-step
+            # kernel in its sideflow instantiation
+            entry["launches_phase16"] = every["launches"][kernel]
+    every.pop("kinwave_substep")
     print(f"host synchronisations in one step, by path: {SYNCS}", flush=True)
     SOIL_COUNTS.update({"main": k8_main, "catchment": k8_catchment})
     print("K8 lanes that sub-step / the largest count, by path: "

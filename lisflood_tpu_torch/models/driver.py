@@ -336,6 +336,7 @@ class OutputManager:
         # TSS
         self.tss_writers = {}
         self.tss_samplers = {}
+        self._checked = False
         loader = aux["loader"]
         for name, ts in settings.report_timeseries.items():
             where = ts.where
@@ -361,6 +362,36 @@ class OutputManager:
                                                settings_path=settings.settings_path,
                                                write_header=not settings.flags.get("noheader"))
             self.tss_samplers[name] = (sampler, ts)
+
+    def drop_unavailable(self, diag):
+        """Leave out, with one LisfloodWarning naming them, the outputs whose
+        expression reads a field that is neither among the step's
+        diagnostics `diag` nor a parameter: the registry declares a few
+        that no step computes (WaterUseTS's WUseSumM3, PolderFluxTS's
+        PolderFlux and four maps of repTotalAbs), where the JAX package's
+        run fails with a KeyError (ROADMAP.md Queue 3). The run calls it
+        with its first step's diagnostics, before the first report; no file
+        of an output left out has been written then."""
+        if self._checked:
+            return
+        self._checked = True
+
+        def missing(expr):
+            return sorted(f for f in output_var_fields(expr)
+                          if f not in diag and f not in self._params)
+
+        gone = {w.map_key: missing(w.entry.output_var) for w, _, _ in self.map_writers}
+        gone.update({name: missing(ts.output_var) for name, (_, ts) in self.tss_samplers.items()})
+        gone = {k: v for k, v in gone.items() if v}
+        if not gone:
+            return
+        self.map_writers = [m for m in self.map_writers if m[0].map_key not in gone]
+        for name in gone:
+            self.tss_samplers.pop(name, None)
+            self.tss_writers.pop(name, None)
+        warnings.warn(LisfloodWarning(
+            "outputs left out, their fields are computed by no step: "
+            + ", ".join(f"{k} ({', '.join(v)})" for k, v in sorted(gone.items()))))
 
     def _writer_loop(self):
         while True:
@@ -701,6 +732,7 @@ class LisfloodRunner:
                 step, date = start + offset + i, self.dates[offset + i]
                 f = self.forcing_for(offset + i, date)
                 state, d = self._timed("steps", self.step, state, f)
+                self.outputs.drop_unavailable(d)
                 ends = period_ends(self.config, date)
                 fields = self.outputs.fields_at(step, step == end, *ends)
                 kept.update({(i, key): d[key] for key in fields | {"SoilCourantCapHit"}})
@@ -779,6 +811,7 @@ class LisfloodRunner:
             step, date = start + offset, self.dates[offset]
             f = self.forcing_for(offset, date)
             self.state, d = self._timed("steps", self.step, self.state, f)
+            self.outputs.drop_unavailable(d)
             monthend, yearend = period_ends(self.config, date)
             fields = self.outputs.fields_at(step, step == end, monthend, yearend)
             want = fields | {"SoilCourantCapHit"} | ({"ChanQAvg"} & set(d) if loud else set())

@@ -27,6 +27,7 @@ from ..graph import (build_flow_graph, build_schedule, cut_structures, direction
                      ldd_mask, ldd_to_channel)
 from ..io import MapLoader, NcFile, build_grid
 from ..io.forcing import ForcingReader, run_dates
+from ..io.loadmap import _normalize_xy
 from ..io.projection import read_lat_from_template
 from ..io.tables import lookup_scalar
 from ..ops.indicators import indicator_state_zero
@@ -56,6 +57,20 @@ def _stack3(loader, name1, name2=None, name3=None, P=None):
     v2 = loader.load(name2) if name2 is not None and isinstance(name2, str) else (name2 if name2 is not None else v1)
     v3 = loader.load(name3) if name3 is not None and isinstance(name3, str) else (name3 if name3 is not None else v1)
     return np.stack([_field(v1, P), _field(v2, P), _field(v3, P)])
+
+
+def _stack_slices(path, grid, n):
+    """The first `n` maps of the netCDF stack `path`, each turned to x
+    ascending and y descending and cut to the grid's window. The JAX
+    package cuts them as stored, so that a stack with x descending (or y
+    ascending) is read mirrored (ROADMAP.md Queue 3)."""
+    with NcFile(path) as nc:
+        varname = nc.main_variable()
+        xd, yd = nc.spatial_dims
+        x, y = nc.coord(xd), nc.coord(yd)
+        c0, c1, c2, c3 = grid.cut_window(np.sort(x), np.sort(y)[::-1])
+        for i in range(n):
+            yield _normalize_xy(nc.read(varname, index=i), x, y)[0][c2:c3, c0:c1]
 
 
 def mualem(residual, sat, alpha, n, m, pressure):
@@ -175,15 +190,8 @@ def build_model(settings, dtype=np.float64):
     laix = np.zeros((36, 3, P))
     for iveg, veg in enumerate(VEG_ORDER):
         path = binding[lai_maps[veg]]
-        with NcFile(path) as nc:
-            varname = nc.main_variable()
-            xd, yd = nc.spatial_dims
-            x = np.sort(nc.coord(xd))
-            y = np.sort(nc.coord(yd))[::-1]
-            c0, c1, c2, c3 = grid.cut_window(x, y)
-            for i in range(36):
-                data = nc.read(varname, index=i)
-                laix[i, iveg] = grid.compress(data[c2:c3, c0:c1], check_name=path)
+        for i, data in enumerate(_stack_slices(path, grid, 36)):
+            laix[i, iveg] = grid.compress(data, check_name=path)
     params["LAIX"] = laix
     # calendar day -> interval lookup (leafarea.py:65-70)
     lai_day_to_interval = np.zeros(367, dtype=np.int32)
@@ -636,14 +644,8 @@ def build_model(settings, dtype=np.float64):
             params["diffmaxwater"] = _field(loader.load("FracMaxWater"), P) - water_frac
             var_wno = [1, 32, 60, 91, 121, 152, 182, 213, 244, 274, 305, 335, 370]
             varw = np.zeros((12, P))
-            with NcFile(binding["WFractionMaps"]) as nc:
-                varname = nc.main_variable()
-                xd, yd = nc.spatial_dims
-                x = np.sort(nc.coord(xd))
-                y = np.sort(nc.coord(yd))[::-1]
-                c0, c1, c2, c3 = grid.cut_window(x, y)
-                for i in range(12):
-                    varw[i] = grid.compress(nc.read(varname, index=i)[c2:c3, c0:c1])
+            for i, data in enumerate(_stack_slices(binding["WFractionMaps"], grid, 12)):
+                varw[i] = grid.compress(data)
             params["varW"] = varw
             varw1 = [12]
             j = 0

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import os
 
 import numpy as np
@@ -583,16 +584,44 @@ METEO_STACKS = {"PrecipitationMaps": ("pr", 0.0, 15.0), "TavgMaps": ("ta", -5.0,
                 "ES0Maps": ("es", 0.0, 5.0)}
 
 
+def rice_calendars(days):
+    """(planting, harvest) day pairs of the first rice season such that each
+    phase of riceirrigation.py:78-179 falls on one of the calendar `days`:
+    soil saturation [planting - 20, planting - 10), flooding [planting - 10,
+    planting), growing [planting, harvest - 20) and drainage [harvest - 10,
+    harvest). Every day lies in 1..365 and no phase wraps the year end
+    (the step's `before` wraps a day below 0 to the previous year, and a
+    wrapped phase never holds), plus one season outside the run."""
+    out = set()
+    for d in days:
+        pl = max(d + 15, 20)                               # saturation on d
+        if pl <= 365 and pl - 20 <= d < pl - 10:
+            out.add((pl, pl + 120))
+        pl = min(max(d + 5, 10), 365)                      # flooding on d
+        if pl - 10 <= d < pl:
+            out.add((pl, pl + 120))
+        pl = max(d - 5, 1)                                 # growing on d
+        if pl <= d < pl + 100 and pl + 120 <= 365:
+            out.add((pl, pl + 120))
+        ha = min(max(d + 5, 10), 365)                      # drainage on d
+        if ha - 10 <= d < ha:
+            out.add((max(ha - 120, 1), ha))
+    out.add((120, 240))
+    return sorted(out)
+
+
 def _option_inputs(binding, opts, rng, dirs, nrows, ncols, n_steps, start, land, channel, order,
-                   fractions, write, write_nc, xy):
+                   fractions, write, write_nc, xy, rng2, avg_dis):
     """The inputs of the options `opts` switches on, for write_catchment:
-    maps through `write`, netCDF stacks through `write_nc`, into `binding`."""
+    maps through `write`, netCDF stacks through `write_nc`, into `binding`.
+    The options of the first slices draw from `rng`, the later ones
+    (useWaterDemandAveYear's stacks among them) from `rng2`."""
     P = nrows * ncols
-    cols = np.arange(P) % ncols
+    rows, cols = np.divmod(np.arange(P), ncols)
     end = start + datetime.timedelta(days=n_steps - 1)
 
-    def field(lo, hi):
-        return np.where(land, rng.uniform(lo, hi, P), np.nan).astype(np.float32)
+    def field(lo, hi, r=rng):
+        return np.where(land, r.uniform(lo, hi, P), np.nan).astype(np.float32)
 
     def stack(name, dates, maps):
         """A netCDF stack of `maps` at `dates` in maps/, bound to `name`."""
@@ -615,7 +644,13 @@ def _option_inputs(binding, opts, rng, dirs, nrows, ncols, n_steps, start, land,
         tss.flush()
         binding["QInTS"] = "$(PathTables)/inflow.tss"
     if opts.get("wateruse"):
-        write("WUseRegion", (cols >= ncols // 2).astype(np.int32), csf.VS_NOMINAL)
+        if opts.get("wateruseRegion"):
+            # six regions, 1..6: thirds of the columns by halves of the
+            # rows, whose borders the channels cross
+            write("WUseRegion", (1 + cols * 3 // ncols + 3 * (rows >= nrows // 2))
+                  .astype(np.int32), csf.VS_NOMINAL)
+        else:
+            write("WUseRegion", (cols >= ncols // 2).astype(np.int32), csf.VS_NOMINAL)
         write("GroundwaterBodies", (rng.random(P) < 0.6).astype(np.float32))
         for name, lo, hi in (("FractionGroundwaterUsed", 0, 0.3),
                              ("FractionNonConventionalWaterUsed", 0, 0.1),
@@ -634,14 +669,20 @@ def _option_inputs(binding, opts, rng, dirs, nrows, ncols, n_steps, start, land,
                         "IrrigationWaterReUseNumDays": "150", "LeakageReductionFraction": "0",
                         "IrrigationType": "1"})
         # the demands [mm/day], monthly from the month before the start to
-        # the month after the end
-        months = [datetime.datetime(start.year, start.month, 1)]
-        months.insert(0, (months[0] - datetime.timedelta(days=1)).replace(day=1))
-        while months[-1] <= end:
-            months.append((months[-1] + datetime.timedelta(days=32)).replace(day=1))
+        # the month after the end; with useWaterDemandAveYear one average
+        # year of twelve monthly maps, dated in 2010, whatever the run's
+        if opts.get("useWaterDemandAveYear"):
+            r, months = rng2, [datetime.datetime(2010, m, 1) for m in range(1, 13)]
+        else:
+            r, months = rng, [datetime.datetime(start.year, start.month, 1)]
+            months.insert(0, (months[0] - datetime.timedelta(days=1)).replace(day=1))
+            while months[-1] <= end:
+                months.append((months[-1] + datetime.timedelta(days=32)).replace(day=1))
         for name, hi in (("DomesticDemandMaps", 0.3), ("IndustrialDemandMaps", 0.2),
                          ("LivestockDemandMaps", 0.05), ("EnergyDemandMaps", 0.2)):
-            stack(name, months, np.stack([field(0, hi) for _ in months]))
+            stack(name, months, np.stack([field(0, hi, r) for _ in months]))
+        if opts.get("groundwaterSmooth"):
+            binding["LZSmoothRange"] = "5"
         if opts.get("indicator"):
             write("Population", field(0, 1000))
             write("LandUseMask", (rng.random(P) > 0.2).astype(np.float32))
@@ -669,6 +710,41 @@ def _option_inputs(binding, opts, rng, dirs, nrows, ncols, n_steps, start, land,
         monthly = [datetime.datetime(2000, m, 1) for m in range(1, 13)]
         stack("WFractionMaps", monthly, np.stack([water * rng.uniform(0.5, 1.0, P)
                                                   for _ in monthly]))
+
+    if opts.get("riceIrrigation"):
+        # each land cell takes one of the calendars under which a phase of
+        # the season falls in the run; the second season's days are read
+        # and not used by the step
+        days = [(start + datetime.timedelta(days=i)).timetuple().tm_yday for i in range(n_steps)]
+        calendars = np.array(rice_calendars(days), np.float64)
+        plant, harvest = calendars[rng2.integers(0, len(calendars), P)].T
+        for name, v in (("RicePlantingDay1", plant), ("RiceHarvestDay1", harvest),
+                        ("RicePlantingDay2", plant + 150), ("RiceHarvestDay2", harvest + 150)):
+            write(name, np.where(land, v, np.nan).astype(np.float32))
+        write("RiceFlooding", field(5, 15, rng2))
+        write("RicePercolation", field(1, 5, rng2))
+    if opts.get("simulatePolders"):
+        # three polders on channel cells below the largest rivers' sites,
+        # their areas in a lookup table
+        polders = order[16:25:4]
+        ids = np.zeros(P, np.int32)
+        ids[polders] = np.arange(1, 4)
+        write("PolderSites", ids, csf.VS_NOMINAL, missing=ids == 0)
+        with open(os.path.join(dirs["tables"], "TabPolderArea.txt"), "w") as fh:
+            fh.writelines(f"{i} {float(v)!r}\n" for i, v in enumerate(rng2.uniform(1e5, 1e6, 3), 1))
+        binding["TabPolderArea"] = "$(PathTables)/TabPolderArea.txt"
+        binding["PolderInitialLevelValue"] = "0.5"
+    if opts.get("simulatePF"):
+        binding["HeadMax"] = "10000000"
+    if opts.get("simulateWaterLevels"):
+        write("FloodPlainWidth", field(100, 1000, rng2))
+    if opts.get("drainedIrrigation"):
+        binding["DrainedFraction"] = "0.3"
+    if opts.get("TransLoss"):
+        # the cells whose average discharge (the AvgDis map) exceeds 20 m3/s
+        # lose water
+        binding.update({"TransArea": "20", "TransSub": "1e-3", "TransPower1": "2.0",
+                        "UpAreaTrans": avg_dis})
 
 
 # the outputs write_catchment(outputs=True) binds: the end maps of the main
@@ -732,10 +808,148 @@ OUTPUT_TSS = {"DisTS": "dis", "ChanqTS": "chanq", "WaterMassBalanceTSS": "mbErro
               "TotalRunoffAvUpsTS": "totalRunoffUps", "EvaOpenWaterAvUpsTS": "evaOpenWaterUps"}
 
 
+# every option whose inputs write_catchment writes, all at once, and the
+# report options of their outputs (option_reports)
+EVERY_OPTION_INPUTS = {
+    "inflow": True, "wateruse": True, "TransientWaterDemandChange": True, "indicator": True,
+    "TransientLandUseChange": True, "varfractionwater": True, "riceIrrigation": True,
+    "simulatePolders": True, "simulatePF": True, "simulateWaterLevels": True,
+    "groundwaterSmooth": True, "wateruseRegion": True, "useWaterDemandAveYear": True,
+    "drainedIrrigation": True, "TemperatureInKelvin": True, "TransLoss": True}
+EVERY_OPTION_REPORTS = ("repAverageDis", "repWaterUse", "repWIndex", "repTotalAbs",
+                        "repTotalWaterStorageMaps", "repPFMaps", "repPFUpsGauges",
+                        "repWaterLevelTs", "repsimulatePolders")
+EVERY_OPTION = {**EVERY_OPTION_INPUTS, **{k: True for k in EVERY_OPTION_REPORTS}}
+# outputs of the registry whose fields neither package's step computes
+# (ROADMAP.md Queue 3): option_reports leaves them unbound
+UNREPORTED = ("AreatotalIrrigationSWUseM3", "FractionAbstractedFromChannels",
+              "LivestockConsumptiveUse", "PotentialSurfaceWaterAvailabilityForIrrigationM3",
+              "PolderFluxTS", "WaterUseTS")
+_REGISTRY = os.path.join(os.path.dirname(os.path.dirname(__file__)), "config", "registry.json")
+# the options of write_catchment's main path: their outputs are END_MAPS,
+# LZState and OUTPUT_TSS
+_MAIN_PATH = {"nonInit", "SplitRouting", "simulateLakes", "simulateReservoirs", "openwaterevapo"}
+
+
+def _registry():
+    with open(_REGISTRY) as fh:
+        return json.load(fh)
+
+
+def _report_options(entry):
+    return entry.get("steps", []) + entry.get("all", []) + entry.get("end", []) + \
+        entry.get("repoption", [])
+
+
+def option_reports(opts):
+    """The outputs that write_catchment(outputs=True) binds beside END_MAPS,
+    LZState and OUTPUT_TSS, for the options `opts` (name -> bool, over the
+    registry's defaults): each map and TSS of the registry that a report
+    option switched on reports, when the options its restrictoption names
+    (but the report options) are all on and one of them is beyond the main
+    path's, and TotalWaterStorageMaps with repTotalWaterStorageMaps; not
+    those of UNREPORTED. A TSS is bound where its sites are Gauges,
+    Catchments or PolderSites. Returns the binding -> file name under
+    PathOut: the TSS as `<name>.tss`, end maps as the lower-case name,
+    stacks under a prefix whose first eight characters (PCRaster's stack
+    names) are unique."""
+    reg = _registry()
+    on = {k for k, v in {**reg["options"], **opts}.items() if v}
+    out, prefixes = {}, set()
+    for kind in ("reported_maps", "timeseries"):
+        for name, e in sorted(reg[kind].items()):
+            reports = set(_report_options(e))
+            physics = {o for o in e["restrictoption"] if not o.startswith("rep")}
+            if not (reports & on and physics <= on | {"nonInit"}):
+                continue
+            if not (physics - _MAIN_PATH or "repTotalWaterStorageMaps" in reports):
+                continue
+            if name in UNREPORTED:
+                continue
+            if kind == "timeseries":
+                if e["where"] in ("Gauges", "Catchments", "PolderSites"):
+                    out[name] = name + ".tss"
+                continue
+            prefix = name.lower()
+            if e["steps"] or e["all"]:
+                prefix = prefix[:8]
+                i = 0
+                while prefix in prefixes:
+                    i += 1
+                    prefix = f"{name.lower()[:6]}{i:02d}"
+                prefixes.add(prefix)
+            out[name] = prefix
+    return out
+
+
+def expected_outputs(settings):
+    """The names of the files a run of `settings` writes into PathOut,
+    predicted from registry.json alone with the reference's activation rule
+    (settings.py:666-680): a map or TSS is active when one of its report
+    options is on and, if it has restrictoptions, all of those are on; an
+    active output whose binding is set is written. With writeNetcdf (or
+    writeNetcdfStack) a map output is one `<binding>.nc`; in PCRaster an end
+    map is `<binding>.map` and a stack one numbered map (8.3 names) a step
+    it reports: every step within ReportSteps, the monthly ones at a month's
+    last step (which the run marks only with water use and the indicators,
+    the reference's indicatorcalc.py:92-96) and the yearly ones at a
+    year's."""
+    reg = _registry()
+    opts, binding = settings.options, settings.binding
+
+    def active(reports, restrict):
+        return any(opts.get(o) for o in reports) and all(opts.get(o) for o in restrict)
+
+    netcdf = opts.get("writeNetcdf") or opts.get("writeNetcdfStack")
+    step0 = settings.step_start_int
+    dt = datetime.timedelta(seconds=float(binding["DtSec"]))
+    dates = [settings.step_start_dt + i * dt for i in range(settings.step_end_int - step0 + 1)]
+    ends = opts.get("wateruse") and opts.get("indicator")
+    due = {"all": [], "monthly": [], "yearly": []}
+    for i, date in enumerate(dates):
+        due["all"].append(step0 + i)
+        if ends and (date + dt).month != date.month:
+            due["monthly"].append(step0 + i)
+        if ends and (date + dt).year != date.year:
+            due["yearly"].append(step0 + i)
+    rep_steps = set(settings.report_steps)
+    names, seen = set(), set()
+    for name, e in reg["reported_maps"].items():
+        path = binding.get(name)
+        if not path:
+            continue
+        path = os.path.normpath(path)
+        base = os.path.basename(path)
+        for trigger in ("end", "steps", "all"):
+            if not active(e[trigger], e["restrictoption"]) or path in seen:
+                continue
+            steps = due["monthly" if e["monthly"] else "yearly" if e["yearly"] else "all"]
+            if trigger == "steps":
+                steps = [s for s in steps if s in rep_steps]
+                if not rep_steps & set(due["all"]):
+                    continue
+            seen.add(path)
+            if netcdf:
+                names.add(base + ".nc")
+            elif trigger == "end":
+                names.add(base if base.endswith(".map") else base + ".map")
+            else:
+                for s in steps:
+                    nr = str(s)
+                    stem = f"{base[:8]}{'0' * (11 - len(base[:8]) - len(nr))}{nr}"
+                    names.add(f"{stem[:8]}.{stem[8:]}")
+    for name, e in reg["timeseries"].items():
+        path = binding.get(name)
+        if path and active(e["repoption"], e["restrictoption"]):
+            base = os.path.basename(os.path.normpath(path))
+            names.add(base if base.endswith(".tss") else base + ".tss")
+    return names
+
+
 def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_format="netcdf4",
                     outputs=False, meteo_format="pcraster", start=datetime.date(2000, 1, 1),
                     user=None, grid="laea", gauges="map", meteo_margin=0, lat_ascending=False,
-                    submask=False):
+                    submask=False, mask_format="map", lon_descending=False):
     """Write a catchment of nrows x ncols 5 km cells as LISFLOOD reads it
     from disk, into the directory `path`, and return its settings file.
 
@@ -794,7 +1008,30 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
       - `lat_ascending` (netCDF meteo): the forcing stacks' latitude (or y)
         axis runs south to north;
       - `submask`: also write SubMask.map, true on the land cells upstream
-        of the second gauge and on that cell, missing elsewhere."""
+        of the second gauge and on that cell, missing elsewhere;
+      - `mask_format` "netcdf": MaskMap bound to MaskMap.nc (1 on land, 0
+        on sea, in `nc_format`); "string": MaskMap bound to the "ncols
+        nrows cellsize west north" string of the grid, and the LDD missing
+        on the sea, which then leaves the sea out of the model's mask;
+      - `lon_descending`: every netCDF file's x (or lon) axis runs east to
+        west, with its data in that order.
+    The later options' inputs (and, with `outputs`, the reports of
+    option_reports), drawn from a third stream of `seed`:
+      - riceIrrigation: the rice fraction on about a third of the land (the
+        rainfed fraction takes it elsewhere), the first season's planting
+        and harvest days from rice_calendars of the run's days, the flooding
+        and percolation maps;
+      - simulatePolders: three polders (PolderSites) on channel cells,
+        TabPolderArea and PolderInitialLevelValue; simulatePF: HeadMax;
+        simulateWaterLevels: FloodPlainWidth; groundwaterSmooth:
+        LZSmoothRange; drainedIrrigation: DrainedFraction;
+      - wateruseRegion: six water regions (1..6) instead of two;
+      - useWaterDemandAveYear: the demand stacks as twelve monthly maps of
+        2010;
+      - TemperatureInKelvin: the temperature stack in kelvin (the same
+        draws plus 273.15);
+      - TransLoss: TransArea 20 m3/s of the AvgDis map (UpAreaTrans),
+        TransSub and TransPower1."""
     if nc_format not in ("netcdf4", "classic"):
         raise ValueError(f"nc_format {nc_format!r}: 'netcdf4' or 'classic'")
     if grid not in ("laea", "geographic"):
@@ -803,8 +1040,13 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         raise ValueError(f"gauges {gauges!r}: 'map' or 'coords'")
     if (meteo_margin or lat_ascending) and meteo_format != "netcdf":
         raise ValueError("meteo_margin and lat_ascending need meteo_format='netcdf'")
+    if mask_format not in ("map", "netcdf", "string"):
+        raise ValueError(f"mask_format {mask_format!r}: 'map', 'netcdf' or 'string'")
     geographic = grid == "geographic"
+    opts = {**CATCHMENT_OPTIONS, **({"gridSizeUserDefined": True} if geographic else {}),
+            **(options or {})}
     rng = np.random.default_rng([seed, 11])
+    rng2 = np.random.default_rng([seed, 13])
     root = os.path.abspath(path)
     dirs = {k: os.path.join(root, k) for k in ("maps", "tables", "meteo", "out")}
     for d in dirs.values():
@@ -853,7 +1095,8 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         write(name, ids, csf.VS_NOMINAL, missing=ids == 0)
 
     write("MaskMap", land.astype(np.uint8), csf.VS_BOOLEAN)
-    write("Ldd", codes.astype(np.uint8), csf.VS_LDD)
+    write("Ldd", codes.astype(np.uint8), csf.VS_LDD,
+          missing=~land if mask_format == "string" else None)
     write("Channels", channel.astype(np.uint8), csf.VS_BOOLEAN)
     sites("LakeSites", lakes)
     sites("ReservoirSites", reservoirs)
@@ -881,6 +1124,10 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
     fractions = {"WaterFraction": fr[0], "DirectRunoffFraction": fr[1],
                  "ForestFraction": fr[2], "IrrigationFraction": fr[3], "RiceFraction": fr[4]}
     fractions["OtherFraction"] = 1 - fr.sum(0)
+    if opts.get("riceIrrigation"):
+        paddy = rng2.random(P) < 0.3
+        fractions["OtherFraction"] = fractions["OtherFraction"] + np.where(paddy, 0.0, fr[4])
+        fractions["RiceFraction"] = np.where(paddy, fr[4], 0.0)
     for name, v in fractions.items():
         write(name, np.where(land, v, np.nan).astype(np.float32))
     size = np.log1p(ups) / np.log1p(ups.max())    # 0 at the headwaters, 1 at the outlet
@@ -934,7 +1181,10 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
 
     def write_nc(file, coords, var, data):
         """A netCDF file of one variable, in `nc_format` (with the grid
-        mapping on a geographic grid)."""
+        mapping on a geographic grid); x is the last of `coords`."""
+        if lon_descending:
+            coords = coords[:-1] + [(coords[-1][0], coords[-1][1][::-1], coords[-1][2])]
+            data = np.ascontiguousarray(data[..., ::-1])
         if nc_format == "classic":
             ncdf.write_classic(file, coords, var, data, fill_value=-9999.0,
                                grid_mapping=mapping)
@@ -958,6 +1208,10 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
 
     write_map_nc("netCDFtemplate", xy, "template", np.where(land, 1.0, -9999.0)
                  .reshape(nrows, ncols).astype(np.float32))
+    if mask_format == "netcdf":
+        write_map_nc("MaskMap", xy, "mask", land.reshape(nrows, ncols).astype(np.float32))
+    elif mask_format == "string":
+        binding["MaskMap"] = f"{ncols} {nrows} {cell!r} {west!r} {north!r}"
     season = 1 + 0.5 * np.sin(2 * np.pi * np.arange(36) / 36)
     for name, lo, hi in (("LAIOtherMaps", 0.5, 3), ("LAIForestMaps", 2, 6),
                          ("LAIIrrigationMaps", 0.5, 4)):
@@ -974,6 +1228,8 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
         meteo_axes[0] = (meteo_axes[0][0], meteo_axes[0][1][::-1], meteo_axes[0][2])
     for key, (prefix, lo, hi) in METEO_STACKS.items():
         maps = [field(lo, hi).reshape(nrows, ncols) for _ in range(n_steps)]
+        if key == "TavgMaps" and opts.get("TemperatureInKelvin"):
+            maps = [m + np.float32(273.15) for m in maps]
         if meteo_format == "netcdf":
             data = np.where(np.isnan(maps), -9999.0, maps).astype(np.float32)
             if meteo_margin:
@@ -991,14 +1247,14 @@ def write_catchment(path, nrows, ncols, seed=0, n_steps=4, options=None, nc_form
                               west, north, cell)
         binding[key] = f"$(PathMeteo)/{prefix}"
 
-    opts = {**CATCHMENT_OPTIONS, **({"gridSizeUserDefined": True} if geographic else {}),
-            **(options or {})}
     _option_inputs(binding, opts, np.random.default_rng([seed, 12]), dirs, nrows, ncols,
-                   n_steps, start, land, channel, order, fractions, write, write_nc, xy)
+                   n_steps, start, land, channel, order, fractions, write, write_nc, xy, rng2,
+                   binding["AvgDis"])
     if outputs:
         binding.update({k: f"$(PathOut)/{k.lower()}" for k in END_MAPS})
         binding["LZState"] = "$(PathOut)/lz"
         binding.update({k: f"$(PathOut)/{v}.tss" for k, v in OUTPUT_TSS.items()})
+        binding.update({k: f"$(PathOut)/{v}" for k, v in option_reports(opts).items()})
 
     end = start + datetime.timedelta(days=n_steps - 1)
     binding.update({

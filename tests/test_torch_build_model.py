@@ -13,9 +13,12 @@ Chan2M3Kin/4000 scale and Sideflow1Chan within 1e-2
 (tests/test_pallas_routing.py:53-60,87-108).
 
 write_catchment's option inputs and output bindings: with each option that
-reads files of its own (inflow, water use with transient or static demand
-and the indicators, transient land use, the variable water fraction), and
-with the outputs bound, both build_models still agree bit for bit."""
+reads inputs of its own (inflow, water use with transient or static demand
+and the indicators, transient land use, the variable water fraction, rice
+irrigation, polders, pF, water levels, groundwater smoothing, water
+regions, the average-year demand, drained irrigation, temperature in
+kelvin, transmission loss), and with the outputs bound, both build_models
+still agree bit for bit."""
 import dataclasses
 import datetime
 
@@ -85,6 +88,17 @@ OPTION_INPUTS = {
     "transient land use": {"TransientLandUseChange": True},
     "variable water fraction": {"varfractionwater": True},
     "outputs bound": None,
+    "rice irrigation": {"wateruse": True, "riceIrrigation": True},
+    "polders": {"simulatePolders": True},
+    "pF": {"simulatePF": True},
+    "water levels": {"simulateWaterLevels": True},
+    "groundwater smoothing": {"wateruse": True, "groundwaterSmooth": True},
+    "water regions": {"wateruse": True, "wateruseRegion": True, "indicator": True},
+    "average-year demand": {"wateruse": True, "TransientWaterDemandChange": True,
+                            "useWaterDemandAveYear": True},
+    "drained irrigation": {"drainedIrrigation": True},
+    "temperature in kelvin": {"TemperatureInKelvin": True},
+    "transmission loss": {"TransLoss": True},
 }
 
 
@@ -101,11 +115,28 @@ def test_build_model_option_inputs(tmp_path, case):
     cfg, params, state, aux = tmodel
     expected = {"inflow": ("InflowPoints", "inflow_tss"), "wateruse": ("WUseRegionC",),
                 "indicator": ("Population",), "TransientLandUseChange": ("ForestFraction",),
-                "varfractionwater": ("varW", "varW_day_to_month")}
+                "varfractionwater": ("varW", "varW_day_to_month"),
+                "riceIrrigation": ("RicePlantingDay1", "RiceHarvestDay2", "RiceFlooding"),
+                "simulatePolders": ("IsPolder", "PolderArea", "PolderStorageIniM3"),
+                "simulatePF": ("HeadMax",), "simulateWaterLevels": ("FloodPlainWidth",),
+                "groundwaterSmooth": ("LZSmoothRangeCells", "GroundwaterCatch"),
+                "wateruseRegion": ("downWRegion", "WaterRegionOutflowPoints"),
+                "TransLoss": ("UpTrans", "TransSub", "TransPower2")}
     for option in opts or ():
         for k in expected.get(option, ()):
             assert k in params or k in aux, (option, k)
     assert cfg.water_use == bool((opts or {}).get("wateruse"))
+    # the options' inputs are not their defaults
+    if "simulatePolders" in (opts or ()):
+        assert params["IsPolder"].sum() == 3 and params["PolderStorageIniM3"].max() > 0
+    if "drainedIrrigation" in (opts or ()):
+        assert params["DrainedFraction"] == 0.3
+    if "TransLoss" in (opts or ()):
+        assert 0 < params["UpTrans"].sum() < cfg.num_pixels
+    if "riceIrrigation" in (opts or ()):
+        assert 0 < (params["RiceFraction"] > 0).mean() < 0.6
+    if "useWaterDemandAveYear" in (opts or ()):
+        assert cfg.water_demand_ave_year and "DomesticDemandMM" not in params
     if opts == {"wateruse": True}:
         assert params["DomesticDemandMM"].shape == (cfg.num_pixels,)
 

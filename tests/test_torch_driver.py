@@ -48,7 +48,7 @@ from lisflood_tpu_torch.io.ncdf import NcFile
 from lisflood_tpu_torch.io.tss import read_tss
 from lisflood_tpu_torch.models.driver import LisfloodRunner, lisfloodexe
 from lisflood_tpu_torch.models.initial import meteo_forcing
-from lisflood_tpu_torch.models.synthetic import write_catchment
+from lisflood_tpu_torch.models.synthetic import EVERY_OPTION_INPUTS, write_catchment
 from lisflood_tpu_torch.utils.errors import LisfloodError
 
 DAYS = 6
@@ -59,7 +59,8 @@ JAX_PIPELINE = {"RoutingPipeline": "substeps"}
 OPTIONS = {"inflow": True, "wateruse": True, "TransientWaterDemandChange": True,
            "indicator": True, "TransientLandUseChange": True, "varfractionwater": True}
 FORCING_CASES = {"every option": OPTIONS,
-                 "static demand": {"wateruse": True, "inflow": True}}
+                 "static demand": {"wateruse": True, "inflow": True},
+                 "every option from maps": EVERY_OPTION_INPUTS}
 
 
 @pytest.fixture(scope="module")
@@ -342,8 +343,11 @@ def test_forcing_for(options_catchments, tmp_path, case, precision):
     for bit and in the same dtype, for the options meteo_forcing refused
     before: inflow, water use with transient demand and the indicators
     (MonthEnd true once, on 31/12, and YearEnd), transient land use
-    (`_t`, `_nt`), the variable water fraction; and the static demands.
-    meteo_forcing gives the same in float64."""
+    (`_t`, `_nt`), the variable water fraction; and the static demands;
+    and every option that write_catchment writes inputs for, the demands as
+    one average year (the climatology indexer across the year end) and the
+    temperature in kelvin among them. meteo_forcing gives the same in
+    float64."""
     js, ts = _pair(options_catchments[case], str(tmp_path), vars_to_set={"Precision": precision})
     jax_runner, port_runner = JaxRunner(js), LisfloodRunner(ts, device="cpu")
     host = meteo_forcing(ts, port_runner.config, port_runner.aux)
@@ -365,7 +369,7 @@ def test_forcing_for(options_catchments, tmp_path, case, precision):
         jax_runner.close()
         port_runner.close()
     keys = set(ref)
-    if case == "every option":
+    if case != "static demand":
         assert {"QInM3", "DomesticDemandMM", "VarWMonth", "ForestFraction_t",
                 "ForestFraction_nt"} <= keys
         assert ends == [(False, False)] * 3 + [(True, True)] + [(False, False)] * 2

@@ -40,31 +40,24 @@ from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, syntheti
 
 STEPS = 3
 DTYPES = {"f32": (jnp.float32, torch.float32), "f64": (jnp.float64, torch.float64)}
-# the transmission-loss inputs of the catchment: the cells whose average
-# discharge (the AvgDis map) exceeds 20 m3/s lose water
-TRANS_LOSS = {"TransArea": "20", "TransSub": "1e-3", "TransPower1": "2.0"}
 SHARDED = {"RoutingKernel": "sharded", "RoutingShards": "4"}
 
 
 @pytest.fixture(scope="module")
 def catchment(tmp_path_factory):
-    """A 48x40 catchment with its outputs bound and netCDF meteo (which the
-    JAX package's run needs)."""
+    """A 48x40 catchment with transmission loss (write_catchment's inputs:
+    the cells whose average discharge, the AvgDis map, exceeds 20 m3/s lose
+    water), its outputs bound and netCDF meteo (which the JAX package's run
+    needs)."""
     return write_catchment(tmp_path_factory.mktemp("sharded"), 48, 40, seed=0, n_steps=STEPS,
-                           outputs=True, meteo_format="netcdf")
-
-
-def _trans_loss(path):
-    """The transmission-loss bindings of `path`'s catchment."""
-    avg_dis = load_settings(path).binding["AvgDis"]
-    return {**TRANS_LOSS, "UpAreaTrans": avg_dis}
+                           outputs=True, meteo_format="netcdf", options={"TransLoss": True})
 
 
 @pytest.fixture(scope="module")
 def catchment_models(catchment):
-    """The catchment with transmission loss and RoutingKernel sharded, as
-    both build_models read it: (port settings, JAX model, port model)."""
-    kw = dict(opts_to_set=["TransLoss"], vars_to_set={**_trans_loss(catchment), **SHARDED})
+    """The catchment with RoutingKernel sharded, as both build_models read
+    it: (port settings, JAX model, port model)."""
+    kw = dict(vars_to_set=SHARDED)
     settings = load_settings(catchment, **kw)
     return (settings, jax_build_model(jax_load_settings(catchment, **kw)),
             build_model(settings))
@@ -198,13 +191,11 @@ def test_sharded_step_matches_packed(catchment_models):
 
 def _settings_copy(path, out_dir, xml):
     """`path`'s settings with RoutingKernel sharded on 4 shards, the JAX
-    package's sequential loop, transmission loss and PathOut `out_dir`,
-    written to `xml`."""
+    package's sequential loop and PathOut `out_dir`, written to `xml`."""
     with open(path) as fh:
         text = fh.read()
     text = re.sub(r'name="PathOut" value="[^"]*"', f'name="PathOut" value="{out_dir}"', text)
-    text = text.replace("<lfoptions>", '<lfoptions>\n  <setoption choice="1" name="TransLoss"/>')
-    bindings = {**SHARDED, **_trans_loss(path), "RoutingPipeline": "substeps"}
+    bindings = {**SHARDED, "RoutingPipeline": "substeps"}
     text = text.replace("<lfbinding>", "<lfbinding>\n" + "\n".join(
         f'  <textvar name="{k}" value="{v}"/>' for k, v in bindings.items()))
     with open(xml, "w") as fh:

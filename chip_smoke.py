@@ -282,6 +282,25 @@ script exits non-zero:
      side on the card (run_plain_jobs), each held within its tolerance;
      their times are side-by-side figures. In line they held the card
      ~550 s, the script's largest cost.
+ 18. the step as one captured CUDA graph (models/graph.py), which every
+     entry point replays on the card, so that the timed batches of phases
+     3-13 are replays: on each one-process path (main, all-options,
+     prerun, the 8-member ensemble, the catchment, sharded, scan and the
+     4-member folded ensembles on both) graph_figures, run where the phase
+     has its step, holds GRAPH_STEPS replays bitwise to as many eager
+     steps from the same state (every state entry and diagnostic), times
+     GRAPH_TIMED steps each way in one run, profiles one eager step and
+     one replay (device busy and idle), counts a replay's kernel launches
+     (the counts its capture recorded, equal to an eager step's) and its
+     host synchronisations (none), and prints the capture's seconds and
+     the graph pool's bytes; after phase 9's production run and phase
+     16's every-option run, graph_run_pair runs the same lisfloodexe on
+     the eager step (eager_entry_points): every output file and the end
+     state the same bits, ms per simulated day of each with the host
+     seconds by part. Phase 18 prints the table, requires every path of
+     GRAPH_PATHS and every kernel launched inside a graph. `python3
+     chip_smoke.py --graphs` runs it alone on models of its own
+     (graphs_check), the MonteCarlo/EnKF run's pair too.
 Each driven path's step launches K8 once (its count is asserted with the
 routing kernels'; the lanes that sub-step and the largest count are printed
 by path), and one step of each path runs under
@@ -867,8 +886,9 @@ def phase_prerun(torch, ks, model, card):
     s, outs, step_ms, launches = timed_steps(torch, ks, multi, s, forcing, card, sums=True)
     bad = [k for k, v in s.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
-    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    busy = profile_step(torch, multi.step, s, forcing[0], step_ms)
     SYNCS["prerun"] = sync_count(torch, multi.step, s, forcing[0], "prerun")
+    graph_figures(torch, card, "prerun", multi.stepper, multi.step, s, forcing, busy)
     SOIL_COUNTS["prerun"] = soil_tail_counts(torch, multi.step, s, forcing[0], "prerun")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "prerun")
     assert "pk$Chan2QKin" not in s and "LakeStorageM3CC" not in s, sorted(s)
@@ -929,6 +949,7 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
     module docstring. `single` is phase 3's step of one model."""
     import numpy as np
     from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models import graph
     from lisflood_tpu_torch.models.ensemble import (EnsembleRunner, ensemble_model,
                                                     fold_states, member_state, tile_forcing)
     from lisflood_tpu_torch.models.synthetic import build_synthetic_model, synthetic_forcing
@@ -970,8 +991,14 @@ def phase_ensemble(torch, ks, model, single, per_model_bytes, card):
            if v.is_floating_point() and not bool(torch.isfinite(v).all())]
     assert not bad, f"non-finite state: {bad}"
     f0 = tile_forcing(forcing[0], M, P)
-    profile_step(torch, runner.step, runner.state, f0, step_ms)
+    busy = profile_step(torch, runner.step, runner.state, f0, step_ms)
     SYNCS["ensemble"] = sync_count(torch, runner.step, runner.state, f0, "ensemble")
+    graph_figures(torch, card, "ensemble", runner.stepper,
+                  lambda s, f: runner.step(s, tile_forcing(f, M, P)), runner.state, forcing,
+                  busy)
+    # the graph's pool back to the card for the checks below
+    runner.stepper = graph.stepper(runner.step, runner.stepper.prepare)
+    torch.cuda.empty_cache()
     SOIL_COUNTS["ensemble"] = soil_tail_counts(torch, runner.step, runner.state, f0, "ensemble")
 
     spec, xs = kernel_operands(runner.cfg, runner.params, runner.state,
@@ -1213,8 +1240,9 @@ def phase_catchment(torch, ks, card, root):
           f"m3/s, max {float(q.max()):.4g} m3/s; overland discharge max "
           f"{float(torch.stack([s['OFQOther'], s['OFQForest'], s['OFQDirect']]).max()):.4g} m3/s",
           flush=True)
-    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    busy = profile_step(torch, multi.step, s, forcing[0], step_ms)
     SYNCS["catchment"] = sync_count(torch, multi.step, s, forcing[0], "catchment")
+    graph_figures(torch, card, "catchment", multi.stepper, multi.step, s, forcing, busy)
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "catchment")
     ops8, _ = soil_tail_operands(torch, multi.step, s, forcing[0])
     k8 = {**soil_tail_figures(torch, card, ops8, 1e-5, "1200x1000 catchment, float32",
@@ -1351,7 +1379,8 @@ def phase_driver(torch, ks, card, ctx, tmp):
     print(f"  lisfloodexe, {days} days at float32 on {card}: {wall:.1f} s in all; host seconds: "
           f"build_model {sec['build_model']:.1f}, step built and state moved "
           f"{sec['to_device']:.1f}; the run {run_s:.2f} (forcing read and moved "
-          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, copies to the host "
+          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, the step's capture "
+          f"{sec['capture']:.2f}, copies to the host "
           f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
           f"{per_day * 1e3:.1f} ms per simulated day end to end against phase 8's step loop "
           f"{ctx['step_ms']:.1f} ms/step; {len(runner.outputs.map_writers)} map outputs, "
@@ -1407,7 +1436,12 @@ def phase_driver(torch, ks, card, ctx, tmp):
     total_s = time.perf_counter() - t0
     print(f"  the TSS 'total' operation (host accuflux over {cfg.num_pixels} cells): "
           f"{total_s:.2f} s per TSS that takes it, per day", flush=True)
-    del runner, s, d, ref_state
+    del s, d, ref_state
+    graph_run_pair(torch, card, "production", runner,
+                   lambda o: load_settings(path, sys_args=["-v"],
+                                           vars_to_set={"Precision": "single", "PathOut": o}),
+                   out, days)
+    del runner
     torch.cuda.empty_cache()
 
     # -l at 96x80, float64, on the card and on the CPU
@@ -1476,8 +1510,9 @@ def phase_driver(torch, ks, card, ctx, tmp):
     es = ens.seconds
     print(f"  MonteCarlo + EnKF, {M} members x {days} days at float32: {wall:.1f} s in all "
           f"(build_model {runner.seconds['build_model']:.1f}, the folded model built, moved "
-          f"and perturbed {es['build']:.1f}, the days {es['days']:.2f}, EnKF {es['enkf']:.2f}, "
-          f"dumps {es['dumps']:.2f}); {es['days'] / (days * M) * 1e3:.1f} ms per member-day; "
+          f"and perturbed {es['build']:.1f}, the days {es['days']:.2f}, the step's capture "
+          f"{es['capture']:.2f}, EnKF {es['enkf']:.2f}, dumps {es['dumps']:.2f}); "
+          f"{es['days'] / (days * M) * 1e3:.1f} ms per member-day; "
           f"ring {ring} slots, {ring_mib(ring):.0f} MiB; launches {launches} for {days} "
           f"ensemble days; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {card}", flush=True)
@@ -1557,21 +1592,26 @@ def operational_run(torch, card, what, path, out, days, **vars_to_set):
 def same_outputs(a, b):
     """The output directories `a` and `b` hold the same files and every TSS
     (ids, steps, rows) and map the same bits; the files compared."""
-    import numpy as np
-    from lisflood_tpu_torch.io import csf
-    from lisflood_tpu_torch.io.tss import read_tss
     names = sorted(os.listdir(a))
     assert names == sorted(os.listdir(b)), (names, sorted(os.listdir(b)))
     for name in names:
-        fa, fb = os.path.join(a, name), os.path.join(b, name)
-        if name.endswith(".tss"):
-            (ia, ra, sa), (ib, rb, sb) = read_tss(fa), read_tss(fb)
-            assert ia == ib and np.array_equal(sa, sb) and np.array_equal(ra, rb), name
-        else:
-            ma, mb = csf.read_map(fa), csf.read_map(fb)
-            assert np.array_equal(ma.mv_mask, mb.mv_mask), name
-            assert np.array_equal(ma.data, mb.data, equal_nan=True), name
+        same_file(os.path.join(a, name), os.path.join(b, name), name)
     return names
+
+
+def same_file(fa, fb, name):
+    """The TSS (ids, steps, rows) or map `name` of two runs, `fa` and `fb`,
+    the same bits."""
+    import numpy as np
+    from lisflood_tpu_torch.io import csf
+    from lisflood_tpu_torch.io.tss import read_tss
+    if name.endswith(".tss"):
+        (ia, ra, sa), (ib, rb, sb) = read_tss(fa), read_tss(fb)
+        assert ia == ib and np.array_equal(sa, sb) and np.array_equal(ra, rb), name
+    else:
+        ma, mb = csf.read_map(fa), csf.read_map(fb)
+        assert np.array_equal(ma.mv_mask, mb.mv_mask), name
+        assert np.array_equal(ma.data, mb.data, equal_nan=True), name
 
 
 def phase_operational(torch, card, path, tmp, shape=(1200, 1000)):
@@ -1755,7 +1795,8 @@ def phase_every_option(torch, card, ks, tmp, shape=(1200, 1000), small=(96, 80))
     print(f"  lisfloodexe, {EVERY_DAYS} days from {start:%d/%m/%Y} at float32: {wall:.1f} s in "
           f"all; host seconds build_model {sec['build_model']:.2f}, step built and state moved "
           f"{sec['to_device']:.2f}, the run {run_s:.2f} (forcing {sec['forcing']:.2f}, step calls "
-          f"{sec['steps']:.2f}, copies to the host {sec['to_host']:.2f}, reports "
+          f"{sec['steps']:.2f}, the step's capture {sec['capture']:.2f}, copies to the host "
+          f"{sec['to_host']:.2f}, reports "
           f"{sec['report']:.2f}, close {sec['close']:.2f}): {fig['ms_per_day']:.1f} ms per "
           f"simulated day; {cfg.num_pixels} cells, {cfg.num_wregions - 1} water regions; "
           f"{len(runner.outputs.map_writers)} map outputs, {len(runner.outputs.tss_writers)} "
@@ -1770,6 +1811,9 @@ def phase_every_option(torch, card, ks, tmp, shape=(1200, 1000), small=(96, 80))
                                           "kinwave_sharded": 0}, launches
     assert launches["soil_tail"] == EVERY_DAYS, launches
     assert launches["segment_sum"] > PHASE15_K7_PER_DAY * EVERY_DAYS, launches
+    # the run replays its captured step: the wrapper ran at the warm-up, the
+    # first day's step, and at the capture, whose operands every replay takes
+    seen = seen[:1] + seen[1:2] * (EVERY_DAYS - 1)
     assert len(seen) == EVERY_DAYS and all({"wuse", "qin_old", "uptrans"} <= set(g)
                                            for g in seen), seen
     bad = [k for k, v in runner.state.items()
@@ -1785,6 +1829,10 @@ def phase_every_option(torch, card, ks, tmp, shape=(1200, 1000), small=(96, 80))
           f"output files finite where the mask is and the registry rule's set "
           f"(expected_outputs)", flush=True)
     assert float(trans.max()) > 0
+    graph_run_pair(torch, card, "every option", runner,
+                   lambda o: load_settings(path, sys_args=["-v"],
+                                           vars_to_set={"Precision": "single", "PathOut": o}),
+                   out, EVERY_DAYS)
     del runner
     torch.cuda.empty_cache()
 
@@ -2077,8 +2125,9 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     assert q.shape == (days, cfg.num_pixels) and bool(torch.isfinite(q).all())
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
           f"{float(q.mean()):.4g} m3/s", flush=True)
-    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    busy = profile_step(torch, multi.step, s, forcing[0], step_ms)
     SYNCS["sharded"] = sync_count(torch, multi.step, s, forcing[0], "sharded")
+    graph_figures(torch, card, "sharded", multi.stepper, multi.step, s, forcing, busy)
     SOIL_COUNTS["sharded"] = soil_tail_counts(torch, multi.step, s, forcing[0], "sharded")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "sharded")
     position_catchments = p["kinp$Catchments"].cpu().numpy()
@@ -2170,7 +2219,8 @@ def phase_sharded(torch, ks, card, ctx, tmp):
     print(f"  lisfloodexe with RoutingKernel sharded, {days} days at float32: {wall:.1f} s in all; "
           f"host seconds: build_model {sec['build_model']:.1f}, step built (partition, schedules, "
           f"routers) and state moved {sec['to_device']:.1f}; the run {run_s:.2f} (forcing "
-          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, copies to the host "
+          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, the step's capture "
+          f"{sec['capture']:.2f}, copies to the host "
           f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
           f"{run_s / days * 1e3:.1f} ms per simulated day; launches {launches_d}", flush=True)
     assert runner.config.routing_kernel == "sharded" and runner.config.num_shards == SHARDS
@@ -2306,8 +2356,9 @@ def phase_scan(torch, ks, card, ctx, tmp):
     assert q.shape == (days, cfg.num_pixels) and bool(torch.isfinite(q).all())
     print(f"  every state entry finite ({len(s)} entries, natural); ChanQAvg mean "
           f"{float(q.mean()):.4g} m3/s", flush=True)
-    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    busy = profile_step(torch, multi.step, s, forcing[0], step_ms)
     SYNCS["scan"] = sync_count(torch, multi.step, s, forcing[0], "scan")
+    graph_figures(torch, card, "scan", multi.stepper, multi.step, s, forcing, busy)
     SOIL_COUNTS["scan"] = soil_tail_counts(torch, multi.step, s, forcing[0], "scan")
     repeat_bitwise(torch, multi.step, multi.prepare_state(state), forcing, "scan")
 
@@ -2386,7 +2437,8 @@ def phase_scan(torch, ks, card, ctx, tmp):
     print(f"  lisfloodexe with RoutingKernel scan, {days} days at float32: {wall:.1f} s in all; "
           f"host seconds: build_model {sec['build_model']:.1f}, step built (routers, tables) and "
           f"state moved {sec['to_device']:.1f}; the run {run_s:.2f} (forcing "
-          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, copies to the host "
+          f"{sec['forcing']:.2f}, step calls {sec['steps']:.2f}, the step's capture "
+          f"{sec['capture']:.2f}, copies to the host "
           f"{sec['to_host']:.2f}, reports {sec['report']:.2f}, close {sec['close']:.2f}); "
           f"{run_s / days * 1e3:.1f} ms per simulated day; launches {launches_d}", flush=True)
     assert runner.config.routing_kernel == "scan"
@@ -2487,6 +2539,7 @@ def phase_ensemble_routers(torch, ks, card, ctx, tmp, singles):
     import dataclasses
 
     from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.models import graph
     from lisflood_tpu_torch.models.driver import lisfloodexe
     from lisflood_tpu_torch.models.ensemble import EnsembleRunner, tile_forcing
     from lisflood_tpu_torch.ops import kinwave_sharded as kss
@@ -2545,9 +2598,15 @@ def phase_ensemble_routers(torch, ks, card, ctx, tmp, singles):
                if v.is_floating_point() and not bool(torch.isfinite(v).all())]
         assert not bad, f"non-finite state: {bad}"
         f0 = tile_forcing(forcing[0], M, P)
-        profile_step(torch, ens.step, ens.state, f0, step_ms)
+        busy = profile_step(torch, ens.step, ens.state, f0, step_ms)
         syncs = SYNCS[f"{router} ensemble"] = sync_count(torch, ens.step, ens.state, f0,
                                                           f"{router} ensemble")
+        graph_figures(torch, card, f"{router} ensemble", ens.stepper,
+                      lambda s, f: ens.step(s, tile_forcing(f, M, P)), ens.state, forcing,
+                      busy)
+        # the graph's pool back to the card for the checks below
+        ens.stepper = graph.stepper(ens.step, ens.stepper.prepare)
+        torch.cuda.empty_cache()
         SOIL_COUNTS[f"{router} ensemble"] = soil_tail_counts(torch, ens.step, ens.state, f0,
                                                              f"{router} ensemble")
         differ, n_keys = members_bitwise(torch, ens, single, forcing)
@@ -2621,7 +2680,8 @@ def phase_ensemble_routers(torch, ks, card, ctx, tmp, singles):
     es = ens.seconds
     print(f"  MonteCarlo + EnKF, RoutingKernel sharded, {M} members x {days} days at float32: "
           f"{wall:.1f} s in all (build_model {runner.seconds['build_model']:.1f}, the folded "
-          f"model built, moved and perturbed {es['build']:.1f}, the days {es['days']:.2f}, one "
+          f"model built, moved and perturbed {es['build']:.1f}, the days {es['days']:.2f}, the "
+          f"step's capture {es['capture']:.2f}, one "
           f"EnKF analysis {es['enkf']:.2f}, dumps {es['dumps']:.2f}); "
           f"{es['days'] / (days * M) * 1e3:.1f} ms per member-day; launches {launches}; card "
           f"{card}", flush=True)
@@ -2942,7 +3002,8 @@ def profile_step(torch, step, s, f, step_ms):
     own wall time holds the profiler's cost). The idle share is printed as
     it comes out, below 0 if the profiled kernels ran longer than that
     step. A profiler that records no device time is said so on a line of
-    its own and is no failure: a machine may refuse the tracing."""
+    its own and is no failure: a machine may refuse the tracing. Returns the
+    device's busy milliseconds, kernels and idle share, or None."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2954,12 +3015,317 @@ def profile_step(torch, step, s, f, step_ms):
     busy_ms = sum(device_us(e) for e in rows) / 1e3
     if busy_ms == 0:
         print("  torch.profiler recorded no device time: idle share not measured", flush=True)
-        return
+        return None
     rows.sort(key=device_us, reverse=True)
     top = "; ".join(f"{e.key[:40]} {device_us(e) / 1e3:.1f} ms x{e.count}" for e in rows[:4])
     print(f"  one step under torch.profiler: device busy {busy_ms:.1f} ms in "
           f"{sum(e.count for e in rows)} kernels, {(1 - busy_ms / step_ms) * 100:.1f}% idle "
           f"of the unprofiled {step_ms:.1f} ms step; largest: {top}", flush=True)
+    return {"busy_ms": busy_ms, "kernels": sum(e.count for e in rows),
+            "idle": 1 - busy_ms / step_ms}
+
+
+# phase 18: the step replayed as a captured CUDA graph (models/graph.py):
+# the steps held bitwise, replay against eager step, and the steps timed
+# each way, per path
+GRAPH_STEPS = 3
+GRAPH_TIMED = 3
+# figures by path, filled where each phase has its step (graph_figures) and
+# its lisfloodexe run (graph_run_pair), printed by phase 18
+GRAPHS = {}
+# the paths phase 18 requires, and the kernels that must run inside a graph;
+# `--graphs` also holds the MonteCarlo/EnKF run to its eager run (the whole
+# script runs it on the graph in phase 9, and the folded steps' replays are
+# held bitwise in phases 7 and 13)
+GRAPH_PATHS = ("main", "all-options", "prerun", "ensemble", "catchment", "sharded", "scan",
+               "sharded ensemble", "scan ensemble", "lisfloodexe production",
+               "lisfloodexe every option")
+GRAPH_KERNELS = ("kinwave_substep", "kinwave_sweep", "kinwave_sharded", "segment_sum",
+                 "soil_tail")
+
+
+def graph_figures(torch, card, what, stepper, eager, state, forcing, eager_profile=None):
+    """A path's captured step (`stepper`, the GraphedStep its entry point
+    replays) against its eager step `eager(state, forcing)`, from the
+    prepared `state` on the days `forcing` (the single model's for a folded
+    ensemble, whose stepper tiles it inside the graph): the capture's
+    seconds and pool bytes; GRAPH_STEPS replays bitwise equal to as many
+    eager steps, every state entry and every diagnostic; ms/step eager and
+    replayed, a batch of GRAPH_TIMED steps each after one untimed step of
+    each;
+    one profiled replay and one eager step (device busy and idle; the
+    eager step's busy time from `eager_profile`, the phase's profile_step of
+    it, where given);
+    the kernel launches of a replay, from the counts its capture recorded,
+    equal to an eager step's; the host synchronisations of a replay (none).
+    Into GRAPHS[what]."""
+    from lisflood_tpu_torch.models.graph import GraphedStep
+    assert isinstance(stepper, GraphedStep) and stepper.device.type == "cuda", what
+    t_start = time.perf_counter()
+    if stepper.graph is None:
+        stepper(state, forcing[0], keys=())
+    torch.cuda.synchronize()
+    s_e, s_g, differ, counted = dict(state), state, [], (0, 0)
+    for i, f in enumerate(forcing[:GRAPH_STEPS]):
+        s_e, d_e = eager(s_e, f)
+        s_g, d_g = stepper.run(s_g, f)
+        pairs = [(k, v, s_g[k]) for k, v in s_e.items()]
+        reports = [(k, v, d_g[k]) for k, v in d_e.items() if torch.is_tensor(v)]
+        differ += [(i + 1, k) for k, a, b in pairs + reports if not tensor_bits_equal(torch, a, b)]
+        counted = (len(pairs), len(reports))
+        del d_e, d_g
+
+    def timed(fn):
+        s = dict(s_e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in forcing[:GRAPH_TIMED]:
+            s = fn(s, f)[0]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / GRAPH_TIMED * 1e3
+
+    replay = lambda s, f: stepper(s, f, keys=())
+    # one untimed step of each: the capture emptied the allocator's cache
+    eager(s_e, forcing[0])
+    replay(s_e, forcing[0])
+    eager_ms, graph_ms = timed(eager), timed(replay)
+    reset_launches()
+    replay(s_e, forcing[0])
+    per_replay = launch_counts()
+    reset_launches()
+    eager(s_e, forcing[0])
+    per_step = launch_counts()
+    print(f"  graph of the {what} step: captured in {stepper.capture_seconds:.2f} s, pool "
+          f"{stepper.pool_bytes / 2**20:.1f} MiB; {GRAPH_STEPS} replays against {GRAPH_STEPS} "
+          f"eager steps from the same state: {counted[0]} state entries and {counted[1]} "
+          f"diagnostics a step bitwise equal: {not differ}"
+          f"{'' if not differ else f' (differ: {differ[:8]})'}; ms/step eager {eager_ms:.2f}, "
+          f"replayed {graph_ms:.2f}; launches a replay "
+          f"{per_replay} (an eager step's {per_step}); card {card}", flush=True)
+    assert not differ, (what, differ)
+    assert per_replay == per_step == stepper.captured, (what, per_replay, per_step)
+    prof_e = eager_profile or profile_step(torch, eager, s_e, forcing[0], eager_ms)
+    prof_g = profile_step(torch, replay, s_e, forcing[0], graph_ms)
+    syncs = sync_count(torch, replay, s_e, forcing[0], f"{what} replay")
+    assert syncs == 0, (what, syncs)
+    GRAPHS[what] = {"capture_s": stepper.capture_seconds, "pool_bytes": stepper.pool_bytes,
+                    "bitwise_steps": GRAPH_STEPS, "eager_ms": eager_ms, "graph_ms": graph_ms,
+                    "eager_idle": prof_e and 1 - prof_e["busy_ms"] / eager_ms,
+                    "graph_idle": prof_g and prof_g["idle"],
+                    "busy_ms": prof_g and prof_g["busy_ms"],
+                    "kernels": prof_g and prof_g["kernels"], "launches": per_replay,
+                    "syncs": syncs, "seconds": time.perf_counter() - t_start}
+
+
+@contextlib.contextmanager
+def eager_entry_points():
+    """The entry points on the eager step (models/graph.EagerStep) inside the
+    block: the runs a graphed run is held to."""
+    from lisflood_tpu_torch.models import graph
+    stepper = graph.stepper
+    graph.stepper = graph.EagerStep
+    try:
+        yield
+    finally:
+        graph.stepper = stepper
+
+
+def same_tree(a, b):
+    """Two runs' output directories hold the same files with the same bits:
+    every TSS and map as same_outputs compares them, an ensemble member's
+    directory likewise and the stateVar dumps array by array. Returns the
+    files compared."""
+    import numpy as np
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b)), (a, names, sorted(os.listdir(b)))
+    files = []
+    for name in names:
+        fa, fb = os.path.join(a, name), os.path.join(b, name)
+        if os.path.isdir(fa):
+            files += [f"{name}/{n}" for n in same_tree(fa, fb)]
+        elif name.endswith(".npz"):
+            with np.load(fa) as x, np.load(fb) as y:
+                assert sorted(x.files) == sorted(y.files), name
+                assert all(np.array_equal(x[k], y[k], equal_nan=True) for k in x.files), name
+            files.append(name)
+        else:
+            same_file(fa, fb, name)
+            files.append(name)
+    return files
+
+
+def run_figures(runner, days):
+    """A lisfloodexe run's host seconds by part and ms per simulated day (of
+    its ensemble's days where it ran one)."""
+    ens = getattr(runner, "ensemble", None)
+    parts = dict(ens.seconds if ens is not None else runner.seconds)
+    run_s = (parts["days"] + parts["capture"] if ens is not None
+             else sum(v for k, v in parts.items() if k not in ("build_model", "to_device")))
+    return {"ms_per_day": run_s / days * 1e3, "parts": parts}
+
+
+def graph_run_pair(torch, card, what, runner, settings_for, out, days):
+    """The phase's lisfloodexe run on the captured step (`runner`, its
+    outputs in `out`) against the same run on the eager step
+    (`settings_for(path_out)`, into `out` + "_eager"): every output file
+    and the end state the same bits; ms per simulated day of each with the
+    host seconds by part. Into GRAPHS["lisfloodexe " + what]."""
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    eager_out = out + "_eager"
+    os.makedirs(eager_out)
+    t0 = time.perf_counter()
+    with eager_entry_points():
+        eager = lisfloodexe(settings_for(eager_out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = same_tree(out, eager_out)
+    state = lambda r: (r.ensemble if getattr(r, "ensemble", None) is not None else r).state
+    differ = [k for k, v in state(runner).items()
+              if not tensor_bits_equal(torch, v, state(eager)[k])]
+    fig = {"graph": run_figures(runner, days), "eager": run_figures(eager, days),
+           "files": len(files), "state_bitwise": not differ,
+           "seconds": time.perf_counter() - t0}
+    part = lambda f: ", ".join(f"{k} {v:.2f}" for k, v in f["parts"].items())
+    print(f"  lisfloodexe, {what}, on the captured step against the same run on the eager step "
+          f"({wall:.1f} s): {len(files)} output files and {len(state(eager))} state entries "
+          f"the same bits: {not differ}; ms per simulated day graphed "
+          f"{fig['graph']['ms_per_day']:.1f} ({part(fig['graph'])}), eager "
+          f"{fig['eager']['ms_per_day']:.1f} ({part(fig['eager'])}); card {card}", flush=True)
+    assert not differ, (what, differ)
+    GRAPHS["lisfloodexe " + what] = fig
+    del eager
+    torch.cuda.empty_cache()
+
+
+def phase_graphs(card, paths=GRAPH_PATHS):
+    """Phase 18: the figures of every path's captured step (GRAPHS), as a
+    table; every path of `paths` there, and every kernel launched inside a
+    graph on one of them."""
+    missing = [p for p in paths if p not in GRAPHS]
+    assert not missing, missing
+    print(f"  the step as a captured CUDA graph against the eager step, card {card}:", flush=True)
+    pct = lambda x: "not measured" if x is None else f"{x * 100:.1f}%"
+    inside = set()
+    for what, g in GRAPHS.items():
+        if what.startswith("lisfloodexe"):
+            print(f"  {what}: ms per simulated day eager {g['eager']['ms_per_day']:.1f}, "
+                  f"graphed {g['graph']['ms_per_day']:.1f}; {g['files']} files and the end "
+                  f"state bitwise equal", flush=True)
+            continue
+        inside |= {k for k, n in g["launches"].items() if n}
+        print(f"  {what}: ms/step eager {g['eager_ms']:.2f}, graphed {g['graph_ms']:.2f}; "
+              f"device idle eager {pct(g['eager_idle'])}, graphed {pct(g['graph_idle'])} "
+              f"(busy {g['busy_ms'] or 0:.2f} ms); capture {g['capture_s']:.2f} s, pool "
+              f"{g['pool_bytes'] / 2**20:.1f} MiB; {g['bitwise_steps']} replays bitwise; launches "
+              f"a replay {g['launches']}; host syncs {g['syncs']}", flush=True)
+    print(f"  kernels launched inside a graph: {sorted(inside)}; the graph checks took "
+          f"{sum(g['seconds'] for g in GRAPHS.values()):.1f} s in all", flush=True)
+    assert inside == set(GRAPH_KERNELS), inside
+    print("graphs: " + json.dumps(GRAPHS), flush=True)
+
+
+def graphs_check(torch):
+    """`python3 chip_smoke.py --graphs`: phase 18 alone, on models of its
+    own: the continental main path, all options, the prerun and the
+    8-member ensemble; the 1200x1000 catchment on RoutingKernel packed,
+    sharded and scan, and the 4-member folded ensembles of the last two;
+    lisfloodexe's production and MonteCarlo/EnKF runs on the catchment and
+    the every-option run on a catchment of its own, each against the same
+    run on the eager step."""
+    import dataclasses
+    from lisflood_tpu_torch.config import load_settings
+    from lisflood_tpu_torch.device import to_device
+    from lisflood_tpu_torch.models.driver import lisfloodexe
+    from lisflood_tpu_torch.models.ensemble import EnsembleRunner, tile_forcing
+    from lisflood_tpu_torch.models.initial import build_model, meteo_forcing
+    from lisflood_tpu_torch.models.step import build_multi_step
+    from lisflood_tpu_torch.models.synthetic import (EVERY_OPTION, build_synthetic_model,
+                                                     synthetic_forcing, with_options,
+                                                     write_catchment)
+    from lisflood_tpu_torch.ops import _build
+    card = smi_line()
+    print(f"graphs alone: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"kernels built in {_build.build():.1f} s", flush=True)
+    dev = lambda fs: [to_device(f, "cuda", torch.float32) for f in fs]
+
+    def path(what, cfg, params, state, aux, forcing):
+        multi, _ = build_multi_step(cfg, params, aux, dtype=torch.float32, device="cuda")
+        graph_figures(torch, card, what, multi.stepper, multi.step, multi.prepare_state(state),
+                      forcing)
+        del multi
+        torch.cuda.empty_cache()
+
+    def folded(what, model, M, forcing):
+        ens = EnsembleRunner(model, M, seed=0, dtype=torch.float32, device="cuda")
+        P = model[0].num_pixels
+        graph_figures(torch, card, what, ens.stepper,
+                      lambda s, f: ens.step(s, tile_forcing(f, M, P)), ens.state, forcing)
+        del ens
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = build_synthetic_model(1200, 1000, no_rout_steps=24, chunk_size=512)
+    cfg = model[0]
+    print(f"  continental model built on the host in {time.perf_counter() - t0:.1f} s", flush=True)
+    days = lambda extra: dev([{**synthetic_forcing(cfg.num_pixels, seed=i), **extra}
+                              for i in range(GRAPH_TIMED)])
+    path("main", *model, days({}))
+    options = with_options(model)
+    path("all-options", *options, days(options[3]["forcing_options"]))
+    del options
+    path("prerun", dataclasses.replace(cfg, init_lisflood=True), *model[1:], days({}))
+    folded("ensemble", model, 8, days({}))
+    del model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        catchment = write_catchment(os.path.join(tmp, "catchment"), 1200, 1000, seed=0,
+                                    n_steps=STEPS_RUN, nc_format="classic", outputs=True,
+                                    user={"EnsMembers": 1, "FilterSteps": ""})
+        settings = load_settings(catchment)
+        cfg, params, state, aux = build_model(settings)
+        forcing = dev(meteo_forcing(settings, cfg, aux))
+        print(f"  the 1200x1000 catchment written and built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        path("catchment", cfg, params, state, aux, forcing)
+        for router, fields in (("sharded", {"routing_kernel": "sharded", "num_shards": SHARDS}),
+                               ("scan", {"routing_kernel": "scan"})):
+            cfg_r = dataclasses.replace(cfg, **fields)
+            path(router, cfg_r, params, state, aux, forcing)
+            folded(f"{router} ensemble", (cfg_r, params, state, aux), ROUTER_MEMBERS, forcing)
+        del forcing, params, aux
+
+        def pair(what, settings_for, name, days):
+            out = os.path.join(tmp, name)
+            os.makedirs(out)
+            runner = lisfloodexe(settings_for(out))
+            torch.cuda.synchronize()
+            graph_run_pair(torch, card, what, runner, settings_for, out, days)
+
+        single = {"Precision": "single"}
+        pair("production", lambda o: load_settings(catchment, sys_args=["-v"],
+                                                   vars_to_set={**single, "PathOut": o}),
+             "production", STEPS_RUN)
+        pair("MonteCarlo/EnKF",
+             lambda o: load_settings(catchment, sys_args=["-v"], opts_to_set=["MonteCarlo", "EnKF"],
+                                     vars_to_set={**single, "PathOut": o,
+                                                  "EnsMembers": str(DRIVER_MEMBERS),
+                                                  "FilterSteps": str(DRIVER_FILTER_STEP),
+                                                  "LZState": ""}),
+             "ensemble", STEPS_RUN)
+        import datetime
+        every = write_catchment(os.path.join(tmp, "every"), 1200, 1000, seed=0,
+                                n_steps=EVERY_DAYS, nc_format="classic", outputs=True,
+                                options=EVERY_OPTION, start=datetime.date(*EVERY_START))
+        pair("every option", lambda o: load_settings(every, sys_args=["-v"],
+                                                     vars_to_set={**single, "PathOut": o}),
+             "every_out", EVERY_DAYS)
+    phase_graphs(card, GRAPH_PATHS + ("lisfloodexe MonteCarlo/EnKF",))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def count_pow_ops():
@@ -3843,6 +4209,8 @@ def main():
         return operational_check(torch)
     if sys.argv[1:] == ["--every-option"]:
         return every_option_check(torch)
+    if sys.argv[1:] == ["--graphs"]:
+        return graphs_check(torch)
     from lisflood_tpu_torch.device import to_device
     from lisflood_tpu_torch.models.step import build_multi_step
     from lisflood_tpu_torch.models.synthetic import (build_synthetic_model, synthetic_forcing,
@@ -3900,9 +4268,10 @@ def main():
     assert q.shape == (5, cfg.num_pixels) and bool(torch.isfinite(q).all()) and bool((q >= 0).all())
     print(f"  every state entry finite ({len(s)} entries); ChanQAvg {tuple(q.shape)}, "
           f"mean {float(q.mean()):.4g} m3/s", flush=True)
-    profile_step(torch, multi.step, s, forcing[0], step_ms)
+    busy = profile_step(torch, multi.step, s, forcing[0], step_ms)
     SYNCS["main"] = sync_count(torch, multi.step, s, forcing[0], "main")
     assert SYNCS["main"] == 0, "the main-path step synchronises the host"
+    graph_figures(torch, card, "main", multi.stepper, multi.step, s, forcing, busy)
 
     stamp(4)
     print("phase 4: kernel timing at the main-path shape", flush=True)
@@ -3961,8 +4330,9 @@ def main():
           f"m3/s; max |MBErrorMM| {float(outs5['MBErrorMM'].abs().max()):.3g} mm (the "
           f"reference's balance does not close with every option on; the port is held to "
           f"the reference's residual by the CPU tests)", flush=True)
-    profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
+    busy = profile_step(torch, multi5.step, s5, forcing5[0], step5_ms)
     SYNCS["all-options"] = sync_count(torch, multi5.step, s5, forcing5[0], "all-options")
+    graph_figures(torch, card, "all-options", multi5.stepper, multi5.step, s5, forcing5, busy)
     SOIL_COUNTS["all-options"] = soil_tail_counts(torch, multi5.step, s5, forcing5[0],
                                                   "all-options")
     repeat_bitwise(torch, multi5.step, multi5.prepare_state(state5), forcing5, "all-options")
@@ -4083,6 +4453,10 @@ def main():
     print("phase 17: the sub-step kernel's plain versions on the operands of phases 2 and 4-7",
           flush=True)
     plain = run_plain_jobs()
+    stamp(18)
+    print("phase 18: the step as one captured CUDA graph, every path against its eager step",
+          flush=True)
+    phase_graphs(card)
     main.update(launches=launches, plain_job=main_job, plain_shape="1200x1000, float32")
     opts.update(launches=launches5, plain_job=opts_job,
                 plain_shape="1200x1000, all options, float32")

@@ -3,10 +3,12 @@ lisflood_tpu/models/driver.py.
 
 The counterpart of the reference's lisfloodexe and DynamicFramework run loop
 (main.py:56-157, zusatz.py:116-171) and its output module
-(output.py:485-586): each day it assembles the forcing on the host and moves
-it to the device, runs the step there (the channel kernel and the overland
-sweep launch once a day) and feeds the declarative outputs (PCRaster or
-netCDF map stacks, PCRaster-style TSS gauge series) on the host.
+(output.py:485-586): it assembles the forcing on the host and moves it to
+the device (a chunk of days as one stack in `run_scanned`), runs each day's
+step there (the channel kernel and the overland sweep launch once a day; on
+the card a replay of the step captured as a CUDA graph, models/graph.py)
+and feeds the declarative outputs (PCRaster or netCDF map stacks,
+PCRaster-style TSS gauge series) on the host.
 
 Only what the outputs read goes back to the host: `OutputManager.fields_at`
 names the diagnostic fields a day reports, and `run_scanned` copies them
@@ -35,6 +37,7 @@ from ..io.csf import VS_SCALAR, write_map
 from ..io.forcing import ForcingReader, open_forcing_stack, run_dates
 from ..io.tss import TssWriter
 from ..utils.errors import LisfloodError, LisfloodWarning
+from . import graph
 from .initial import METEO_KEYS, _field, build_model
 from .step import LANDUSE_FRACTIONS, build_step, prepare_state, state_keys
 
@@ -336,7 +339,8 @@ class OutputManager:
         # TSS
         self.tss_writers = {}
         self.tss_samplers = {}
-        self._checked = False
+        # whether drop_unavailable has seen the step's diagnostics
+        self.checked = False
         loader = aux["loader"]
         for name, ts in settings.report_timeseries.items():
             where = ts.where
@@ -372,9 +376,9 @@ class OutputManager:
         run fails with a KeyError (ROADMAP.md Queue 3). The run calls it
         with its first step's diagnostics, before the first report; no file
         of an output left out has been written then."""
-        if self._checked:
+        if self.checked:
             return
-        self._checked = True
+        self.checked = True
 
         def missing(expr):
             return sorted(f for f in output_var_fields(expr)
@@ -666,11 +670,12 @@ class LisfloodRunner:
         # host seconds by part of the run: build_model, the step built and the
         # state moved to the device, each day's forcing read and moved, the
         # step calls (they return when the host has queued the day's work,
-        # or waited for the device where the step reads back), the copies to
-        # the host (which wait for the device), the reports and close
+        # or waited for the device where the step reads back), the step's
+        # capture as a CUDA graph on the card (models/graph.py), the copies
+        # to the host (which wait for the device), the reports and close
         self.seconds = {"build_model": t1 - t0, "to_device": _time.perf_counter() - t1,
-                        "forcing": 0.0, "steps": 0.0, "to_host": 0.0, "report": 0.0,
-                        "close": 0.0}
+                        "forcing": 0.0, "steps": 0.0, "capture": 0.0, "to_host": 0.0,
+                        "report": 0.0, "close": 0.0}
 
     def close(self):
         """Close the forcing readers and flush the outputs."""
@@ -683,11 +688,30 @@ class LisfloodRunner:
         """Step `offset`'s forcing on the device, in the runner's dtype."""
         t0 = _time.perf_counter()
         np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
-        f = to_device(self.forcing(offset, date, np_dtype), self.device, self.dtype)
+        f = self._with_demands(to_device(self.forcing(offset, date, np_dtype), self.device,
+                                         self.dtype))
+        self.seconds["forcing"] += _time.perf_counter() - t0
+        return f
+
+    def forcing_chunk(self, offsets):
+        """The forcing of the step offsets `offsets` on the device as one
+        stack per entry, a day a row, moved in one copy per entry (as the JAX
+        package's run_scanned stacks a chunk); the static water demands are
+        not in it."""
+        t0 = _time.perf_counter()
+        np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        days = [self.forcing(o, self.dates[o], np_dtype) for o in offsets]
+        stack = to_device({k: np.stack([f[k] for f in days]) for k in days[0]}, self.device,
+                          self.dtype)
+        self.seconds["forcing"] += _time.perf_counter() - t0
+        return stack
+
+    def _with_demands(self, f):
+        """The forcing `f` with the static water demands, the parameters
+        themselves (without TransientWaterDemandChange)."""
         if self.config.water_use and not self.config.transient_water_demand:
             for key, _ in DEMAND_KEYS:
                 f[key] = self.params[key]
-        self.seconds["forcing"] += _time.perf_counter() - t0
         return f
 
     def _timed(self, part, fn, *args):
@@ -716,24 +740,44 @@ class LisfloodRunner:
         n = self.settings.step_end_int - self.settings.step_start_int + 1
         return n if max_steps is None else min(n, max_steps)
 
+    def _capture_apart(self, runner):
+        """The step's capture (none on the CPU) out of the step calls'
+        seconds, into its own part."""
+        cap = getattr(runner, "capture_seconds", None) or 0.0
+        self.seconds["steps"] -= cap
+        self.seconds["capture"] += cap
+
+    def _reported(self, step, is_last, ends, extra=()):
+        """The diagnostics a day copies out of the step: None (every one) on
+        the first day, before drop_unavailable has seen them; then the
+        fields the day reports, SoilCourantCapHit and `extra`."""
+        if not self.outputs.checked:
+            return None
+        return self.outputs.fields_at(step, is_last, *ends) | {"SoilCourantCapHit", *extra}
+
     def run_scanned(self, chunk_steps=16, progress=False, max_steps=None):
-        """The production run: chunks of `chunk_steps` days, each day the
-        runner's step, the fields that the chunk's days report copied to the
-        host once at the chunk's end and reported there."""
+        """The production run: chunks of `chunk_steps` days, each chunk's
+        forcing moved to the device as one stack, each day the runner's step
+        (on the card a replay of the captured step, models/graph.py), the
+        fields that the chunk's days report copied to the host once at the
+        chunk's end and reported there."""
         settings = self.settings
         start, end = settings.step_start_int, settings.step_end_int
         n = self._steps(max_steps)
+        runner = graph.stepper(self.step)
         state = self._prepared()
         offset = 0
         while offset < n:
             k = min(chunk_steps, n - offset)
+            stack = self.forcing_chunk(range(offset, offset + k))
             days, kept = [], {}
             for i in range(k):
                 step, date = start + offset + i, self.dates[offset + i]
-                f = self.forcing_for(offset + i, date)
-                state, d = self._timed("steps", self.step, state, f)
-                self.outputs.drop_unavailable(d)
                 ends = period_ends(self.config, date)
+                f = self._with_demands({key: v[i] for key, v in stack.items()})
+                state, d = self._timed("steps", runner, state, f,
+                                       self._reported(step, step == end, ends))
+                self.outputs.drop_unavailable(d)
                 fields = self.outputs.fields_at(step, step == end, *ends)
                 kept.update({(i, key): d[key] for key in fields | {"SoilCourantCapHit"}})
                 days.append((step, date, ends, fields))
@@ -749,8 +793,9 @@ class LisfloodRunner:
             offset += k
         if progress:
             print()
+        self._capture_apart(runner)
         # natural-space state for downstream consumers (warm dumps, tests)
-        self.state = self.step.natural_state(state)
+        self.state = self.step.natural_state(runner.keep(state))
         self.close()
         return self.state
 
@@ -797,22 +842,27 @@ class LisfloodRunner:
 
     def run(self, progress=False, max_steps=None):
         """The run day by day, with the -l line and the -d dumps of each
-        day: the fields a day reports go to the host after that day."""
+        day: the fields a day reports go to the host after that day; on the
+        card each day is a replay of the captured step (models/graph.py)."""
         settings = self.settings
         flags = settings.flags
         loud = flags.get("loud")
         debug = flags.get("debug")
         start, end = settings.step_start_int, settings.step_end_int
         n = self._steps(max_steps)
+        runner = graph.stepper(self.step)
         self.state = self._prepared()
         if debug:
             self._debug_state(os.path.join(settings.output_dir, f"Debug_init_{start}.txt"))
         for offset in range(n):
             step, date = start + offset, self.dates[offset]
             f = self.forcing_for(offset, date)
-            self.state, d = self._timed("steps", self.step, self.state, f)
+            ends = period_ends(self.config, date)
+            extra = ("ChanQAvg",) * bool(loud) + ("ChanM3",) * bool(debug)
+            self.state, d = self._timed("steps", runner, self.state, f,
+                                        self._reported(step, step == end, ends, extra))
             self.outputs.drop_unavailable(d)
-            monthend, yearend = period_ends(self.config, date)
+            monthend, yearend = ends
             fields = self.outputs.fields_at(step, step == end, monthend, yearend)
             want = fields | {"SoilCourantCapHit"} | ({"ChanQAvg"} & set(d) if loud else set())
             host = self._timed("to_host", to_host, {k: d[k] for k in want})
@@ -832,7 +882,8 @@ class LisfloodRunner:
                                   d.get("ChanM3"))
         if progress and not loud:
             print()
-        self.state = self.step.natural_state(self.state)
+        self._capture_apart(runner)
+        self.state = self.step.natural_state(runner.keep(self.state))
         self.close()
         return self.state
 

@@ -23,7 +23,10 @@ all pixels, groundwater smoothing's mean correction, is taken per member
 (cfg.members).
 
 The members share parameters and forcing (a step's forcing is tiled over
-the members, `tile_forcing`) and each has its own state. `EnsembleRunner`
+the members, `tile_forcing`) and each has its own state. On the card the
+folded step, the tiling included, advances as a captured CUDA graph
+(`EnsembleRunner.stepper`, models/graph.py), the counterpart of the JAX
+package's `jax.jit(jax.vmap(step))`. `EnsembleRunner`
 holds the folded state; `member_states` / `fold_states` convert between it
 and per-member states in the single model's layout (the JAX package's, with
 its `pk$` schedule-packed routing entries), which is also the layout of the
@@ -48,6 +51,7 @@ JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 
@@ -56,6 +60,7 @@ import torch
 
 from ..graph.ldd import RoutingSchedule
 from ..ops.kinwave_sharded import replicate_sharded_schedule
+from . import graph
 from .driver import OutputManager, to_host
 from .step import build_step, sharded_schedules
 
@@ -244,6 +249,10 @@ class EnsembleRunner:
         self.outputs = None
         cfg_e, params_e, aux_e = ensemble_model(cfg, params, aux, n_members)
         self.step, self.params = build_step(cfg_e, params_e, aux_e, dtype, device)
+        # the step as advance runs it: on the card a replay of the folded
+        # step captured with the forcing's tiling (models/graph.py)
+        self.stepper = graph.stepper(self.step, functools.partial(tile_forcing, M=n_members,
+                                                                  P=cfg.num_pixels))
         self.cfg = cfg_e
         self.chunk = self.step.routers["kin"].ps.chunk
         generator = torch.Generator(device=self.step.device).manual_seed(seed)
@@ -270,9 +279,10 @@ class EnsembleRunner:
                   dtype=runner.dtype, device=runner.device, **kw)
         ens.runner = runner
         # host seconds: the folded model built and perturbed, the days
-        # (steps, copies and reports), the EnKF analyses and the dumps
-        ens.seconds = {"build": time.perf_counter() - t0, "days": 0.0, "enkf": 0.0,
-                       "dumps": 0.0}
+        # (steps, copies and reports), the step's capture as a CUDA graph on
+        # the card, the EnKF analyses and the dumps
+        ens.seconds = {"build": time.perf_counter() - t0, "days": 0.0, "capture": 0.0,
+                       "enkf": 0.0, "dumps": 0.0}
         if with_outputs:
             ens.outputs = []
             for m in range(n_members):
@@ -297,13 +307,14 @@ class EnsembleRunner:
     def advance(self, forcing_stack):
         """Advance all members over the steps of `forcing_stack` (the single
         model's forcing, every entry with a leading step axis, on the
-        ensemble's device). Returns the state and the last step's
-        diagnostics."""
+        ensemble's device), each step through `stepper`. Returns the state
+        and the last step's diagnostics."""
         n_steps = len(next(iter(forcing_stack.values())))
         diag = None
         for t in range(n_steps):
-            f = tile_forcing({k: v[t] for k, v in forcing_stack.items()}, self.n, self.pixels)
-            self.state, diag = self.step(self.state, f)
+            self.state, diag = self.stepper(self.state, {k: v[t] for k, v in forcing_stack.items()},
+                                            None if t == n_steps - 1 else ())
+        self.state = self.stepper.keep(self.state)
         return self.state, diag
 
     def advance_days(self, offsets):
@@ -311,24 +322,28 @@ class EnsembleRunner:
         (from_runner), each day's forcing from runner.forcing_for, and report
         each member's outputs: the fields the day reports are copied to the
         host once a day for all members, member m's slice of each to its
-        OutputManager. Returns the state and the last day's diagnostics."""
+        OutputManager. Returns the state and the last day's reported
+        fields."""
         runner = self.runner
         start, end = runner.settings.step_start_int, runner.settings.step_end_int
         diag = None
+        captured = getattr(self.stepper, "capture_seconds", None) or 0.0
         t0 = time.perf_counter()
         for offset in offsets:
             date = runner.dates[offset]
-            f = tile_forcing(runner.forcing_for(offset, date), self.n, self.pixels)
-            self.state, diag = self.step(self.state, f)
+            step = start + offset
+            fields = self.outputs[0].fields_at(step, step == end) if self.outputs else ()
+            self.state, diag = self.stepper(self.state, runner.forcing_for(offset, date), fields)
             if self.outputs:
-                step = start + offset
-                fields = self.outputs[0].fields_at(step, step == end)
-                host = to_host({k: diag[k] for k in fields if k in diag})
+                host = to_host(diag)
                 for m, man in enumerate(self.outputs):
                     man.report(step, date,
                                {k: _member_slice(v, m, self.n) for k, v in host.items()},
                                is_last=(step == end))
-        self.seconds["days"] += time.perf_counter() - t0
+        self.state = self.stepper.keep(self.state)
+        capture = (getattr(self.stepper, "capture_seconds", None) or 0.0) - captured
+        self.seconds["days"] += time.perf_counter() - t0 - capture
+        self.seconds["capture"] += capture
         return self.state, diag
 
     def close_outputs(self):

@@ -582,21 +582,30 @@ def build_step(cfg, params_np, aux, dtype=torch.float64, device=None):
 def build_multi_step(cfg, params_np, aux, output_keys=(), dtype=torch.float64, device=None):
     """Multi-step runner: `multi(state, forcing_stack) -> (state, outputs)`,
     where every forcing entry carries a leading time axis and `outputs`
-    holds only `output_keys`, stacked over time. A Python loop over the
-    steps (the JAX package's lax.scan)."""
+    holds only `output_keys`, stacked over time (the JAX package's
+    lax.scan). On the card each step is a replay of the step captured as a
+    CUDA graph (models/graph.GraphedStep, `multi.stepper`), its forcing
+    copied from the stack on the device and its outputs into the stacks; on
+    the CPU the eager step. `multi.step` is the eager step either way."""
+    from .graph import stepper
+
     step, p = build_step(cfg, params_np, aux, dtype, device)
     output_keys = tuple(output_keys)
+    runner = stepper(step)
 
     def multi(state, forcing_stack):
         n = len(next(iter(forcing_stack.values())))
-        outs = {k: [] for k in output_keys}
+        outs = {}
         for t in range(n):
-            state, d = step(state, {k: v[t] for k, v in forcing_stack.items()})
+            state, d = runner.run(state, {k: v[t] for k, v in forcing_stack.items()})
             for k in output_keys:
-                outs[k].append(d[k])
-        return state, {k: torch.stack(v) for k, v in outs.items()}
+                if k not in outs:
+                    outs[k] = d[k].new_empty((n,) + tuple(d[k].shape))
+                outs[k][t].copy_(d[k])
+        return runner.keep(state), outs
 
     multi.step = step
+    multi.stepper = runner
     multi.params = p
     multi.routers = step.routers
     multi.prepare_state = step.prepare_state

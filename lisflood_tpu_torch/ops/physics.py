@@ -283,7 +283,9 @@ def soil_columns_step(cfg, p, s, d):
     uz = torch.clamp_min(uz - uz_outflow, 0.0)
     if cfg.drained_irrigation:
         drained = p["DrainedFraction"]
-        is_irrigated = torch.tensor([0.0, 0.0, 1.0], dtype=uz.dtype, device=uz.device)[:, None]
+        # [0, 0, 1] made on the device: a copy from the host would wait for
+        # it, which a captured step refuses
+        is_irrigated = (torch.arange(3, device=uz.device) == 2).to(uz.dtype)[:, None]
         uz_outflow = uz_outflow + is_irrigated * drained * seep_gw
         uz = uz + torch.where(is_irrigated > 0, (1 - drained) * seep_gw + pref_flow, seep_gw + pref_flow)
     else:
@@ -709,7 +711,11 @@ def evapowater_init_step(cfg, p, s, d):
             "DirectRunoffFraction": p["DirectRunoffFraction"],
             "PermeableFraction": p["PermeableFraction"],
         }
-    rel_water = p["varW"][d["VarWMonth"]]
+    # a tensor index goes through index_select, which reads nothing back on
+    # the host (indexing with a 0-d device tensor does)
+    month = d["VarWMonth"]
+    rel_water = (p["varW"].index_select(0, month.reshape(1)).squeeze(0)
+                 if torch.is_tensor(month) else p["varW"][month])
     var_water = rel_water * p["diffmaxwater"]
     water = p["WaterFraction"] + var_water
     other = torch.clamp_min(p["OtherFraction"] - var_water, 0)

@@ -26,6 +26,7 @@ one tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import time
 from dataclasses import dataclass, field
@@ -67,7 +68,9 @@ class SegmentOrder:
           values' type): the kernel's scratch, kept with the order so that a
           call allocates only its output; the tickets are 0 between calls,
           and the calls of one order run one at a time: on the stream of
-          its first call on the card, `stream`, another raising;
+          its first call on the card, `stream`, another raising, and once
+          a CUDA graph has captured a call, only in that graph's replays
+          (own_scratch gives a graph an order of its own);
       segments (size,) int32: each member's segment (the spread's gather);
       classes: the plain version's pieces grouped by (rows, lanes): piece
           ids and (n, rows, lanes) member indices, -1 where none;
@@ -160,6 +163,14 @@ class SegmentOrder:
                    by_pieces=dev(order), first_piece=dev(seg_piece[:-1][order]),
                    n_active=n_active, stats=stats)
 
+    def own_scratch(self):
+        """The same order with scratch of its own (zeroed tickets), on no
+        stream yet: for calls that may run beside this order's, such as a
+        captured graph's replays."""
+        return dataclasses.replace(self, tickets=torch.zeros_like(self.tickets),
+                                   partial=torch.zeros_like(self.partial),
+                                   multi_totals=torch.zeros_like(self.multi_totals), stream={})
+
 
 # ---------------------------------------------------------------------------
 # the plain version
@@ -221,15 +232,24 @@ def _library():
     return lib
 
 
-def _claim_stream(order, stream):
+def _claim_stream(order, stream, capturing=False):
     """Holds `order` to the stream (a handle) of its first call on the card:
     its scratch (tickets, partial, multi_totals) serves one call at a time,
-    and two streams, or a graph captured on a stream of its own, could run
-    two calls at once. A call on another stream raises."""
+    and two streams could run two calls at once. A call on another stream
+    raises. A call made while `stream` is `capturing` a CUDA graph claims the
+    order for that graph: a replay runs on the stream it is launched on,
+    where an eager call could run beside it, so every later eager call
+    raises, and a capture on another stream does (own_scratch gives each
+    graph an order of its own)."""
     first = order.stream.setdefault("handle", stream)
     if first != stream:
         raise RuntimeError(f"this SegmentOrder's calls run on stream {first:#x}, not {stream:#x}: "
                            "its scratch serves one stream; build an order for each stream")
+    if capturing:
+        order.stream["graph"] = True
+    elif order.stream.get("graph"):
+        raise RuntimeError("this SegmentOrder was captured into a CUDA graph: its scratch serves "
+                           "the graph's replays; call a SegmentOrder.own_scratch() copy eagerly")
 
 
 def _launch(values, order, spread):
@@ -251,7 +271,7 @@ def _launch(values, order, spread):
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _claim_stream(order, stream)
+        _claim_stream(order, stream, torch.cuda.is_current_stream_capturing())
         rc = lib.segment_sum_launch(ctypes.byref(args), int(values.dtype == torch.float64),
                                     ctypes.c_void_p(stream), ctypes.byref(launched))
     if rc != 0:
@@ -288,7 +308,8 @@ def segment_total(values, order):
     fixes: csrc/segment_sum.cu on a CUDA tensor, the plain version on a CPU
     tensor. On the card every call on one order runs on one stream, the
     first call's (the order's scratch serves one call at a time; another
-    stream raises): an order for each stream, or for a captured graph's."""
+    stream raises): an order for each stream, or for a captured graph's
+    (own_scratch)."""
     return _run(values, order, False)
 
 

@@ -15,7 +15,10 @@ back from the output; the padding solved elementwise. It must give the bits
 of the plain `_sweep_sharded` in float32 and float64 at caps 1, 64 and 1024,
 and with every tile sent down each path, and it is held to the JAX package's
 sharded sweep within the tolerances of test_torch_sharded.py's router test
-(float64) and of the sharded step's first step (float32)."""
+(float64) and of the sharded step's first step (float32). The emulation on
+every graph at every cap, bit for bit with `_sweep_sharded`, is
+tests/test_torch_sharded_emulation.py's (a file of its own, so that the
+tier-1 run, which gives each file whole to a worker, runs it beside these)."""
 import numpy as np
 import pytest
 import torch
@@ -366,28 +369,6 @@ def _plain_q(graphs, name, dtype, const_p, adx_p):
 
 def _bits(q):
     return q.view(torch.int32 if q.dtype == torch.float32 else torch.int64)
-
-
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("cap", CAPS)
-@pytest.mark.parametrize("name", GRAPHS)
-def test_emulation_bitwise(graphs, name, cap, dtype):
-    """The kernel's launch, emulated under its plan on an H100 (the copies
-    landing late, and at once for the ring tiles), gives the bits of the
-    plain version `_sweep_sharded`; and the wrapper on the CPU runs the
-    plain version."""
-    _, (const_p, adx_p) = _operands(graphs, name, dtype)
-    router = _router(graphs, name)
-    tiles = router.sweep_tiles(cap)
-    ref = _plain_q(graphs, name, dtype, const_p, adx_p)
-    plan = _plan(tiles, const_p.shape[0], const_p.element_size())
-    got = emulate(const_p, adx_p, tiles, plan)
-    assert torch.equal(_bits(got), _bits(ref))
-    if plan["ring_tiles"]:
-        assert torch.equal(_bits(emulate(const_p, adx_p, tiles, plan, late=False)), _bits(ref))
-    if cap == SWEEP_CAP:
-        wrapped = S.kinwave_sharded_sweep(const_p, adx_p, tiles, BETA)
-        assert torch.equal(_bits(wrapped), _bits(ref))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
